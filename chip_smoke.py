@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``racon_tpu_torch``) on one GPU.
+
+Run from the root of a checkout, with no arguments: ``python3
+chip_smoke.py``. It needs one CUDA device, ``nvcc`` and ``nvidia-smi``,
+and it exits non-zero (printing no result) when any of them is missing or
+any phase fails. Phases, one JSON line each:
+
+1. device  — the card's name and power limit (``nvidia-smi``);
+2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
+             ``nvcc`` per source, all at once;
+3. main    — ``create_polisher(..., aligner="cuda", consensus="cuda")``
+             polishes a simulated 1 Mbp genome at 30x ONT-like reads
+             (seed 23): stage times, kernel launch counts (counted from
+             zero just before the run; all must be > 0), the shape of every
+             launch, host-fallback counts, the draft's and the polished
+             contig's edit distance to the truth, peak device memory;
+4. kernels — each kernel at every shape the main path launched it at (its
+             largest consensus group; each aligner bucket at its largest
+             chunk, on pairs drawn like the simulator's), held bit-exact
+             against its plain PyTorch version on the same card inputs (a
+             prefix of the pairs where the plain version would take
+             minutes), timed with CUDA events;
+5. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
+             card and with the plain PyTorch kernels on the CPU: the FASTA
+             bytes must be identical;
+6. profile — the main path once more under ``torch.profiler``: device
+             time by kernel and the device's idle share.
+
+Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Details too long for the end of the
+output go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from racon_tpu_torch import native
+from racon_tpu_torch.core.polisher import create_polisher
+from racon_tpu_torch.ops import _build, cuda_nw
+from racon_tpu_torch.ops.nw import CudaAligner, build_rows, sweep_bound
+from racon_tpu_torch.ops.poa import (CH, DEL, GROW, K_INS, Q_PAD, T_PAD,
+                                     sweep_geometry)
+from racon_tpu_torch.ops.swar import use_packed16
+from racon_tpu_torch.utils.simulate import _mutate, write_inputs
+
+ROOT = pathlib.Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+# H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 rate, and
+# the int32 ALU rate — 64 INT32 lanes per SM per clock x 132 SMs x
+# 1.98 GHz boost — for the integer DP
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Operations the function needs, counted per step of the algorithm (not
+# from the kernels' code), so both forward kernels share one bound.
+# A DP cell, with its scores held two to a 32-bit lane (every value fits
+# int16, as the packed kernel shows): per pair of cells 3 adds (diagonal +
+# mismatch, insertion + 1, deletion + 1), 3 mins (best of three, the
+# saturation clamp), 2 equality tests and 1 select for the direction code,
+# 2 range compares, 1 and and 1 select for the interior mask = 13 lane
+# operations = 6.5 per cell; the mismatch test at 4 byte lanes per operation
+# (0.25) and the 2-bit direction packing (1 shift-or per cell) bring it to 8.
+OPS_PER_CELL = 8
+# A walk step: the lane index (3), the direction byte's address (3), the
+# 2-bit code's extraction (2), the boundary selects (2) and the i/j step (2)
+# = 12; the vote stream adds the query lane's weight and code (2), the
+# column (1), the M/D/insertion address select (4), the insertion run and
+# slot (2) and the validity test (3) = 24.
+OPS_PER_STEP = {"walk_ops": 12, "walk_vote": 24}
+# pairs x lanes x steps a plain-version comparison may cover: the plain
+# versions loop over wavefronts in Python and would take minutes at the
+# largest aligner chunks, so those are held on a prefix of at least 256 of
+# the launch's pairs
+PLAIN_CELLS = 12 * 10 ** 9
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def bound(ops: float, nbytes: float):
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean ms per call over ``reps`` calls after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# ------------------------------------------------------------ inputs
+
+def mutated_pairs(rng, B, lo, hi, err, alphabet):
+    """B (query, target) pairs over ``alphabet``: random targets of length
+    in [lo, hi), queries with substitutions, deletions and insertions at
+    rate ``err`` split three ways."""
+    pairs = []
+    for _ in range(B):
+        t = alphabet[rng.integers(0, 4, int(rng.integers(lo, hi)))]
+        q = t.copy()
+        flips = rng.random(len(q)) < err / 3
+        q[flips] = alphabet[rng.integers(0, 4, int(flips.sum()))]
+        q = q[rng.random(len(q)) >= err / 3]
+        ins = rng.random(len(q)) < err / 3
+        q = np.insert(q, np.flatnonzero(ins),
+                      alphabet[rng.integers(0, 4, int(ins.sum()))])
+        pairs.append((q, t))
+    return pairs
+
+
+def consensus_shape_inputs(dev, Lq, band, B):
+    """One consensus group at the main path's geometry (``Lq``, ``band``,
+    ``B`` layer pairs): ~500 bp window layers at 15% error, rows laid out
+    as refine_round builds them (query/target pad codes 6/7)."""
+    rng = np.random.default_rng(101)
+    Lb = min(Lq - band + GROW, Lq)
+    pairs = mutated_pairs(rng, B, 470, 530, 0.15,
+                          np.arange(4, dtype=np.uint8))
+    c = band // 2
+    width = c + Lq + band
+    qrp = np.full((B, width), Q_PAD, np.uint8)
+    tp = np.full((B, width), T_PAD, np.uint8)
+    n = np.zeros(B, np.int32)
+    m = np.zeros(B, np.int32)
+    for k, (q, t) in enumerate(pairs):
+        q = q[:Lq]
+        qrp[k, c + Lq - len(q): c + Lq] = q[::-1]
+        tp[k, c: c + len(t)] = t
+        n[k], m[k] = len(q), len(t)
+    steps, Lq2 = sweep_geometry(Lq, int((n + m).max()) + 65, int(n.max()))
+    qpw = ((rng.integers(0, 94, (B, Lq2)).astype(np.uint16) << 3)
+           | rng.integers(0, 5, (B, Lq2)).astype(np.uint16))
+    bg = rng.integers(0, Lb - 530, B).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(qrp=t(qrp), tp=t(tp), n=t(n), m=t(m), band=band, Lq=Lq,
+                Lb=Lb, steps=steps, qpw=t(qpw.view(np.int16)), bg=t(bg),
+                shape=f"consensus B={B} Lq={Lq} band={band} steps={steps}")
+
+
+def aligner_bucket_inputs(dev, bucket, B, seed):
+    """One aligner chunk of ``bucket`` (max_len, band) with ``B`` pairs as
+    the main path makes them: a truth span of the simulator's read length
+    (normal, mean 7 kbp, sd 1.5 kbp, clipped to 2-8 kbp), the read drawn
+    from it with the simulator's read errors and the draft span with its
+    draft errors, kept when the aligner puts the pair in ``bucket``; rows
+    built by ops.nw.build_rows."""
+    rng = np.random.default_rng(seed)
+    aligner = CudaAligner(device=dev)
+    bi = aligner.buckets.index(bucket)
+    max_len, band = bucket
+    pairs = []
+    for _ in range(1000 * B):
+        if len(pairs) == B:
+            break
+        size = int(np.clip(rng.normal(7000, 1500), 2000, 8000))
+        truth = BASES[rng.integers(0, 4, size)]
+        q = _mutate(truth, rng, 0.03, 0.03, 0.06)[0]
+        t = _mutate(truth, rng, 0.02, 0.02, 0.06)[0]
+        if aligner._bucket_index(len(q), len(t)) == bi:
+            pairs.append((q, t))
+    if len(pairs) < B:
+        raise RuntimeError(f"could not draw {B} pairs of bucket {bucket}")
+    qcat = np.zeros(B * max_len, np.uint8)
+    tcat = np.zeros(B * max_len, np.uint8)
+    n = np.zeros(B, np.int32)
+    m = np.zeros(B, np.int32)
+    for k, (q, t) in enumerate(pairs):
+        qcat[k * max_len: k * max_len + len(q)] = q
+        tcat[k * max_len: k * max_len + len(t)] = t
+        n[k], m[k] = len(q), len(t)
+    steps = sweep_bound(int((n + m).max()), max_len)
+    nd = torch.from_numpy(n).to(dev)
+    md = torch.from_numpy(m).to(dev)
+    qrp, tp = build_rows(torch.from_numpy(qcat).to(dev),
+                         torch.from_numpy(tcat).to(dev), nd, md,
+                         max_len=max_len, band=band)
+    return dict(qrp=qrp, tp=tp, n=nd, m=md, band=band, Lq=max_len,
+                steps=steps, shape=f"aligner ({max_len}, {band}) B={B} "
+                                   f"steps={steps}")
+
+
+# ------------------------------------------------------------ checks
+
+def fwd_err(got, ref, n, m) -> int:
+    """Largest |kernel - plain| over the scores and the direction bytes
+    below each pair's n + m (the rows a walk reads); ``ref`` covers a
+    prefix of ``got``'s pairs. Compared 32 pairs at a time."""
+    (dirs, score), (dirs_ref, score_ref) = got, ref
+    P = dirs_ref.shape[0]
+    err = int((score[:P].long() - score_ref.long()).abs().max())
+    rows = torch.arange(dirs.shape[1], device=dirs.device)[None, :, None]
+    for k in range(0, P, 32):
+        sl = slice(k, min(k + 32, P))
+        live = rows < (n[sl].long() + m[sl].long())[:, None, None]
+        diff = (dirs[sl].int() - dirs_ref[sl].int()).abs() * live
+        err = max(err, int(diff.max()))
+    return err
+
+
+def plain_pairs(inp) -> int:
+    """Pairs the plain versions are held on: all of them, or a prefix
+    when pairs x lanes x steps exceeds PLAIN_CELLS."""
+    B = inp["n"].shape[0]
+    per_pair = (inp["band"] // 2) * inp["steps"]
+    return min(B, max(256, PLAIN_CELLS // per_pair))
+
+
+def fwd_entry(name, inp, packed16, reps):
+    args = (inp["qrp"], inp["tp"], inp["n"], inp["m"])
+    kw = dict(max_len=inp["Lq"], band=inp["band"], steps=inp["steps"],
+              packed16=packed16)
+    P = plain_pairs(inp)
+    got = cuda_nw.nw_fwd(*args, **kw)
+    ref, plain_ms = timed_once(
+        lambda: cuda_nw.nw_fwd_plain(*(a[:P] for a in args), **kw))
+    err = fwd_err(got, ref, inp["n"], inp["m"])
+    del ref
+    ms = time_ms(lambda: cuda_nw.nw_fwd(*args, **kw), reps)
+    B = args[0].shape[0]
+    nm = torch.clamp(inp["n"].long() + inp["m"].long(),
+                     max=inp["steps"])
+    U, RB = inp["band"] // 2, inp["band"] // 8
+    cells = float(nm.sum()) * U
+    nbytes = 2 * args[0].numel() + 8 * B + float(nm.sum()) * RB + 4 * B
+    bms, by = bound(cells * OPS_PER_CELL, nbytes)
+    return got, dict(shape=inp["shape"], max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, plain_pairs=P, bound_ms=bms,
+                     bound_by=by, library_ms=None)
+
+
+def walk_entry(dirs, inp, reps):
+    """K2 on a forward pass's direction matrix."""
+    n, m, band = inp["n"], inp["m"], inp["band"]
+    P = plain_pairs(inp)
+    got = cuda_nw.walk_ops(dirs, n, m, band=band)
+
+    def plain():
+        ops, fi, fj = cuda_nw.walk_plain(dirs[:P], n[:P], m[:P], band=band)
+        return cuda_nw.pack_ops(ops), fi, fj
+
+    ref, plain_ms = timed_once(plain)
+    err = max(int((a[:P].int() - b.int()).abs().max())
+              for a, b in zip(got, ref))
+    ms = time_ms(lambda: cuda_nw.walk_ops(dirs, n, m, band=band), reps)
+    steps_real = float((cuda_nw.unpack_ops(got[0]) < 3).sum())
+    B, S = dirs.shape[:2]
+    bms, by = bound(steps_real * OPS_PER_STEP["walk_ops"],
+                    steps_real + 8 * B + B * S // 4 + 8 * B)
+    return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
+def vote_entry(dirs, inp, reps):
+    """K3 on a forward pass's direction matrix."""
+    n, m, band = inp["n"], inp["m"], inp["band"]
+    P = plain_pairs(inp)
+    kw = dict(band=band, L=inp["Lb"], K=K_INS, CH=CH, DEL=DEL)
+    vargs = (dirs, n, m, inp["bg"], inp["qpw"])
+    got = cuda_nw.walk_vote(*vargs, **kw)
+
+    def plain():
+        ops, fi, fj = cuda_nw.walk_plain(dirs[:P], n[:P], m[:P], band=band)
+        idx, w = cuda_nw.vote_from_ops(ops, n[:P], m[:P], inp["qpw"][:P],
+                                       inp["bg"][:P], L=inp["Lb"], K=K_INS,
+                                       CH=CH, DEL=DEL)
+        return idx, w, fi, fj
+
+    ref, plain_ms = timed_once(plain)
+    err = max(int((a[:P].long() - b.long()).abs().max())
+              for a, b in zip(got, ref))
+    ms = time_ms(lambda: cuda_nw.walk_vote(*vargs, **kw), reps)
+    B, S = dirs.shape[:2]
+    VOT = inp["Lb"] * (1 + K_INS) * CH
+    steps_real = float((got[0] < VOT).sum())
+    bms, by = bound(steps_real * OPS_PER_STEP["walk_vote"],
+                    steps_real * 3 + 16 * B + 5 * B * S + 8 * B)
+    return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
+def phase_kernels(dev, main):
+    """Both forward kernels and the walk that follows at every shape the
+    main path launched: its largest consensus group, and each aligner
+    bucket at its largest chunk. A forward kernel's headline row is the
+    first shape at which the engines pick it (``swar.use_packed16``), the
+    walk's is the bucket with the most chunks; the other rows go to
+    ``other_shapes``."""
+    Lq, band, _, B, _ = max(main["consensus_group_shapes"],
+                            key=lambda g: g[3])
+    chunks = {}   # bucket -> (largest padded batch, chunks launched)
+    for max_len, bnd, _, Bc, _ in main["aligner_chunk_shapes"]:
+        big, count = chunks.get((max_len, bnd), (0, 0))
+        chunks[(max_len, bnd)] = (max(big, Bc), count + 1)
+    busiest = max(chunks, key=lambda k: chunks[k][1])
+    rows = {name: [] for name in cuda_nw.KERNELS}
+    shapes = [("consensus", None)] + sorted(chunks.items())
+    for seed, (key, val) in enumerate(shapes):
+        if key == "consensus":
+            inp = consensus_shape_inputs(dev, Lq, band, B)
+            reps = 5
+        else:
+            inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed)
+            reps = 3
+        for name, packed16 in (("nw_fwd_i32", False),
+                               ("nw_fwd_i16x2", True)):
+            dirs = None   # free the int32 pass's matrix before the next
+            (dirs, _), row = fwd_entry(name, inp, packed16, reps)
+            # headline: the first shape at which the engines pick it
+            row["headline"] = (use_packed16(inp["Lq"], inp["band"])
+                               == packed16)
+            rows[name].append(row)
+        if key == "consensus":
+            row = vote_entry(dirs, inp, reps)
+            row["headline"] = True
+            rows["walk_vote"].append(row)
+        else:
+            row = walk_entry(dirs, inp, reps)
+            row["headline"] = key == busiest
+            rows["walk_ops"].append(row)
+        del dirs, inp
+        torch.cuda.empty_cache()
+    entries = {}
+    for name, rs in rows.items():
+        head = next((r for r in rs if r["headline"]), rs[0])
+        for r in rs:
+            del r["headline"]
+        entries[name] = dict(head, other_shapes=[r for r in rs
+                                                 if r is not head])
+        entries[name]["ok"] = all(r["max_abs_err"] == 0 for r in rs)
+    return entries
+
+
+def phase_main(dev, mbp=1.0):
+    data = ROOT / "build" / "smoke_data"
+    t0 = time.perf_counter()
+    paths = write_inputs(mbp, str(data), seed=23, coverage=30)
+    sim_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    t0 = time.perf_counter()
+    polisher = create_polisher(paths["reads"], paths["overlaps"],
+                               paths["draft"], num_threads=8,
+                               aligner="cuda", consensus="cuda",
+                               device=dev)
+    polished = polisher.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(cuda_nw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = dict(polisher.timings)
+    aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
+
+    def fasta_seq(path):
+        lines = pathlib.Path(path).read_bytes().split(b"\n")
+        return b"".join(l for l in lines if l and not l.startswith(b">"))
+
+    truth = fasta_seq(paths["truth"])
+    draft = fasta_seq(paths["draft"])
+    t0 = time.perf_counter()
+    # the two O(n^2 / 64) distances run side by side (ctypes drops the GIL)
+    with ThreadPoolExecutor(2) as pool:
+        ed_draft, ed_polished = pool.map(
+            lambda seq: native.edit_distance(seq, truth),
+            [draft, polished[0].data])
+    ed_s = time.perf_counter() - t0
+    out = dict(phase="main", simulate_s=sim_s, wall_s=wall_s,
+               stages_s=stages, launches=launches,
+               n_contigs=len(polished), polished_len=len(polished[0].data),
+               truth_len=len(truth), ed_draft=ed_draft,
+               ed_polished=ed_polished, edit_distance_s=ed_s,
+               peak_device_bytes=peak,
+               aligner_pairs_device=aligner["device"],
+               aligner_pairs_host=(aligner["fallback_length"]
+                                   + aligner["fallback_band"]),
+               aligner_band_escalated=aligner["band_escalated"],
+               aligner_chunks=aligner["chunks"],
+               aligner_swar_chunks=aligner["swar_chunks"],
+               consensus_windows_device=consensus["device_windows"],
+               consensus_windows_host=consensus["fallback_windows"],
+               consensus_windows_passthrough=consensus["passthrough"],
+               consensus_groups=consensus["groups"],
+               consensus_wavefront_steps=consensus["wavefront_steps"],
+               aligner_chunk_shapes=aligner["chunk_shapes"],
+               consensus_group_shapes=consensus["group_shapes"])
+    emit(out)
+    if len(polished) != 1 or not polished[0].data:
+        raise RuntimeError("expected one polished contig")
+    if set(polished[0].data) - set(b"ACGTN"):
+        raise RuntimeError("polished contig holds non-base bytes")
+    if not ed_polished * 4 < ed_draft:
+        raise RuntimeError(f"polishing did not cut the edit distance: "
+                           f"{ed_draft} -> {ed_polished}")
+    return out, paths
+
+
+def phase_agree(dev):
+    """The card against the plain PyTorch kernels end to end: a small
+    simulated genome (0.02 Mbp, 1-2 kbp reads, seed 11) polished with both
+    device engines on the card and on the CPU must give the same FASTA
+    bytes (the CPU side is held byte-identical to the JAX package by
+    tests/test_torch_pipeline.py)."""
+    from racon_tpu_torch.utils.simulate import simulate
+    reads, paf, draft, _ = simulate(0.02, seed=11, mean_read=1500,
+                                    max_read=2000, min_read=1000)
+    data = ROOT / "build" / "smoke_small"
+    data.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for key, name, blob in (("reads", "reads.fastq", reads),
+                            ("overlaps", "ovl.paf", paf),
+                            ("draft", "draft.fasta", draft)):
+        paths[key] = str(data / name)
+        pathlib.Path(paths[key]).write_bytes(blob)
+    fasta, seconds = {}, {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        out = create_polisher(paths["reads"], paths["overlaps"],
+                              paths["draft"], num_threads=8,
+                              aligner="cuda", consensus="cuda",
+                              device=where).run()
+        seconds[where.type] = time.perf_counter() - t0
+        fasta[where.type] = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                                     for s in out)
+    same = fasta["cuda"] == fasta["cpu"]
+    out = dict(phase="agree", fasta_bytes=len(fasta["cuda"]),
+               identical=same, seconds=seconds)
+    emit(out)
+    if not same:
+        raise RuntimeError("card and plain-kernel FASTA differ")
+    return out
+
+
+def phase_profile(dev, paths):
+    """The main path once more under torch.profiler: device time by
+    kernel and the device's idle share of the run's wall time (one
+    stream, so busy time is the sum of device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    polisher = create_polisher(paths["reads"], paths["overlaps"],
+                               paths["draft"], num_threads=8,
+                               aligner="cuda", consensus="cuda",
+                               device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        polisher.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): host ops report the
+        # device time of the kernels they launched as well
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_s = sum(us for _, us, _ in rows) / 1e6
+    ours = {name: sum(us for key, us, _ in rows if f"{name}_kernel" in key)
+            / 1e6 for name in cuda_nw.KERNELS}
+    out = dict(phase="profile", wall_s=wall_s, stages_s=polisher.timings,
+               device_busy_s=busy_s,
+               idle_share=(1.0 - busy_s / wall_s) if busy_s else None,
+               kernel_device_s=ours,
+               top=[dict(name=k[:80], device_s=us / 1e6, count=c)
+                    for k, us, c in rows[:12]])
+    emit({k: v for k, v in out.items() if k != "top"})
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this "
+              "script needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    record = {}
+    t_start = time.perf_counter()
+
+    line = gpu_line()
+    record["device"] = dict(phase="device", nvidia_smi=line,
+                            name=torch.cuda.get_device_name(0),
+                            count=torch.cuda.device_count(),
+                            torch=torch.__version__,
+                            cuda=torch.version.cuda)
+    emit(record["device"])
+
+    t0 = time.perf_counter()
+    _build.build_all(force=True, verbose_ptxas=True)
+    cuda_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    native.build(force=True)   # the host engines the device ones fall back to
+    record["build"] = dict(phase="build", cuda_s=cuda_s,
+                           native_s=time.perf_counter() - t1,
+                           per_source={k: v["seconds"] for k, v in
+                                       _build.build_log.items()})
+    emit(record["build"])
+    ptxas = {k: v["ptxas"] for k, v in _build.build_log.items()}
+
+    t0 = time.perf_counter()
+    record["main"], paths = phase_main(dev)
+    record["main"]["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    entries = phase_kernels(dev, record["main"])
+    record["kernels"] = dict(phase="kernels",
+                             seconds=time.perf_counter() - t0,
+                             kernels=entries)
+    emit(record["kernels"])
+    bad = [k for k, e in entries.items() if not e["ok"]]
+    missing = [k for k, v in record["main"]["launches"].items() if v <= 0]
+
+    record["agree"] = phase_agree(dev)
+    record["profile"] = phase_profile(dev, paths)
+
+    kernels = []
+    for name, e in entries.items():
+        source, replaces = cuda_nw.KERNELS[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=record["main"]["launches"][name],
+            max_abs_err=e["max_abs_err"], ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=e["library_ms"],
+            shape=e["shape"], ok=e["ok"],
+            other_shapes=e.get("other_shapes", [])))
+    record["total_s"] = time.perf_counter() - t_start
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
+        dict(record, summary=kernels, ptxas=ptxas), indent=1))
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: "
+                           f"{bad}")
+    if missing:
+        raise RuntimeError(f"kernels not launched on the main path: "
+                           f"{missing}")
+    emit({"kernels": kernels})
+    print(line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

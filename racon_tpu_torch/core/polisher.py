@@ -1,0 +1,444 @@
+"""Polisher: the two-phase pipeline driver (initialize -> polish), a lean
+copy of ``racon_tpu.core.polisher`` for the port.
+
+``initialize()`` loads the targets, loads the reads (name-deduplicated
+against the targets), picks the NGS/TGS window type (mean read length
+<= 1000 -> NGS), loads, transmutes and filters the overlaps (error above
+the threshold and self overlaps dropped; for contig polishing only the
+longest overlap of each query group kept), aligns the overlaps through the
+aligner backend, derives per-window breaking points from the CIGARs, and
+builds the windows and their columnar layers (min-span 2% of the window
+length, mean PHRED quality >= threshold). ``polish()`` runs the consensus
+backend over every window and stitches the windows per target with the
+reference's ``LN:i/RC:i/XC:f`` tags.
+
+Left out of this slice (the JAX package keeps them): the exec/serve/fleet
+runners, observability, fault injection, the sanitizer, the pipelined
+``run()`` queue (output-invariant), the resident dataflow and the
+``--overlaps auto`` overlapper.
+"""
+
+from __future__ import annotations
+
+import enum
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..io import parsers
+from ..utils.logger import Logger
+from .backends import make_aligner, make_consensus
+from .layers import LayerStore
+from .overlap import Overlap, decode_breaking_points_batch
+from .sequence import Sequence
+from .window import Window, WindowType
+
+
+class PolisherType(enum.Enum):
+    C = 0  # contig polishing
+    F = 1  # fragment (read) error correction
+
+
+def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
+                    type_: PolisherType = PolisherType.C,
+                    window_length: int = 500, quality_threshold: float = 10.0,
+                    error_threshold: float = 0.3, trim: bool = True,
+                    match: int = 3, mismatch: int = -5, gap: int = -4,
+                    num_threads: int = 1, aligner="native",
+                    consensus="native",
+                    aligner_batches: int = 1, consensus_batches: int = 1,
+                    banded: bool = False, device="cuda") -> "Polisher":
+    """Factory with the reference's validation rules. ``aligner`` and
+    ``consensus`` name a backend (``cuda`` or ``native``) or pass a
+    prebuilt engine; ``device`` is where the ``cuda``
+    backends run (``cpu`` runs the kernels' plain PyTorch versions)."""
+    if not isinstance(type_, PolisherType):
+        raise ValueError("invalid polisher type")
+    if window_length <= 0:
+        raise ValueError("invalid window length")
+    for path in (sequences_path, target_path):
+        if parsers.sequence_parser_for(path) is None:
+            raise ValueError(
+                f"file {path} has unsupported format extension (valid: "
+                f"{', '.join(parsers.SEQUENCE_EXTENSIONS)})")
+    if parsers.overlap_parser_for(overlaps_path) is None:
+        raise ValueError(
+            f"file {overlaps_path} has unsupported format extension (valid: "
+            f"{', '.join(parsers.OVERLAP_EXTENSIONS)})")
+    if isinstance(aligner, str):
+        aligner = make_aligner(aligner, num_threads,
+                               num_batches=aligner_batches, device=device)
+    if isinstance(consensus, str):
+        consensus = make_consensus(consensus, match, mismatch, gap,
+                                   num_threads,
+                                   num_batches=consensus_batches,
+                                   banded=banded, device=device)
+    return Polisher(sequences_path, overlaps_path, target_path, type_,
+                    window_length, quality_threshold, error_threshold, trim,
+                    num_threads, aligner, consensus)
+
+
+class Polisher:
+    def __init__(self, sequences_path, overlaps_path, target_path, type_,
+                 window_length, quality_threshold, error_threshold, trim,
+                 num_threads, aligner, consensus):
+        self.sequences_path = sequences_path
+        self.overlaps_path = overlaps_path
+        self.target_path = target_path
+        self.type = type_
+        self.window_length = window_length
+        self.quality_threshold = quality_threshold
+        self.error_threshold = error_threshold
+        self.trim = trim
+        self.num_threads = num_threads
+        self.aligner = aligner
+        self.consensus = consensus
+        self.logger = Logger()
+        self.sequences: List[Sequence] = []
+        self.windows: List[Window] = []
+        self.targets_size = 0
+        self.targets_coverages: List[int] = []
+        self._window_type = WindowType.TGS
+        self._dummy_quality = b"!" * window_length
+        self._id_to_first_window: Optional[np.ndarray] = None
+        self._window_lengths: Optional[np.ndarray] = None
+        # wall-clock stage times (seconds)
+        self.timings: Dict[str, float] = {}
+
+    # ---------------------------------------------------------- initialize
+
+    def initialize(self) -> None:
+        if self.windows:
+            print("[racon_tpu::Polisher::initialize] warning: "
+                  "object already initialized!", file=sys.stderr)
+            return
+        log = self.logger
+        log.log()
+        t0 = time.perf_counter()
+        overlaps = self._load()
+        self.timings["parse_s"] = time.perf_counter() - t0
+        self.find_overlap_breaking_points(overlaps)
+        t0 = time.perf_counter()
+        self._build_backbone_windows()
+        log.log()
+        self._assemble_layers(overlaps)
+        self.timings["build_windows_s"] = time.perf_counter() - t0
+        log.log("[racon_tpu::Polisher::initialize] "
+                "transformed data into windows")
+
+    def _load(self) -> List[Overlap]:
+        """Parse targets, reads and overlaps; filter and transmute."""
+        log = self.logger
+        tparse = parsers.sequence_parser_for(self.target_path)
+        self.sequences = [Sequence(r.name, r.data, r.quality)
+                          for r in tparse(self.target_path)]
+        self.targets_size = len(self.sequences)
+        if self.targets_size == 0:
+            raise ValueError("empty target sequences set")
+
+        name_to_id: Dict[bytes, int] = {}
+        id_to_id: Dict[int, int] = {}
+        for i, seq in enumerate(self.sequences):
+            name_to_id[seq.name + b"t"] = i
+            id_to_id[i << 1 | 1] = i
+        has_name = [True] * self.targets_size
+        has_data = [True] * self.targets_size
+        has_reverse = [False] * self.targets_size
+        log.log("[racon_tpu::Polisher::initialize] loaded target sequences")
+        log.log()
+
+        sparse = parsers.sequence_parser_for(self.sequences_path)
+        raw_index = 0
+        total_len = 0
+        for rec in sparse(self.sequences_path):
+            seq = Sequence(rec.name, rec.data, rec.quality)
+            total_len += len(seq.data)
+            tid = name_to_id.get(seq.name + b"t")
+            if tid is not None:
+                existing = self.sequences[tid]
+                if (len(seq.data) != len(existing.data) or
+                        len(seq.quality or b"")
+                        != len(existing.quality or b"")):
+                    raise ValueError(
+                        f"duplicate sequence {seq.name!r} with unequal data")
+                name_to_id[seq.name + b"q"] = tid
+                id_to_id[raw_index << 1 | 0] = tid
+            else:
+                self.sequences.append(seq)
+                pos = len(self.sequences) - 1
+                name_to_id[seq.name + b"q"] = pos
+                id_to_id[raw_index << 1 | 0] = pos
+                has_name.append(False)
+                has_data.append(False)
+                has_reverse.append(False)
+            raw_index += 1
+        if raw_index == 0:
+            raise ValueError("empty sequences set")
+        self._window_type = (WindowType.NGS
+                             if total_len / raw_index <= 1000
+                             else WindowType.TGS)
+        log.log("[racon_tpu::Polisher::initialize] loaded sequences")
+        log.log()
+
+        oparse = parsers.overlap_parser_for(self.overlaps_path)
+        overlaps = []
+        for rec in oparse(self.overlaps_path):
+            o = Overlap.from_record(rec)
+            o.transmute(self.sequences, name_to_id, id_to_id)
+            if o.is_valid:
+                overlaps.append(o)
+        overlaps = self._filter_overlaps(overlaps)
+        if not overlaps:
+            raise ValueError("empty overlap set")
+        for o in overlaps:
+            if o.strand:
+                has_reverse[o.q_id] = True
+            else:
+                has_data[o.q_id] = True
+        log.log("[racon_tpu::Polisher::initialize] loaded overlaps")
+        log.log()
+        for i, seq in enumerate(self.sequences):
+            seq.transmute(has_name[i], has_data[i], has_reverse[i])
+        return overlaps
+
+    def _filter_overlaps(self, overlaps: List[Overlap]) -> List[Overlap]:
+        """Per-query group filter: drop error > threshold and self
+        overlaps; for contig polishing keep only the longest overlap per
+        consecutive same-query group (the later one wins length ties)."""
+        result: List[Overlap] = []
+        i = 0
+        while i < len(overlaps):
+            j = i
+            while j < len(overlaps) and overlaps[j].q_id == overlaps[i].q_id:
+                j += 1
+            group = [o for o in overlaps[i:j]
+                     if o.error <= self.error_threshold and o.q_id != o.t_id]
+            if group and self.type == PolisherType.C:
+                best = group[0]
+                for o in group[1:]:
+                    if o.length >= best.length:
+                        best = o
+                group = [best]
+            result.extend(group)
+            i = j
+        return result
+
+    def find_overlap_breaking_points(self, overlaps: List[Overlap]) -> None:
+        """Align the CIGAR-less overlaps through the aligner backend, then
+        decode every CIGAR into per-window breaking points."""
+        log = self.logger
+        t0 = time.perf_counter()
+        msg = "[racon_tpu::Polisher::initialize] aligning overlaps"
+        need = [o for o in overlaps
+                if not o.cigar and o.breaking_points is None]
+        # a device backend takes large slices (it buckets and chunks
+        # itself); the host path keeps transient span copies small
+        chunk = 65536 if getattr(self.aligner, "wants_full_stream",
+                                 False) else 1024
+        for begin in range(0, len(need), chunk):
+            part = need[begin:begin + chunk]
+            pairs = [(o.query_span_bytes(self.sequences),
+                      o.target_span_bytes(self.sequences)) for o in part]
+            for o, cigar in zip(part, self.aligner.align_batch(pairs)):
+                o.cigar = cigar
+            log.bar_to(msg, begin + len(part), len(need))
+        self.timings["align_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        todo = [o for o in overlaps if o.breaking_points is None]
+        if todo:
+            arrs = decode_breaking_points_batch(
+                [o.cigar or "" for o in todo],
+                [o.q_length - o.q_end if o.strand else o.q_begin
+                 for o in todo],
+                [o.t_begin for o in todo], [o.t_end for o in todo],
+                self.window_length, self.num_threads)
+            for o, arr in zip(todo, arrs):
+                o.breaking_points = arr
+                o.cigar = None
+        self.timings["bp_decode_s"] = time.perf_counter() - t0
+        log.log("[racon_tpu::Polisher::initialize] aligned overlaps")
+
+    # ------------------------------------------------------- window build
+
+    def _build_backbone_windows(self) -> None:
+        """Slice every target into backbone windows (layer 0)."""
+        window_length = self.window_length
+        id_to_first = np.zeros(self.targets_size + 1, dtype=np.int64)
+        win_lens: List[int] = []
+        for i in range(self.targets_size):
+            target = self.sequences[i]
+            data = target.data
+            quality = target.quality
+            k = 0
+            for j in range(0, len(data), window_length):
+                length = min(j + window_length, len(data)) - j
+                q = (self._dummy_quality[:length] if quality is None
+                     else quality[j:j + length])
+                self.windows.append(Window(i, k, self._window_type,
+                                           data[j:j + length], q))
+                win_lens.append(length)
+                k += 1
+            id_to_first[i + 1] = id_to_first[i] + k
+        self._id_to_first_window = id_to_first
+        self._window_lengths = np.asarray(win_lens, dtype=np.int64)
+
+    def _layer_refs(self, overlaps: List[Overlap]):
+        """Per-overlap oriented (data, quality) references into the reads."""
+        data_refs: List[bytes] = []
+        qual_refs: List[Optional[bytes]] = []
+        for o in overlaps:
+            seq = self.sequences[o.q_id]
+            if o.strand:
+                data_refs.append(seq.reverse_complement)
+                qual_refs.append(seq.reverse_quality)
+            else:
+                data_refs.append(seq.data)
+                qual_refs.append(seq.quality)
+        return data_refs, qual_refs
+
+    def _filter_layer_rows(self, qual_refs, counts, bp, pair_ov, t_ids):
+        """Min-span, mean-PHRED and window arithmetic over the concatenated
+        (P, 4) breaking-point matrix. Returns ``(keep, win_id,
+        layer_begin, layer_end)`` aligned with ``bp``'s rows."""
+        window_length = self.window_length
+        n_ov = len(counts)
+        t_first, q_first = bp[:, 0], bp[:, 1]
+        t_endx, q_endx = bp[:, 2], bp[:, 3]
+        span = q_endx - q_first
+        keep = ~(span < 0.02 * window_length)
+        # mean PHRED via per-read quality prefix sums (integer sums are
+        # exact in float64, so sums/span - 33.0 is the per-layer mean)
+        offs = np.zeros(n_ov + 1, dtype=np.int64)
+        np.cumsum(counts, out=offs[1:])
+        qthr = self.quality_threshold
+        budget = 8 << 20  # quality bytes per slice
+        i = 0
+        while i < n_ov:
+            j, total = i, 0
+            while j < n_ov and (j == i or total < budget):
+                if qual_refs[j] is not None:
+                    total += len(qual_refs[j])
+                j += 1
+            if total:
+                base = np.full(j - i, -1, dtype=np.int64)
+                parts = []
+                pos = 0
+                for k in range(i, j):
+                    qual = qual_refs[k]
+                    if qual is None:
+                        continue
+                    base[k - i] = pos
+                    parts.append(np.frombuffer(qual, dtype=np.uint8))
+                    pos += len(qual)
+                csum = np.zeros(pos + 1, dtype=np.int64)
+                np.cumsum(np.concatenate(parts), dtype=np.int64,
+                          out=csum[1:])
+                pair_base = np.repeat(base, counts[i:j])
+                sel = np.flatnonzero(pair_base >= 0) + int(offs[i])
+                shift = pair_base[pair_base >= 0]
+                sums = (csum[q_endx[sel] + shift]
+                        - csum[q_first[sel] + shift])
+                keep[sel] &= (sums / span[sel] - 33.0) >= qthr
+            i = j
+        rank = t_first // window_length
+        win_id = self._id_to_first_window[t_ids[pair_ov]] + rank
+        layer_begin = t_first - rank * window_length
+        layer_end = t_endx - rank * window_length - 1
+        keep &= layer_begin != layer_end
+        return keep, win_id, layer_begin, layer_end
+
+    def _assemble_layers(self, overlaps: List[Overlap]) -> None:
+        """Columnar layer assembly: one (P, 4) breaking-point matrix,
+        vectorized filters, a stable argsort grouping layers by window
+        (layers keep the overlap-stream order inside a window), and one
+        :class:`LayerStore` the windows view."""
+        n_ov = len(overlaps)
+        n_win = len(self.windows)
+        t_ids = np.fromiter((o.t_id for o in overlaps), np.int64, n_ov)
+        self.targets_coverages = np.bincount(
+            t_ids, minlength=self.targets_size).tolist()
+        counts = np.fromiter(
+            (0 if o.breaking_points is None else len(o.breaking_points)
+             for o in overlaps), np.int64, n_ov)
+        if int(counts.sum()) == 0:
+            return
+        bp = np.concatenate(
+            [o.breaking_points for o in overlaps
+             if o.breaking_points is not None
+             and len(o.breaking_points)]).astype(np.int64)
+        pair_ov = np.repeat(np.arange(n_ov), counts)
+        q_first, q_endx = bp[:, 1], bp[:, 3]
+        data_refs, qual_refs = self._layer_refs(overlaps)
+        keep, win_id, layer_begin, layer_end = self._filter_layer_rows(
+            qual_refs, counts, bp, pair_ov, t_ids)
+        kept = np.flatnonzero(keep)
+        if kept.size:
+            backbone_len = self._window_lengths[win_id[kept]]
+            if ((layer_begin[kept] > layer_end[kept])
+                    | (layer_end[kept] > backbone_len)).any():
+                raise ValueError("layer begin and end positions are invalid")
+        order = kept[np.argsort(win_id[kept], kind="stable")]
+        store = LayerStore.build(
+            data_refs, qual_refs, pair_ov[order], q_first[order],
+            q_endx[order], win_id[order], layer_begin[order],
+            layer_end[order], n_win)
+        bounds = store.row_bounds
+        for wi in range(n_win):
+            r0, r1 = int(bounds[wi]), int(bounds[wi + 1])
+            if r1 > r0:
+                self.windows[wi].attach_layers(store, r0, r1)
+        for o in overlaps:
+            o.breaking_points = None
+
+    # -------------------------------------------------------------- polish
+
+    def polish(self, drop_unpolished_sequences: bool = True) -> List[Sequence]:
+        log = self.logger
+        log.log()
+        msg = "[racon_tpu::Polisher::polish] generating consensus"
+        t0 = time.perf_counter()
+        flags = self.consensus.run(self.windows, self.trim,
+                                   progress=lambda d, t: log.bar_to(msg, d, t))
+        self.timings["consensus_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = self._stitch(flags, drop_unpolished_sequences)
+        self.timings["stitch_s"] = time.perf_counter() - t0
+        return out
+
+    def run(self, drop_unpolished_sequences: bool = True) -> List[Sequence]:
+        """initialize() then polish()."""
+        if not self.windows:
+            self.initialize()
+        return self.polish(drop_unpolished_sequences)
+
+    def _stitch(self, polished_flags: List[bool],
+                drop_unpolished_sequences: bool) -> List[Sequence]:
+        log = self.logger
+        dst: List[Sequence] = []
+        polished_data: List[bytes] = []
+        num_polished = 0
+        for i, window in enumerate(self.windows):
+            num_polished += 1 if polished_flags[i] else 0
+            polished_data.append(window.consensus)
+            last = (i == len(self.windows) - 1 or
+                    self.windows[i + 1].rank == 0)
+            if last:
+                ratio = num_polished / float(window.rank + 1)
+                if not drop_unpolished_sequences or ratio > 0:
+                    data = b"".join(polished_data)
+                    tags = b"r" if self.type == PolisherType.F else b""
+                    tags += b" LN:i:%d" % len(data)
+                    tags += b" RC:i:%d" % self.targets_coverages[window.id]
+                    tags += b" XC:f:%.6f" % ratio
+                    dst.append(Sequence(
+                        self.sequences[window.id].name + tags, data))
+                num_polished = 0
+                polished_data = []
+        log.log("[racon_tpu::Polisher::polish] generated consensus")
+        log.total("[racon_tpu::Polisher::] total =")
+        self.windows = []
+        self.sequences = []
+        return dst

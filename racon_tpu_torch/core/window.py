@@ -1,0 +1,124 @@
+"""Window domain object: one ~window_length slice of a target plus layered
+read fragments.
+
+Behavioural spec from the reference's ``src/window.cpp``:
+- the backbone slice is layer 0 with its (possibly dummy ``'!'``) quality;
+- ``add_layer`` validates bounds (``window.cpp:42-63``);
+- consensus generation lives in the engines (``ops/poa.py`` on the card,
+  ``native/poa.cpp`` on the host).
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import List, Optional, Tuple
+
+
+class WindowType(enum.Enum):
+    NGS = 0  # short accurate reads (mean length <= 1000)
+    TGS = 1  # long noisy reads
+
+
+class Window:
+    """Layers live either as real bytes lists (``add_layer``) or as a
+    lazy (store, row-range) view into a columnar
+    :class:`~racon_tpu_torch.core.layers.LayerStore` (``attach_layers``). The
+    ``sequences``/``qualities``/``positions`` properties materialize the
+    view on first access, so every bytes-level consumer (CPU POA
+    engines, tests, goldens) sees identical data either way; the device
+    packers read the store directly (``layer_view``) and never pay the
+    per-layer copies."""
+
+    __slots__ = ("id", "rank", "type", "consensus", "_seqs", "_quals",
+                 "_pos", "_store", "_r0", "_r1")
+
+    def __init__(self, id_: int, rank: int, type_: WindowType, backbone: bytes,
+                 quality: bytes):
+        if len(backbone) == 0 or len(backbone) != len(quality):
+            raise ValueError("empty backbone sequence/unequal quality length")
+        self.id = id_
+        self.rank = rank
+        self.type = type_
+        self.consensus: bytes = b""
+        self._seqs: List[bytes] = [backbone]
+        self._quals: List[Optional[bytes]] = [quality]
+        self._pos: List[Tuple[int, int]] = [(0, 0)]
+        self._store = None
+        self._r0 = 0
+        self._r1 = 0
+
+    # ------------------------------------------------------ columnar view
+
+    def attach_layers(self, store, r0: int, r1: int) -> None:
+        """Attach rows [r0, r1) of a columnar layer store as this
+        window's layers (replaces per-layer ``add_layer`` appends).
+
+        The window must hold only its backbone: the device packer reads
+        an attached window's layers as the contiguous store rows
+        [r0, r0+depth), so layers added any other way would silently
+        alias a neighbor's rows (``add_layer`` AFTER attaching is fine —
+        it materializes the view first)."""
+        if self._store is not None or len(self._seqs) > 1:
+            raise ValueError(
+                "attach_layers on a window that already has layers")
+        self._store = store
+        self._r0, self._r1 = r0, r1
+
+    @property
+    def layer_view(self):
+        """(store, r0, r1) — ``store`` is None once materialized (or for
+        windows built through ``add_layer``)."""
+        return self._store, self._r0, self._r1
+
+    @property
+    def layer_count(self) -> int:
+        """Number of read layers (excluding the backbone) WITHOUT
+        materializing a lazy view."""
+        if self._store is not None:
+            return (self._r1 - self._r0) + (len(self._seqs) - 1)
+        return len(self._seqs) - 1
+
+    @property
+    def backbone(self) -> bytes:
+        """Layer 0 without materializing the view."""
+        return self._seqs[0]
+
+    @property
+    def backbone_quality(self) -> bytes:
+        return self._quals[0]
+
+    def _materialize(self) -> None:
+        if self._store is not None:
+            store, r0, r1 = self._store, self._r0, self._r1
+            self._store = None
+            store.materialize_into(self, r0, r1)
+
+    @property
+    def sequences(self) -> List[bytes]:
+        self._materialize()
+        return self._seqs
+
+    @property
+    def qualities(self) -> List[Optional[bytes]]:
+        self._materialize()
+        return self._quals
+
+    @property
+    def positions(self) -> List[Tuple[int, int]]:
+        self._materialize()
+        return self._pos
+
+    def add_layer(self, sequence: bytes, quality: Optional[bytes], begin: int,
+                  end: int) -> None:
+        if len(sequence) == 0 or begin == end:
+            return
+        if quality is not None and len(sequence) != len(quality):
+            raise ValueError("unequal quality size")
+        # single bounds guard: begin == end already returned above, and
+        # begin > backbone_len is unreachable once begin < end <= len
+        if begin > end or end > len(self._seqs[0]):
+            raise ValueError("layer begin and end positions are invalid")
+        self._materialize()  # appends must land after any lazy view rows
+        self._seqs.append(sequence)
+        self._quals.append(quality)
+        self._pos.append((begin, end))

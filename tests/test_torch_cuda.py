@@ -1,0 +1,159 @@
+"""The port's CUDA kernels and engines against their plain PyTorch
+versions, on the card (``cuda`` marker; every test skips on a host without
+a CUDA device). This file imports no JAX, so it runs where only PyTorch is
+installed: ``RACON_TPU_TEST_REAL=1 python -m pytest tests/test_torch_cuda.py
+-m cuda`` (the variable keeps ``tests/conftest.py`` from importing JAX).
+
+Every comparison is exact: the kernels compute integer DP and integer
+votes, so the kernel and its plain version agree bit for bit (direction
+rows below each pair's ``n + m``, which are the rows a walk reads).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from racon_tpu_torch.core import backends
+from racon_tpu_torch.core.window import Window, WindowType
+from racon_tpu_torch.ops import cuda_nw
+from racon_tpu_torch.ops.nw import CudaAligner
+from racon_tpu_torch.ops.poa import CudaPoaConsensus
+
+pytestmark = pytest.mark.cuda
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+K, CH, DEL = 4, 8, 5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _mutate(rng, t, err):
+    q = t.copy()
+    flips = rng.random(len(q)) < err / 3
+    q[flips] = BASES[rng.integers(0, 4, int(flips.sum()))]
+    q = q[rng.random(len(q)) >= err / 3]
+    ins = rng.random(len(q)) < err / 3
+    return np.insert(q, np.flatnonzero(ins),
+                     BASES[rng.integers(0, 4, int(ins.sum()))])
+
+
+GRIDS = {
+    # name: (seed, B, lo, hi, err, max_len, band, steps)
+    "small_band": (1, 40, 0, 250, 0.2, 256, 128, 0),
+    "escapes": (2, 24, 100, 250, 0.6, 256, 128, 0),
+    "truncated": (3, 24, 80, 250, 0.15, 256, 128, 256),
+    "consensus": (4, 64, 400, 600, 0.15, 1024, 512, 1280),
+    "aligner": (5, 8, 3000, 4000, 0.15, 4096, 1024, 0),
+    # the main path's widest buckets: 512 and 1024 threads per block
+    "aligner_4096": (6, 4, 5000, 8000, 0.15, 16384, 4096, 0),
+    "aligner_8192": (7, 2, 5000, 8000, 0.15, 16384, 8192, 0),
+}
+
+
+def _inputs(grid):
+    seed, B, lo, hi, err, max_len, band, steps = GRIDS[grid]
+    rng = np.random.default_rng(seed)
+    c = band // 2
+    width = c + max_len + band
+    qrp = np.full((B, width), 6, np.uint8)
+    tp = np.full((B, width), 7, np.uint8)
+    n = np.zeros(B, np.int32)
+    m = np.zeros(B, np.int32)
+    for k in range(B):
+        t = BASES[rng.integers(0, 4, int(rng.integers(lo, hi)))]
+        q = _mutate(rng, t, err)[:max_len]
+        qrp[k, c + max_len - len(q): c + max_len] = q[::-1]
+        tp[k, c: c + len(t)] = t
+        n[k], m[k] = len(q), len(t)
+    qpw = ((rng.integers(0, 94, (B, max_len)).astype(np.uint16) << 3)
+           | rng.integers(0, 5, (B, max_len)).astype(np.uint16))
+    bg = rng.integers(0, 8, B).astype(np.int32)
+    host = [torch.from_numpy(a) for a in (qrp, tp, n, m, bg,
+                                          qpw.view(np.int16))]
+    return host, max_len, band, steps
+
+
+def _rows_equal(got, want, n, m):
+    S = want.shape[1]
+    for k in range(len(n)):
+        r = min(int(n[k]) + int(m[k]), S)
+        assert torch.equal(got[k, :r], want[k, :r]), k
+
+
+@pytest.mark.parametrize("packed16", [False, True])
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_kernels_match_plain(cuda_device, grid, packed16):
+    """nw_fwd (K1/K4), walk_ops (K2) and walk_vote (K3) on the card ==
+    their plain versions on the same inputs."""
+    host, max_len, band, steps = _inputs(grid)
+    dev = [x.to(cuda_device) for x in host]
+    before = dict(cuda_nw.LAUNCHES)
+    kw = dict(max_len=max_len, band=band, steps=steps, packed16=packed16)
+    dk, sk = cuda_nw.nw_fwd(*dev[:4], **kw)
+    dp, sp = cuda_nw.nw_fwd(*host[:4], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sk.cpu(), sp)
+    _rows_equal(dk.cpu(), dp, host[2], host[3])
+    ok_, fik, fjk = cuda_nw.walk_ops(dk, dev[2], dev[3], band=band)
+    op_, fip, fjp = cuda_nw.walk_ops(dp, host[2], host[3], band=band)
+    for a, b in ((ok_, op_), (fik, fip), (fjk, fjp)):
+        assert torch.equal(a.cpu(), b)
+    vkw = dict(band=band, L=max_len, K=K, CH=CH, DEL=DEL)
+    vk = cuda_nw.walk_vote(dk, dev[2], dev[3], dev[4], dev[5], **vkw)
+    vp = cuda_nw.walk_vote(dp, host[2], host[3], host[4], host[5], **vkw)
+    for a, b in zip(vk, vp):
+        assert torch.equal(a.cpu(), b)
+    name = "nw_fwd_i16x2" if packed16 else "nw_fwd_i32"
+    assert cuda_nw.LAUNCHES[name] == before[name] + 1
+    assert cuda_nw.LAUNCHES["walk_ops"] == before["walk_ops"] + 1
+    assert cuda_nw.LAUNCHES["walk_vote"] == before["walk_vote"] + 1
+
+
+def test_aligner_card_matches_cpu(cuda_device):
+    """CudaAligner on the card == CudaAligner(device="cpu"): same CIGARs,
+    band escalation and host fallback included."""
+    rng = np.random.default_rng(9)
+    pairs = []
+    for k in range(48):
+        t = BASES[rng.integers(0, 4, int(rng.integers(20, 240)))]
+        err = 0.6 if k % 8 == 0 else 0.1
+        pairs.append((_mutate(rng, t, err).tobytes(), t.tobytes()))
+    pairs.append((BASES[rng.integers(0, 4, 300)].tobytes(), b"ACGT" * 70))
+    buckets = ((64, 32), (128, 64), (256, 128))
+    card = CudaAligner(fallback=backends.NativeAligner(1), buckets=buckets,
+                       device=cuda_device)
+    host = CudaAligner(fallback=backends.NativeAligner(1), buckets=buckets,
+                       device="cpu")
+    assert card.align_batch(pairs) == host.align_batch(pairs)
+    assert card.stats["device"] > 30
+
+
+def _windows(seed, n_w=6, wl=300, depth=10):
+    rng = np.random.default_rng(seed)
+    out = []
+    for wi in range(n_w):
+        truth = BASES[rng.integers(0, 4, wl)]
+        bb = _mutate(rng, truth, 0.1)
+        win = Window(0, wi, WindowType.TGS, bb.tobytes(), b"!" * len(bb))
+        for _ in range(depth):
+            layer = _mutate(rng, truth, 0.12)
+            qual = bytes(33 + int(x) for x in rng.integers(3, 45, len(layer)))
+            win.add_layer(layer.tobytes(), qual, 0, len(bb) - 1)
+        out.append(win)
+    return out
+
+
+def test_consensus_card_matches_cpu(cuda_device):
+    """CudaPoaConsensus on the card == on the CPU: same flags and bytes."""
+    fb = backends.NativePoaConsensus(3, -5, -4)
+    wc, wh = _windows(21), _windows(21)
+    card = CudaPoaConsensus(3, -5, -4, fallback=fb, device=cuda_device)
+    host = CudaPoaConsensus(3, -5, -4, fallback=fb, device="cpu")
+    assert card.run(wc, trim=True) == host.run(wh, trim=True)
+    assert [w.consensus for w in wc] == [w.consensus for w in wh]
+    assert card.stats["device_windows"] == len(wc)
