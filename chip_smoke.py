@@ -22,8 +22,13 @@ any phase fails. Phases, one JSON line each:
              prefix of the pairs where the plain version would take
              minutes), timed with CUDA events. Each ``nw_fwd_i32`` row
              names the K1 body that ran (``variant``: ``warp`` at the bands
-             128-512, ``block`` at the wider ones) and its time over K4's
-             at that shape;
+             128-512, ``wide`` at 1024, 4096 and 8192, ``block`` at the
+             others) and its time over K4's at that shape
+             (``over_nw_fwd_i16x2``); at a ``wide`` shape one more row
+             times the ``block`` body against the same plain reference,
+             and the wide row carries ``over_block``. One more shape the
+             main path does not reach, (4096, 1024) with 512 pairs,
+             holds the wide body at band 1024 the same way (no walk row);
 5. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card and with the plain PyTorch kernels on the CPU: the FASTA
              bytes must be identical;
@@ -85,6 +90,10 @@ OPS_PER_STEP = {"walk_ops": 12, "walk_vote": 24}
 # largest aligner chunks, so those are held on a prefix of at least 256 of
 # the launch's pairs
 PLAIN_CELLS = 12 * 10 ** 9
+# the aligner bucket at which K1 takes its wide body with one warp a pair
+# (band 1024); the 1 Mbp run's reads do not reach it, so the kernels phase
+# drives it on 512 pairs of 3-4 kbp at 15% error
+WIDE_1024 = (4096, 1024)
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -200,6 +209,13 @@ def aligner_bucket_inputs(dev, bucket, B, seed):
             pairs.append((q, t))
     if len(pairs) < B:
         raise RuntimeError(f"could not draw {B} pairs of bucket {bucket}")
+    return pair_rows(dev, pairs, max_len, band)
+
+
+def pair_rows(dev, pairs, max_len, band):
+    """Device rows of (query, target) ``pairs`` at ``(max_len, band)``, as
+    the aligner builds them (ops.nw.build_rows), with the chunk's steps."""
+    B = len(pairs)
     qcat = np.zeros(B * max_len, np.uint8)
     tcat = np.zeros(B * max_len, np.uint8)
     n = np.zeros(B, np.int32)
@@ -245,17 +261,16 @@ def plain_pairs(inp) -> int:
     return min(B, max(256, PLAIN_CELLS // per_pair))
 
 
-def fwd_entry(name, inp, packed16, reps):
+def fwd_rows(inp, reps):
+    """The forward kernels at one shape, each held against its plain
+    version (computed once, on the first ``plain_pairs`` pairs, for every
+    body of the same kernel) and timed: K1 through ``nw_fwd`` (the body
+    ``cuda_nw.fwd_i32_body`` picks, its ``variant``), at a wide band K1's
+    block body too (``variant`` ``block``, launched through its C entry),
+    then K4. Returns K4's output (the walks read it) and the rows."""
     args = (inp["qrp"], inp["tp"], inp["n"], inp["m"])
-    kw = dict(max_len=inp["Lq"], band=inp["band"], steps=inp["steps"],
-              packed16=packed16)
+    kw = dict(max_len=inp["Lq"], band=inp["band"], steps=inp["steps"])
     P = plain_pairs(inp)
-    got = cuda_nw.nw_fwd(*args, **kw)
-    ref, plain_ms = timed_once(
-        lambda: cuda_nw.nw_fwd_plain(*(a[:P] for a in args), **kw))
-    err = fwd_err(got, ref, inp["n"], inp["m"])
-    del ref
-    ms = time_ms(lambda: cuda_nw.nw_fwd(*args, **kw), reps)
     B = args[0].shape[0]
     nm = torch.clamp(inp["n"].long() + inp["m"].long(),
                      max=inp["steps"])
@@ -263,12 +278,36 @@ def fwd_entry(name, inp, packed16, reps):
     cells = float(nm.sum()) * U
     nbytes = 2 * args[0].numel() + 8 * B + float(nm.sum()) * RB + 4 * B
     bms, by = bound(cells * OPS_PER_CELL, nbytes)
-    row = dict(shape=inp["shape"], max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
-               library_ms=None)
-    if not packed16:   # the K1 body that ran (cuda_nw.fwd_i32_body)
-        row["variant"] = cuda_nw.fwd_i32_body(inp["band"])
-    return got, row
+
+    def row(launch, ref, plain_ms):
+        got = launch()
+        err = fwd_err(got, ref, inp["n"], inp["m"])
+        ms = time_ms(launch, reps)
+        return got, dict(shape=inp["shape"], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, plain_pairs=P, bound_ms=bms,
+                         bound_by=by, library_ms=None)
+
+    body = cuda_nw.fwd_i32_body(inp["band"])
+    k1_launch = {body: lambda: cuda_nw.nw_fwd(*args, **kw)}
+    if body == "wide":
+        k1_launch["block"] = lambda: cuda_nw._launch_fwd(
+            cuda_nw.FWD_I32_ENTRIES["block"], *args, **kw)
+    ref, plain_ms = timed_once(
+        lambda: cuda_nw.nw_fwd_plain(*(a[:P] for a in args), **kw))
+    k1 = {variant: dict(row(launch, ref, plain_ms)[1], variant=variant)
+          for variant, launch in k1_launch.items()}
+    del ref
+    ref, plain_ms = timed_once(lambda: cuda_nw.nw_fwd_plain(
+        *(a[:P] for a in args), packed16=True, **kw))
+    got, k4 = row(lambda: cuda_nw.nw_fwd(*args, packed16=True, **kw), ref,
+                  plain_ms)
+    del ref
+    # K1's time over K4's and over its block body's, in this run
+    for r in k1.values():
+        r["over_nw_fwd_i16x2"] = r["ms"] / k4["ms"]
+    if body == "wide":
+        k1["wide"]["over_block"] = k1["wide"]["ms"] / k1["block"]["ms"]
+    return got, list(k1.values()), k4
 
 
 def walk_entry(dirs, inp, reps):
@@ -326,7 +365,9 @@ def vote_entry(dirs, inp, reps):
 def phase_kernels(dev, main):
     """Both forward kernels and the walk that follows at every shape the
     main path launched: its largest consensus group, and each aligner
-    bucket at its largest chunk. A forward kernel's headline row is the
+    bucket at its largest chunk; then the forward kernels at
+    ``WIDE_1024`` when the main path did not launch that bucket. A forward
+    kernel's headline row is the
     first shape at which the engines pick it (``swar.use_packed16``), the
     walk's is the bucket with the most chunks; the other rows go to
     ``other_shapes``."""
@@ -339,29 +380,37 @@ def phase_kernels(dev, main):
     busiest = max(chunks, key=lambda k: chunks[k][1])
     rows = {name: [] for name in cuda_nw.KERNELS}
     shapes = [("consensus", None)] + sorted(chunks.items())
+    if WIDE_1024 not in chunks:
+        shapes.append(("off_path", None))
     for seed, (key, val) in enumerate(shapes):
         if key == "consensus":
             inp = consensus_shape_inputs(dev, Lq, band, B)
             reps = 5
+        elif key == "off_path":
+            pairs = mutated_pairs(np.random.default_rng(303), 512, 3000,
+                                  4000, 0.15, BASES)
+            inp = pair_rows(dev, pairs, *WIDE_1024)
+            inp["shape"] += " (off the main path)"
+            reps = 3
         else:
             inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed)
             reps = 3
-        for name, packed16 in (("nw_fwd_i32", False),
-                               ("nw_fwd_i16x2", True)):
-            dirs = None   # free the int32 pass's matrix before the next
-            (dirs, _), row = fwd_entry(name, inp, packed16, reps)
-            # headline: the first shape at which the engines pick it
-            row["headline"] = (use_packed16(inp["Lq"], inp["band"])
-                               == packed16)
-            rows[name].append(row)
-        # K1's time over K4's at this shape, in this run
-        k1, k4 = rows["nw_fwd_i32"][-1], rows["nw_fwd_i16x2"][-1]
-        k1["over_nw_fwd_i16x2"] = k1["ms"] / k4["ms"]
+        (dirs, _), k1, k4 = fwd_rows(inp, reps)
+        # headline: the first main-path shape at which the engines pick
+        # the kernel
+        packed16 = use_packed16(inp["Lq"], inp["band"])
+        on_path = key != "off_path"
+        for r in k1:
+            r["headline"] = (on_path and not packed16
+                             and r["variant"] != "block")
+        k4["headline"] = on_path and packed16
+        rows["nw_fwd_i32"] += k1
+        rows["nw_fwd_i16x2"].append(k4)
         if key == "consensus":
             row = vote_entry(dirs, inp, reps)
             row["headline"] = True
             rows["walk_vote"].append(row)
-        else:
+        elif on_path:
             row = walk_entry(dirs, inp, reps)
             row["headline"] = key == busiest
             rows["walk_ops"].append(row)
@@ -507,11 +556,11 @@ def phase_profile(dev, paths):
             rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in rows) / 1e6
-    # a kernel's device functions: <name>_kernel, and K1's warp body
-    # <name>_warp_kernel<LPT>
+    # a kernel's device functions: <name>_kernel, and K1's warp and wide
+    # bodies <name>_warp_kernel<LPT>, <name>_wide_kernel<NW>
     ours = {name: sum(us for key, us, _ in rows
-                      if f"{name}_kernel" in key
-                      or f"{name}_warp_kernel" in key) / 1e6
+                      if any(f"{name}{body}_kernel" in key
+                             for body in ("", "_warp", "_wide"))) / 1e6
             for name in cuda_nw.KERNELS}
     out = dict(phase="profile", wall_s=wall_s, stages_s=polisher.timings,
                device_busy_s=busy_s,
@@ -578,7 +627,8 @@ def main() -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"], ok=e["ok"],
-            **({"variant": e["variant"]} if "variant" in e else {}),
+            **{k: e[k] for k in ("variant", "over_nw_fwd_i16x2",
+                                 "over_block") if k in e},
             other_shapes=e.get("other_shapes", [])))
     record["total_s"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)

@@ -79,12 +79,28 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
 
 # ------------------------------------------------------------ forward pass
 
+# K1 body -> its C entry
+FWD_I32_ENTRIES = {"warp": "rt_nw_fwd_i32_warp", "wide": "rt_nw_fwd_i32_wide",
+                   "block": "rt_nw_fwd_i32"}
+# the bands rt_nw_fwd_i32_wide instantiates (band / 1024 warps a pair). At
+# band 2048 the wide body measured slower than the block body on an NVIDIA
+# H100 80GB HBM3 at 700.00 W (2.93 vs 2.69 ms at the aligner's (8192, 2048)
+# chunk of 128 pairs, chip_smoke.py), so that band keeps the block body.
+WIDE_BANDS = (1024, 4096, 8192)
+
+
 def fwd_i32_body(band: int) -> str:
     """Which body of the int32 forward kernel (K1) a launch at ``band``
     runs: ``"warp"`` (one warp per pair, ``nw_fwd_i32_warp_kernel``) for
-    the bands 128..512 that are multiples of 64, ``"block"`` (one block
-    per pair, ``nw_fwd_i32_kernel``) for every other band."""
-    return "warp" if band % 64 == 0 and 128 <= band <= 512 else "block"
+    the bands 128..512 that are multiples of 64, ``"wide"`` (one pair per
+    block of ``band / 1024`` warps, ``nw_fwd_i32_wide_kernel``) for
+    ``WIDE_BANDS``, ``"block"`` (one block per pair,
+    ``nw_fwd_i32_kernel``) for every other band."""
+    if band % 64 == 0 and 128 <= band <= 512:
+        return "warp"
+    if band in WIDE_BANDS:
+        return "wide"
+    return "block"
 
 
 def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
@@ -113,16 +129,26 @@ def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
                             steps=S, packed16=packed16)
     _check_cuda_inputs("nw_fwd", qrp, tp, n, m)
     _require(U // 4 <= 1024, f"band {band} exceeds 1024 threads per block")
-    dirs = torch.empty((B, S, U // 4), dtype=torch.uint8, device=qrp.device)
+    entry = ("rt_nw_fwd_i16x2" if packed16
+             else FWD_I32_ENTRIES[fwd_i32_body(band)])
+    return _launch_fwd(entry, qrp, tp, n, m, max_len=max_len, band=band,
+                       steps=S)
+
+
+def _launch_fwd(entry: str, qrp, tp, n, m, *, max_len: int, band: int,
+                steps: int):
+    """One launch of the forward-pass C function ``entry`` on checked CUDA
+    inputs; counts it under its kernel (``nw_fwd_i16x2`` or
+    ``nw_fwd_i32``, whichever body)."""
+    B, width = qrp.shape
+    dirs = torch.empty((B, steps, band // 8), dtype=torch.uint8,
+                       device=qrp.device)
     score = torch.empty((B,), dtype=torch.int32, device=qrp.device)
-    name = "nw_fwd_i16x2" if packed16 else "nw_fwd_i32"
-    entry = "rt_" + name
-    if not packed16 and fwd_i32_body(band) == "warp":
-        entry += "_warp"
+    name = "nw_fwd_i16x2" if entry == "rt_nw_fwd_i16x2" else "nw_fwd_i32"
     fn = _build.function(entry)
     err = fn(qrp.data_ptr(), tp.data_ptr(), n.data_ptr(), m.data_ptr(),
-             dirs.data_ptr(), score.data_ptr(), B, max_len, band, width, S,
-             _stream(qrp))
+             dirs.data_ptr(), score.data_ptr(), B, max_len, band, width,
+             steps, _stream(qrp))
     LAUNCHES[name] += 1
     _check_launch(name, err)
     return dirs, score

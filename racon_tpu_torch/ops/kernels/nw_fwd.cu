@@ -10,7 +10,7 @@
 // other diagonal, lane u <-> (i, j) = (I0 - u, J0 + u). Direction row a-1
 // holds lane u in byte u % RB at shift 2*(u / RB), RB = band/8.
 //
-// K1 has two bodies; racon_tpu_torch/ops/cuda_nw.py fwd_i32_body picks one
+// K1 has three bodies; racon_tpu_torch/ops/cuda_nw.py fwd_i32_body picks one
 // per band.
 //
 // - Warp body (nw_fwd_i32_warp_kernel<LPT>), bands 128..512 that are
@@ -19,17 +19,30 @@
 //   lanes LPT*t .. LPT*t + LPT-1 in registers, the +-1 lane shifts cross a
 //   thread's edge by one shuffle, and the direction bytes are assembled by
 //   two shuffle-xor ORs and stored by threads 0-7. No block barrier: a warp
-//   stops at its own n + m. The lane and byte map is mirrored and checked
-//   in tests/test_torch_fwd_lanes.py.
-// - Block body (nw_fwd_i32_kernel), every other band: one block per pair,
-//   RB threads; thread t owns the four lanes t, t+RB, t+2RB, t+3RB, i.e.
-//   exactly the lanes of direction byte t, so a thread packs its byte with
-//   no exchange and the block writes one coalesced RB-byte row per
-//   wavefront. The +-1 lane shifts read the neighbours' values from a
-//   double-buffered shared array, one barrier per anti-diagonal.
-// Both stage the pair's query/target rows in shared memory once, keep the
-// wavefronts on chip and stop at the pair's own n + m (rows past it are
-// never read by any walk and are left unwritten).
+//   stops at its own n + m.
+// - Wide body (nw_fwd_i32_wide_kernel<NW>), bands 1024, 4096 and 8192 (the
+//   aligner's wide buckets but 2048, where its 128-pair chunk puts 2 warps
+//   on an SM and the block body measured faster): one pair per block of
+//   NW = band/1024 warps; thread tg owns the direction bytes 4*tg ..
+//   4*tg+3, i.e. for each plane q the four contiguous lanes q*RB + 4*tg +
+//   k, in registers, and stores its 32-bit share of the row with no
+//   exchange. The +-1 lane shifts cross a run's edge by one shuffle a plane
+//   inside a warp and through a small ring in shared memory between warps,
+//   one barrier over the NW warps per wavefront.
+// - Block body (nw_fwd_i32_kernel), every other band (on the main path
+//   only band 2048 would reach it, and there the engines take K4): one
+//   block per pair, RB threads; thread t owns the four
+//   lanes t, t+RB, t+2RB, t+3RB, i.e. exactly the lanes of direction byte
+//   t, so a thread packs its byte with no exchange and the block writes one
+//   coalesced RB-byte row per wavefront. The +-1 lane shifts read the
+//   neighbours' values from a double-buffered shared array, one barrier
+//   across all RB threads per anti-diagonal.
+// All three stage the pair's query/target rows in shared memory once, keep
+// the wavefronts on chip and stop at the pair's own n + m (rows past it
+// are never read by any walk and are left unwritten). The warp and wide
+// bodies' lane, byte and edge maps are mirrored in numpy, whole loops
+// included, and held against the plain version on the CPU in
+// tests/test_torch_fwd_lanes.py.
 //
 // K4 (nw_fwd_i16x2) is the block body on two int16 scores per 32-bit word
 // (lanes t|t+RB and t+2RB|t+3RB), with the SIMD-in-word intrinsics
@@ -43,11 +56,13 @@
 // function (chip_smoke.py OPS_PER_CELL, shared by K1 and K4), against 64
 // INT32 lanes per SM per clock. Bytes are small by comparison: two input
 // rows per pair and RB bytes out per wavefront. What holds each body above
-// that bound: the block body's one barrier and shared-memory round trip per
-// wavefront; the warp body's per-cell instruction count (byte loads of the
-// two characters, the three-way min and direction select, the interior and
-// boundary tests) and its three shuffles per wavefront (the edge lane and
-// two for the direction row).
+// that bound: the block body's one barrier across 4-32 warps and its
+// shared-memory round trip of every lane per wavefront; the warp and wide
+// bodies' per-cell instruction count (byte loads of the two characters,
+// the three-way min and direction select, the interior and boundary
+// tests), the warp body's three shuffles per wavefront (the edge lane and
+// two for the direction row), and the wide body's four edge shuffles, two
+// ring accesses and one barrier over NW warps per wavefront.
 
 #include <cstdint>
 #include <type_traits>
@@ -348,6 +363,187 @@ nw_fwd_i32_warp_kernel(const uint8_t* __restrict__ qrp,
     if (a == last) warp_wavefront<LPT, 1>(pair, v1, v2, a);
 }
 
+// ------------------------------------------------------ K1, wide body
+// Bands 1024 * NW for NW = 1, 4, 8 (1024, 4096, 8192): one pair per block of
+// NW warps, T = 32 * NW = RB / 4 threads, so every warp of a block stops at
+// the same n + m and a barrier inside the loop is legal. Thread tg (warp w
+// = tg / 32, t = tg % 32) owns the direction bytes 4*tg .. 4*tg + 3 of every
+// row: for plane q = 0..3 the four contiguous lanes u = q*RB + 4*tg + k,
+// k = 0..3, kept as one 4-lane run per plane in v[q][k]. No lane is
+// padding. Each run goes through wave_cells<4> (the warp body's cells),
+// and the four planes' codes, one to a byte, OR into the thread's 32-bit
+// word of the row: byte k = code(q=0, k) | code(1, k) << 2 | ... .
+//
+// The +-1 lane shifts cross a run's edge. Inside a warp one shuffle a plane
+// brings the neighbour's edge lane. Thread 0 and thread 31 of a warp read
+// the neighbouring warp's from a ring in shared memory: the runs follow one
+// another plane-major over the warps (plane q of warp w after plane q of
+// warp w-1 and, at w = 0, after plane q-1 of warp NW-1), so the ring holds
+// run (q, w)'s edge at q*NW + w, thread 0's left neighbour is the entry
+// before its own and thread 31's right neighbour the entry after; one BIG
+// sentinel at each end stands for lanes -1 and U. A wavefront of parity P
+// reads one side only (P == 0: ring_r, the runs' last lanes; P == 1:
+// ring_l, their first lanes), so each wavefront writes only the side the
+// next one reads and ends with one barrier: each write comes one barrier
+// after the last read of its side.
+
+// one thread's constants for its pair
+struct WidePair {
+    const uint8_t* sq;   // the pair's staged rows
+    const uint8_t* st;
+    unsigned* drow;      // direction matrix of the pair + the thread's word
+    int32_t* score;
+    int* ring_r;         // run (q, w)'s last lane at q*NW + w, BIG at -1
+    int* ring_l;         // run (q, w)'s first lane at q*NW + w, BIG at 4*NW
+    int n, m, nm, L, width, tg, t, w;
+};
+
+// wavefront a (parity P) of one thread's four runs: cur <- wavefront a from
+// prev = a-1 and cur = a-2; returns the thread's word of direction row a-1
+template <int NW, int P, bool Border>
+__device__ __forceinline__ unsigned wide_row(const WidePair& w,
+                                             const int (&prev)[4][4],
+                                             int (&cur)[4][4], int a) {
+    constexpr int RB = 128 * NW, U = 4 * RB, c = U;
+    constexpr unsigned kFull = 0xffffffffu;
+    const int u_t = 4 * w.tg;   // the thread's first lane in plane 0
+    const int I0 = (a + c - P) / 2;
+    const int J0 = (a - c + P) / 2;
+    const int qs = clampi(c + w.L - I0, 0, w.width - U) + u_t;
+    const int ts = clampi(c + J0 - 1, 0, w.width - U) + u_t;
+    // interior lanes form one range [lo, hi1) in u, here relative to u_t
+    const int lo = max(I0 - w.n, 1 - J0) - u_t;
+    const int hi1 = min(w.m - J0, I0 - 1) + 1 - u_t;
+    unsigned row = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int uq = q * RB;   // the run's first lane is u_t + uq
+        const int lq = clampi(lo - uq, 0, 4);
+        const int hq = clampi(hi1 - uq, 0, 4);
+        const unsigned inner = ((1u << hq) - 1u) & ~((1u << lq) - 1u);
+        int edge;
+        if (P == 0) {
+            edge = __shfl_up_sync(kFull, prev[q][3], 1);
+            if (w.t == 0) edge = w.ring_r[q * NW + w.w - 1];
+        } else {
+            edge = __shfl_down_sync(kFull, prev[q][0], 1);
+            if (w.t == 31) edge = w.ring_l[q * NW + w.w + 1];
+        }
+        // DP boundary: (0, a) at u == I0 if a <= m, (a, 0) at u == -J0 if
+        // a <= n; both lanes leave [0, U) once a > c
+        const int kI = Border && a <= w.m ? I0 - u_t - uq : -1;
+        const int kJ = Border && a <= w.n ? -J0 - u_t - uq : -1;
+        const unsigned d = wave_cells<4, P, Border, unsigned>(
+            prev[q], cur[q], edge, w.sq + qs + uq, w.st + ts + uq, inner,
+            kI, kJ, a);
+        row |= d << (2 * q);
+    }
+    return row;
+}
+
+// wavefront a (parity P) of one thread: its row word, the score at
+// a == n + m, the ring side the next wavefront reads, one barrier
+template <int NW, int P>
+__device__ __forceinline__ void wide_wavefront(const WidePair& w,
+                                               const int (&prev)[4][4],
+                                               int (&cur)[4][4], int a) {
+    constexpr int RB = 128 * NW, U = 4 * RB, c = U;
+    const unsigned row = a <= c ? wide_row<NW, P, true>(w, prev, cur, a)
+                                : wide_row<NW, P, false>(w, prev, cur, a);
+    w.drow[static_cast<size_t>(a - 1) * (RB / 4)] = row;
+    if (a == w.nm) {
+        // final cell (n, m): u_fin = (m - n + c - p) / 2, clipped; it sits
+        // in plane uf / RB, byte uf % RB, so thread (uf % RB) / 4
+        const int uf = clampi((w.m - w.n + c - P) / 2, 0, U - 1);
+        if ((uf % RB) / 4 == w.tg) {
+            const int qf = uf / RB, kf = uf % 4;
+            int s = cur[0][0];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                    if (q == qf && k == kf) s = cur[q][k];
+            *w.score = s;
+        }
+    }
+    if (P == 1) {   // the next wavefront (P == 0) reads the last lanes
+        if (w.t == 31) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) w.ring_r[q * NW + w.w] = cur[q][3];
+        }
+    } else {        // the next wavefront (P == 1) reads the first lanes
+        if (w.t == 0) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) w.ring_l[q * NW + w.w] = cur[q][0];
+        }
+    }
+    if (NW == 1)
+        __syncwarp();
+    else
+        __syncthreads();
+}
+
+template <int NW>
+__global__ void __launch_bounds__(32 * NW)
+nw_fwd_i32_wide_kernel(const uint8_t* __restrict__ qrp,
+                       const uint8_t* __restrict__ tp,
+                       const int32_t* __restrict__ n_arr,
+                       const int32_t* __restrict__ m_arr,
+                       uint8_t* __restrict__ dirs,
+                       int32_t* __restrict__ score_out, int max_len,
+                       int width, int steps) {
+    constexpr int T = 32 * NW, RB = 4 * T, c = 4 * RB;   // band = 2 * U
+    extern __shared__ unsigned char smem[];
+    const int tg = threadIdx.x, t = tg & 31, w = tg >> 5;
+    const int b = blockIdx.x;
+    const int S = steps;
+    uint8_t* sq = smem;
+    uint8_t* st = smem + round16(width);
+    // [BIG, ring_r (4*NW), ring_l (4*NW), BIG]
+    int* ring = reinterpret_cast<int*>(smem + 2 * round16(width));
+    int* ring_r = ring + 1;
+    int* ring_l = ring + 1 + 4 * NW;
+    stage_rows(sq, st, qrp, tp, width, b, T);
+
+    const int n = n_arr[b], m = m_arr[b];
+    const int nm = n + m;
+    const int last = nm < S ? nm : S;
+    int v1[4][4], v2[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            // wavefront 0: only (0, 0), at lane c/2 = 2*RB (thread 0,
+            // plane 2, slot 0)
+            v1[q][k] = q * RB + 4 * tg + k == c / 2 ? 0 : kBig32;
+            v2[q][k] = kBig32;   // "wavefront -1"
+        }
+    if (tg == 0) {
+        ring[0] = kBig32;
+        ring_l[4 * NW] = kBig32;
+        if (nm == 0 || nm > S) score_out[b] = nm == 0 ? 0 : kBig32;
+    }
+    if (t == 0) {   // wavefront 1 (P == 1) reads wavefront 0's first lanes
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ring_l[q * NW + w] = v1[q][0];
+    }
+    __syncthreads();
+
+    const WidePair pair{
+        sq, st,
+        reinterpret_cast<unsigned*>(dirs + static_cast<size_t>(b) * S * RB)
+            + tg,
+        score_out + b, ring_r, ring_l, n, m, nm, max_len, width, tg, t, w};
+    // two wavefronts a turn (fixed parity, in-place rotation), as the warp
+    // body; `last` is the block's, so every thread meets every barrier
+    int a = 1;
+    for (; a + 1 <= last; a += 2) {
+        wide_wavefront<NW, 1>(pair, v1, v2, a);       // v2 <- wavefront a
+        wide_wavefront<NW, 0>(pair, v2, v1, a + 1);   // v1 <- a + 1
+    }
+    if (a == last) wide_wavefront<NW, 1>(pair, v1, v2, a);
+}
+
 // halfword helpers: word = lo | hi << 16
 __device__ __forceinline__ unsigned pack2(unsigned lo, unsigned hi) {
     return (lo & 0xFFFFu) | (hi << 16);
@@ -518,6 +714,28 @@ int launch_warp(const void* qrp, const void* tp, const void* n,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int NW>
+int launch_wide(const void* qrp, const void* tp, const void* n,
+                const void* m, void* dirs, void* score, int B, int max_len,
+                int width, int steps, void* stream) {
+    // the pair's two rows, then the edge ring with its two sentinels
+    const size_t smem = 2 * static_cast<size_t>((width + 15) & ~15)
+                        + (8 * NW + 2) * sizeof(int);
+    auto kernel = nw_fwd_i32_wide_kernel<NW>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<B, 32 * NW, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(qrp), static_cast<const uint8_t*>(tp),
+        static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
+        static_cast<uint8_t*>(dirs), static_cast<int32_t*>(score), max_len,
+        width, steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -552,6 +770,25 @@ int rt_nw_fwd_i32_warp(const void* qrp, const void* tp, const void* n,
                                         max_len, width, steps, stream);
         case 512: return launch_warp<8>(qrp, tp, n, m, dirs, score, B,
                                         max_len, width, steps, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// K1's wide body, for band = 1024 * NW, NW = 1, 4, 8 (the caller,
+// racon_tpu_torch/ops/cuda_nw.py fwd_i32_body, picks it; at band 2048 the
+// block body measured faster).
+int rt_nw_fwd_i32_wide(const void* qrp, const void* tp, const void* n,
+                       const void* m, void* dirs, void* score, int B,
+                       int max_len, int band, int width, int steps,
+                       void* stream) {
+    if (B <= 0) return 0;
+    switch (band) {
+        case 1024: return launch_wide<1>(qrp, tp, n, m, dirs, score, B,
+                                         max_len, width, steps, stream);
+        case 4096: return launch_wide<4>(qrp, tp, n, m, dirs, score, B,
+                                         max_len, width, steps, stream);
+        case 8192: return launch_wide<8>(qrp, tp, n, m, dirs, score, B,
+                                         max_len, width, steps, stream);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -17,10 +17,14 @@ BIG16 = 0x4800
 # Bands at which the int32 kernel measured faster than the packed one on an
 # NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py kernels phase, at the
 # shapes the 1 Mbp main path launches): 8.81 vs 15.87 ms at band 512
-# (consensus groups, the int32 kernel's one-warp-per-pair body), 105.0 vs
-# 111.3 ms at 4096 and 63.9 vs 68.6 ms at 8192 (aligner chunks). At band
-# 2048 the two tie (2.69 vs 2.65 ms); there, and at the bands not measured,
-# the engines keep the packed kernel, the JAX engines' choice.
+# (consensus groups, the int32 kernel's one-warp-per-pair body), 57.1 vs
+# 111.5 ms at 4096 and 38.4 vs 68.6 ms at 8192 (aligner chunks, its wide
+# body). At band 2048 the packed kernel stays ahead (2.65 ms against the
+# int32 block body's 2.69); there, and at the other bands, the engines
+# keep the packed kernel, the JAX engines' choice. Band 1024, which the
+# 1 Mbp run does not reach, measured 2.83 ms on the wide body against the
+# packed kernel's 4.19 (the kernels phase's off-path shape); the engines
+# still give it the packed kernel.
 INT32_FASTER_BANDS = frozenset({512, 4096, 8192})
 
 

@@ -59,9 +59,17 @@ GRIDS = {
     "aligner_384": (8, 16, 500, 1000, 0.15, 1024, 384, 0),
     "consensus_ragged": (9, 37, 400, 600, 0.15, 1024, 512, 1280),
     "consensus_truncated": (10, 24, 200, 600, 0.15, 1024, 512, 768),
+    # the aligner's band-2048 bucket (K1's block body: the wide one measured
+    # slower there); K1's wide body (bands 1024, 4096, 8192) on a band-4096
+    # group cut at steps < n + m for some pairs and a band-8192 group of 7
+    # pairs with every third pair empty; the block body at band 768
+    "aligner_2048": (11, 4, 3000, 8000, 0.15, 8192, 2048, 0),
+    "aligner_4096_truncated": (12, 6, 5000, 8000, 0.15, 16384, 4096, 12000),
+    "aligner_8192_ragged": (13, 7, 5000, 8000, 0.15, 16384, 8192, 0),
+    "block_768": (14, 8, 300, 1000, 0.15, 1024, 768, 0),
 }
 # grid -> every how many pairs one is empty (n = m = 0)
-EMPTY_EVERY = {"consensus_ragged": 3}
+EMPTY_EVERY = {"consensus_ragged": 3, "aligner_8192_ragged": 3}
 
 
 def _inputs(grid):
@@ -122,6 +130,8 @@ def test_kernels_match_plain(cuda_device, grid, packed16):
         assert torch.equal(a.cpu(), b)
     name = "nw_fwd_i16x2" if packed16 else "nw_fwd_i32"
     assert cuda_nw.LAUNCHES[name] == before[name] + 1
+    if grid.endswith("truncated"):
+        assert (host[2] + host[3] > steps).any(), "grid cuts no pair"
     if grid in EMPTY_EVERY:
         assert (sk.cpu()[host[2] + host[3] == 0] == 0).all()
     assert cuda_nw.LAUNCHES["walk_ops"] == before["walk_ops"] + 1
