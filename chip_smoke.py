@@ -28,7 +28,9 @@ any phase fails. Phases, one JSON line each:
              times the ``block`` body against the same plain reference,
              and the wide row carries ``over_block``. One more shape the
              main path does not reach, (4096, 1024) with 512 pairs,
-             holds the wide body at band 1024 the same way (no walk row);
+             holds the wide body at band 1024 the same way (no walk row),
+             and K3 runs once more off the main path on ``VOTE_PAIRS``
+             pairs (a partial last warp) at the consensus geometry;
 5. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card and with the plain PyTorch kernels on the CPU: the FASTA
              bytes must be identical;
@@ -84,7 +86,13 @@ OPS_PER_CELL = 8
 # = 12; the vote stream adds the query lane's weight and code (2), the
 # column (1), the M/D/insertion address select (4), the insertion run and
 # slot (2) and the validity test (3) = 24.
+# Bytes: a step's direction byte is charged as the 32 B sector it pulls.
+# The next step reads another row (band/8 bytes on, 64 at band 512), no
+# other step of the pair reads that sector, and the matrix (2.4 GB at the
+# consensus shape) is far larger than the 50 MB L2, so the least a read can
+# move is one sector of device memory.
 OPS_PER_STEP = {"walk_ops": 12, "walk_vote": 24}
+SECTOR = 32
 # pairs x lanes x steps a plain-version comparison may cover: the plain
 # versions loop over wavefronts in Python and would take minutes at the
 # largest aligner chunks, so those are held on a prefix of at least 256 of
@@ -94,6 +102,9 @@ PLAIN_CELLS = 12 * 10 ** 9
 # (band 1024); the 1 Mbp run's reads do not reach it, so the kernels phase
 # drives it on 512 pairs of 3-4 kbp at 15% error
 WIDE_1024 = (4096, 1024)
+# pairs of the K3 row off the main path: not a multiple of the 32 pairs a
+# warp of walk_vote_kernel walks
+VOTE_PAIRS = 1000
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -327,7 +338,7 @@ def walk_entry(dirs, inp, reps):
     steps_real = float((cuda_nw.unpack_ops(got[0]) < 3).sum())
     B, S = dirs.shape[:2]
     bms, by = bound(steps_real * OPS_PER_STEP["walk_ops"],
-                    steps_real + 8 * B + B * S // 4 + 8 * B)
+                    steps_real * SECTOR + 8 * B + B * S // 4 + 8 * B)
     return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
                 library_ms=None)
@@ -340,9 +351,11 @@ def vote_entry(dirs, inp, reps):
     kw = dict(band=band, L=inp["Lb"], K=K_INS, CH=CH, DEL=DEL)
     vargs = (dirs, n, m, inp["bg"], inp["qpw"])
     got = cuda_nw.walk_vote(*vargs, **kw)
+    walked = {}
 
     def plain():
         ops, fi, fj = cuda_nw.walk_plain(dirs[:P], n[:P], m[:P], band=band)
+        walked["ops"] = ops
         idx, w = cuda_nw.vote_from_ops(ops, n[:P], m[:P], inp["qpw"][:P],
                                        inp["bg"][:P], L=inp["Lb"], K=K_INS,
                                        CH=CH, DEL=DEL)
@@ -353,10 +366,12 @@ def vote_entry(dirs, inp, reps):
               for a, b in zip(got, ref))
     ms = time_ms(lambda: cuda_nw.walk_vote(*vargs, **kw), reps)
     B, S = dirs.shape[:2]
-    VOT = inp["Lb"] * (1 + K_INS) * CH
-    steps_real = float((got[0] < VOT).sum())
+    # the walk's real steps (a valid vote or the sink), counted on the
+    # plain-held prefix, which is every pair at the K3 shapes
+    steps_real = float((walked.pop("ops") < 3).sum()) * B / P
+    # a real step reads a direction sector and a 2-byte query lane
     bms, by = bound(steps_real * OPS_PER_STEP["walk_vote"],
-                    steps_real * 3 + 16 * B + 5 * B * S + 8 * B)
+                    steps_real * (SECTOR + 2) + 16 * B + 5 * B * S + 8 * B)
     return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
                 library_ms=None)
@@ -366,11 +381,11 @@ def phase_kernels(dev, main):
     """Both forward kernels and the walk that follows at every shape the
     main path launched: its largest consensus group, and each aligner
     bucket at its largest chunk; then the forward kernels at
-    ``WIDE_1024`` when the main path did not launch that bucket. A forward
-    kernel's headline row is the
-    first shape at which the engines pick it (``swar.use_packed16``), the
-    walk's is the bucket with the most chunks; the other rows go to
-    ``other_shapes``."""
+    ``WIDE_1024`` when the main path did not launch that bucket, and K3 on
+    ``VOTE_PAIRS`` pairs at the consensus geometry. A forward kernel's
+    headline row is the first shape at which the engines pick it
+    (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
+    the consensus group; the other rows go to ``other_shapes``."""
     Lq, band, _, B, _ = max(main["consensus_group_shapes"],
                             key=lambda g: g[3])
     chunks = {}   # bucket -> (largest padded batch, chunks launched)
@@ -416,6 +431,13 @@ def phase_kernels(dev, main):
             rows["walk_ops"].append(row)
         del dirs, inp
         torch.cuda.empty_cache()
+    inp = consensus_shape_inputs(dev, Lq, band, VOTE_PAIRS)
+    dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
+                             max_len=Lq, band=band, steps=inp["steps"])
+    row = vote_entry(dirs, inp, 5)
+    row["shape"] += " (off the main path)"
+    row["headline"] = False
+    rows["walk_vote"].append(row)
     entries = {}
     for name, rs in rows.items():
         head = next((r for r in rs if r["headline"]), rs[0])
