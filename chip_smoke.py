@@ -26,11 +26,20 @@ any phase fails. Phases, one JSON line each:
              others) and its time over K4's at that shape
              (``over_nw_fwd_i16x2``); at a ``wide`` shape one more row
              times the ``block`` body against the same plain reference,
-             and the wide row carries ``over_block``. One more shape the
-             main path does not reach, (4096, 1024) with 512 pairs,
-             holds the wide body at band 1024 the same way (no walk row),
-             and K3 runs once more off the main path on ``VOTE_PAIRS``
-             pairs (a partial last warp) at the consensus geometry;
+             and the wide row carries ``over_block``. Each K2 shape has a
+             row for each body (``variant`` ``warp`` or ``thread``, the
+             one ``cuda_nw.walk_ops_body`` picks for it first, with its
+             time over the other's, ``over_thread`` or ``over_warp``).
+             One more shape the main path does not reach, (4096, 1024)
+             with 512 pairs, holds the wide body at band 1024 the same way
+             (no walk row). K2 runs off the main path at the consensus
+             group's shape (on the direction matrix K3 walks, held against
+             the plain walk K3 is held against) and at the aligner buckets
+             whose largest chunks take its thread body (``WALK_OFF_PATH``:
+             each bucket's largest chunk and smaller launches on a prefix
+             of its pairs), and K3 runs once more off the main path on
+             ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
+             geometry;
 5. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card and with the plain PyTorch kernels on the CPU: the FASTA
              bytes must be identical;
@@ -102,6 +111,13 @@ PLAIN_CELLS = 12 * 10 ** 9
 # (band 1024); the 1 Mbp run's reads do not reach it, so the kernels phase
 # drives it on 512 pairs of 3-4 kbp at 15% error
 WIDE_1024 = (4096, 1024)
+# K2 off the main path, at the aligner buckets whose largest chunks take
+# its thread body: bucket -> ((shortest, longest + 1) pair length, error
+# rate), the launch sizes timed besides the largest chunk (the two that
+# bracket cuda_nw.walk_ops_body's threshold)
+WALK_OFF_PATH = {(256, 128): ((150, 250, 0.10), (2048, 4096)),
+                 (1024, 384): ((700, 1000, 0.12), (4096, 8192)),
+                 (4096, 1024): ((3000, 4000, 0.15), (4096, 8192))}
 # pairs of the K3 row off the main path: not a multiple of the 32 pairs a
 # warp of walk_vote_kernel walks
 VOTE_PAIRS = 1000
@@ -321,60 +337,105 @@ def fwd_rows(inp, reps):
     return got, list(k1.values()), k4
 
 
-def walk_entry(dirs, inp, reps):
-    """K2 on a forward pass's direction matrix."""
+def walk_rows(dirs, inp, reps, plain=None):
+    """K2 on a forward pass's direction matrix, both bodies (``variant``:
+    ``warp`` or ``thread``; the one ``cuda_nw.walk_ops_body`` picks for
+    this launch first, launched through ``walk_ops``), each held against
+    the plain walk on the first ``plain_pairs`` pairs and timed. ``plain``
+    is that walk's ``((ops, fi, fj), ms)`` where the caller already ran it
+    on a matrix of which ``dirs`` is a prefix; it is held on the pairs
+    both cover."""
     n, m, band = inp["n"], inp["m"], inp["band"]
-    P = plain_pairs(inp)
-    got = cuda_nw.walk_ops(dirs, n, m, band=band)
-
-    def plain():
-        ops, fi, fj = cuda_nw.walk_plain(dirs[:P], n[:P], m[:P], band=band)
-        return cuda_nw.pack_ops(ops), fi, fj
-
-    ref, plain_ms = timed_once(plain)
-    err = max(int((a[:P].int() - b.int()).abs().max())
-              for a, b in zip(got, ref))
-    ms = time_ms(lambda: cuda_nw.walk_ops(dirs, n, m, band=band), reps)
-    steps_real = float((cuda_nw.unpack_ops(got[0]) < 3).sum())
     B, S = dirs.shape[:2]
+    picked = cuda_nw.walk_ops_body(B, band)
+    launch = {picked: lambda: cuda_nw.walk_ops(dirs, n, m, band=band)}
+    for body, entry in cuda_nw.WALK_OPS_ENTRIES.items():
+        launch.setdefault(body, lambda entry=entry: cuda_nw._launch_walk(
+            entry, dirs, n, m, band=band))
+    if plain is None:
+        P = plain_pairs(inp)
+        plain = timed_once(lambda: cuda_nw.walk_plain(dirs[:P], n[:P],
+                                                      m[:P], band=band))
+    (ops, fi, fj), plain_ms = plain
+    P = min(B, ops.shape[0])
+    ref = (cuda_nw.pack_ops(ops[:P]), fi[:P], fj[:P])
+    rows = []
+    for body, fn in launch.items():
+        got = fn()
+        err = max(int((a[:P].int() - b.int()).abs().max())
+                  for a, b in zip(got, ref))
+        rows.append(dict(shape=inp["shape"], variant=body, max_abs_err=err,
+                         ms=time_ms(fn, reps), plain_ms=plain_ms,
+                         plain_pairs=P, library_ms=None))
+    steps_real = float((cuda_nw.unpack_ops(got[0]) < 3).sum())
     bms, by = bound(steps_real * OPS_PER_STEP["walk_ops"],
                     steps_real * SECTOR + 8 * B + B * S // 4 + 8 * B)
-    return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    warp, thread = (next(r for r in rows if r["variant"] == v)
+                    for v in ("warp", "thread"))
+    warp["over_thread"] = warp["ms"] / thread["ms"]
+    thread["over_warp"] = thread["ms"] / warp["ms"]
+    for r in rows:
+        r.update(bound_ms=bms, bound_by=by)
+    return rows
+
+
+def walk_off_path_rows(dev, bucket, seed):
+    """K2 at an aligner bucket the main path does not reach with chunks
+    large enough for the thread body: one forward pass over the bucket's
+    largest chunk (``CudaAligner._chunk_cap``) of pairs drawn as
+    ``WALK_OFF_PATH`` says, then both bodies at each launch size on a
+    prefix of its pairs, held against one plain walk."""
+    (lo, hi, err), sizes = WALK_OFF_PATH[bucket]
+    max_len, band = bucket
+    cap = CudaAligner(device=dev)._chunk_cap(sweep_bound(2 * hi, max_len),
+                                             band)
+    pairs = mutated_pairs(np.random.default_rng(seed), cap, lo, hi, err,
+                          BASES)
+    inp = pair_rows(dev, pairs, max_len, band)
+    dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
+                             max_len=max_len, band=band, steps=inp["steps"])
+    P = plain_pairs(inp)
+    plain = timed_once(lambda: cuda_nw.walk_plain(
+        dirs[:P], inp["n"][:P], inp["m"][:P], band=band))
+    rows = []
+    for B in sorted({*sizes, cap}):
+        part = dict(inp, n=inp["n"][:B], m=inp["m"][:B],
+                    shape=f"aligner ({max_len}, {band}) B={B} "
+                          f"steps={inp['steps']}, pairs of {lo}-{hi} bp "
+                          f"(off the main path)")
+        rows += walk_rows(dirs[:B], part, 3, plain)
+    return rows
 
 
 def vote_entry(dirs, inp, reps):
-    """K3 on a forward pass's direction matrix."""
+    """K3 on a forward pass's direction matrix. Returns its row and the
+    plain walk it was held against, ``((ops, fi, fj), ms)``, on which K2
+    is held too."""
     n, m, band = inp["n"], inp["m"], inp["band"]
     P = plain_pairs(inp)
     kw = dict(band=band, L=inp["Lb"], K=K_INS, CH=CH, DEL=DEL)
     vargs = (dirs, n, m, inp["bg"], inp["qpw"])
     got = cuda_nw.walk_vote(*vargs, **kw)
-    walked = {}
-
-    def plain():
-        ops, fi, fj = cuda_nw.walk_plain(dirs[:P], n[:P], m[:P], band=band)
-        walked["ops"] = ops
-        idx, w = cuda_nw.vote_from_ops(ops, n[:P], m[:P], inp["qpw"][:P],
-                                       inp["bg"][:P], L=inp["Lb"], K=K_INS,
-                                       CH=CH, DEL=DEL)
-        return idx, w, fi, fj
-
-    ref, plain_ms = timed_once(plain)
+    walked = timed_once(lambda: cuda_nw.walk_plain(dirs[:P], n[:P], m[:P],
+                                                   band=band))
+    (ops, fi, fj), walk_ms = walked
+    (idx, w), vote_ms = timed_once(lambda: cuda_nw.vote_from_ops(
+        ops, n[:P], m[:P], inp["qpw"][:P], inp["bg"][:P], L=inp["Lb"],
+        K=K_INS, CH=CH, DEL=DEL))
+    ref = (idx, w, fi, fj)
     err = max(int((a[:P].long() - b.long()).abs().max())
               for a, b in zip(got, ref))
     ms = time_ms(lambda: cuda_nw.walk_vote(*vargs, **kw), reps)
     B, S = dirs.shape[:2]
     # the walk's real steps (a valid vote or the sink), counted on the
     # plain-held prefix, which is every pair at the K3 shapes
-    steps_real = float((walked.pop("ops") < 3).sum()) * B / P
+    steps_real = float((ops < 3).sum()) * B / P
     # a real step reads a direction sector and a 2-byte query lane
     bms, by = bound(steps_real * OPS_PER_STEP["walk_vote"],
                     steps_real * (SECTOR + 2) + 16 * B + 5 * B * S + 8 * B)
     return dict(shape=inp["shape"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, plain_pairs=P, bound_ms=bms, bound_by=by,
-                library_ms=None)
+                plain_ms=walk_ms + vote_ms, plain_pairs=P, bound_ms=bms,
+                bound_by=by, library_ms=None), walked
 
 
 def phase_kernels(dev, main):
@@ -422,19 +483,31 @@ def phase_kernels(dev, main):
         rows["nw_fwd_i32"] += k1
         rows["nw_fwd_i16x2"].append(k4)
         if key == "consensus":
-            row = vote_entry(dirs, inp, reps)
+            row, walked = vote_entry(dirs, inp, reps)
             row["headline"] = True
             rows["walk_vote"].append(row)
+            # K2 at the consensus geometry (the engines give it K3)
+            for row in walk_rows(dirs, inp, reps, plain=walked):
+                row["shape"] += " (off the main path)"
+                row["headline"] = False
+                rows["walk_ops"].append(row)
+            del walked
         elif on_path:
-            row = walk_entry(dirs, inp, reps)
-            row["headline"] = key == busiest
-            rows["walk_ops"].append(row)
+            k2 = walk_rows(dirs, inp, reps)
+            for row in k2:
+                row["headline"] = key == busiest and row is k2[0]
+            rows["walk_ops"] += k2
         del dirs, inp
+        torch.cuda.empty_cache()
+    for seed, bucket in enumerate(WALK_OFF_PATH, 404):
+        for row in walk_off_path_rows(dev, bucket, seed):
+            row["headline"] = False
+            rows["walk_ops"].append(row)
         torch.cuda.empty_cache()
     inp = consensus_shape_inputs(dev, Lq, band, VOTE_PAIRS)
     dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
                              max_len=Lq, band=band, steps=inp["steps"])
-    row = vote_entry(dirs, inp, 5)
+    row = vote_entry(dirs, inp, 5)[0]
     row["shape"] += " (off the main path)"
     row["headline"] = False
     rows["walk_vote"].append(row)
@@ -578,12 +651,13 @@ def phase_profile(dev, paths):
             rows.append((e.key, us, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in rows) / 1e6
-    # a kernel's device functions: <name>_kernel, and K1's warp and wide
-    # bodies <name>_warp_kernel<LPT>, <name>_wide_kernel<NW>
+    # a kernel's device functions: <name>_kernel, K1's warp and wide
+    # bodies <name>_warp_kernel<LPT>, <name>_wide_kernel<NW>, K2's thread
+    # body walk_ops_thread_kernel
     ours = {name: sum(us for key, us, _ in rows
                       if any(f"{name}{body}_kernel" in key
-                             for body in ("", "_warp", "_wide"))) / 1e6
-            for name in cuda_nw.KERNELS}
+                             for body in ("", "_warp", "_wide", "_thread")))
+            / 1e6 for name in cuda_nw.KERNELS}
     out = dict(phase="profile", wall_s=wall_s, stages_s=polisher.timings,
                device_busy_s=busy_s,
                idle_share=(1.0 - busy_s / wall_s) if busy_s else None,
@@ -650,7 +724,8 @@ def main() -> int:
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"], ok=e["ok"],
             **{k: e[k] for k in ("variant", "over_nw_fwd_i16x2",
-                                 "over_block") if k in e},
+                                 "over_block", "over_thread", "over_warp")
+               if k in e},
             other_shapes=e.get("other_shapes", [])))
     record["total_s"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)

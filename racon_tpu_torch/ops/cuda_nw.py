@@ -244,13 +244,41 @@ def nw_fwd_plain(qrp, tp, n, m, *, max_len: int, band: int,
 
 # ------------------------------------------------------------------- walks
 
+# K2's lane decode (kernels/walk_common.cuh walk_locate) divides by band / 8
+# with a multiply-high that is exact below this band
+WALK_MAX_BAND = 1 << 17
+
+# K2 body -> its C entry
+WALK_OPS_ENTRIES = {"warp": "rt_walk_ops", "thread": "rt_walk_ops_thread"}
+# the most pairs a K2 launch walks with the warp body (one warp a pair);
+# larger launches take the thread body (one thread a pair). Measured with
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W, the thread body
+# wins from 8192 pairs on at the aligner's bands 384 and 1024 (and the
+# consensus band 512) and from 4096 on at band 128, the warp body below
+WALK_WARP_MAX_PAIRS = 6144
+WALK_WARP_MAX_PAIRS_BAND128 = 3072
+
+
+def walk_ops_body(B: int, band: int) -> str:
+    """Which body of the traceback walk (K2) a launch of ``B`` pairs at
+    ``band`` runs: ``"warp"`` (``walk_ops_kernel``, one warp a pair, staged
+    windows) up to ``WALK_WARP_MAX_PAIRS`` pairs (at band 128 and below
+    ``WALK_WARP_MAX_PAIRS_BAND128``), ``"thread"``
+    (``walk_ops_thread_kernel``, one thread a pair) above."""
+    top = (WALK_WARP_MAX_PAIRS_BAND128 if band <= 128
+           else WALK_WARP_MAX_PAIRS)
+    return "warp" if B <= top else "thread"
+
+
 def walk_ops(dirs: torch.Tensor, n: torch.Tensor, m: torch.Tensor, *,
              band: int):
     """Traceback from ``(n, m)`` over the direction matrix. Returns
     ``(ops_packed [B, S/4] uint8, fi [B] int32, fj [B] int32)`` — the
-    output of ``racon_tpu.ops.nw._traceback_kernel``."""
+    output of ``racon_tpu.ops.nw._traceback_kernel``. K2 runs the body
+    :func:`walk_ops_body` names for ``B`` and ``band``."""
     B, S, RB = dirs.shape
     _require(RB == band // 8, "dirs width does not match the band")
+    _require(8 <= band < WALK_MAX_BAND, f"band {band} out of range")
     _require(S % 4 == 0, f"steps {S} must be a multiple of 4")
     _require(dirs.dtype == torch.uint8, "dirs must be uint8")
     _require(n.dtype == torch.int32 and m.dtype == torch.int32,
@@ -259,11 +287,22 @@ def walk_ops(dirs: torch.Tensor, n: torch.Tensor, m: torch.Tensor, *,
         ops, fi, fj = walk_plain(dirs, n, m, band=band)
         return pack_ops(ops), fi, fj
     _check_cuda_inputs("walk_ops", dirs, n, m)
+    return _launch_walk(WALK_OPS_ENTRIES[walk_ops_body(B, band)], dirs, n,
+                        m, band=band)
+
+
+def _launch_walk(entry: str, dirs, n, m, *, band: int):
+    """One launch of the K2 C function ``entry`` on checked CUDA inputs,
+    counted under ``walk_ops`` whichever body it runs."""
+    B, S, _ = dirs.shape
+    _require(dirs.data_ptr() % 16 == 0,
+             "dirs must start on a 16 B boundary (K2 stages rows with 16 B "
+             "copies)")
     dev = dirs.device
     ops = torch.empty((B, S // 4), dtype=torch.uint8, device=dev)
     fi = torch.empty((B,), dtype=torch.int32, device=dev)
     fj = torch.empty((B,), dtype=torch.int32, device=dev)
-    fn = _build.function("rt_walk_ops")
+    fn = _build.function(entry)
     err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(), ops.data_ptr(),
              fi.data_ptr(), fj.data_ptr(), B, S, band, _stream(dirs))
     LAUNCHES["walk_ops"] += 1

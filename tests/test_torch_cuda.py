@@ -138,6 +138,74 @@ def test_kernels_match_plain(cuda_device, grid, packed16):
     assert cuda_nw.LAUNCHES["walk_vote"] == before["walk_vote"] + 1
 
 
+WALK_CASES = {
+    # name: (seed, B, band, S, (lo, hi) lengths, codes) for K2 on direction
+    # bytes drawn at random, so that a byte served from a stale or wrong
+    # window buffer changes the output. "wander" codes (0-2) keep a walk
+    # going for its whole row while its diagonal drifts off the one its
+    # windows were predicted on; "any" bytes stop it on code 3 or let it
+    # escape within a few steps
+    "wander_512_partial_block": (31, 45, 512, 1536, (400, 1200), "wander"),
+    "any_bytes_512": (32, 64, 512, 1024, (0, 600), "any"),
+    "wander_128_S_not_16": (33, 9, 128, 1100, (0, 700), "wander"),
+    "wander_384_partial_line": (34, 7, 384, 1040, (200, 700), "wander"),
+    "wander_200_no_staging": (35, 9, 200, 300, (0, 150), "wander"),
+    "wander_4096_lines": (36, 6, 4096, 16384, (5000, 8000), "wander"),
+}
+
+
+def _walk_inputs(name):
+    seed, B, band, S, (lo, hi), codes = WALK_CASES[name]
+    rng = np.random.default_rng(seed)
+    n = rng.integers(lo, hi, B).astype(np.int32)
+    if codes == "any":
+        dirs = rng.integers(0, 256, (B, S, band // 8)).astype(np.uint8)
+        m = rng.integers(lo, hi, B).astype(np.int32)
+    else:
+        c4 = rng.integers(0, 3, (B, S, band // 8, 4)).astype(np.uint8)
+        dirs = (c4[..., 0] | c4[..., 1] << 2 | c4[..., 2] << 4
+                | c4[..., 3] << 6).astype(np.uint8)
+        m = np.maximum(n + rng.integers(-band // 8, band // 8, B),
+                       0).astype(np.int32)
+    n[0] = m[0] = 0                     # an empty pair
+    return [torch.from_numpy(a) for a in (dirs, n, m)], band
+
+
+@pytest.mark.parametrize("body", list(cuda_nw.WALK_OPS_ENTRIES))
+@pytest.mark.parametrize("name", list(WALK_CASES))
+def test_walk_ops_matches_plain_on_random_bytes(cuda_device, name, body):
+    """Each body of walk_ops (K2) on the card == its plain version: B not a
+    multiple of the warps a block walks, S not a multiple of 16 or of 512,
+    a band whose rows are not whole 16 B pieces (no staging), pairs cut by
+    S, empty pairs."""
+    host, band = _walk_inputs(name)
+    B, S, _ = host[0].shape
+    before = cuda_nw.LAUNCHES["walk_ops"]
+    got = cuda_nw._launch_walk(cuda_nw.WALK_OPS_ENTRIES[body],
+                               *(x.to(cuda_device) for x in host), band=band)
+    want = cuda_nw.walk_ops(*host, band=band)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert cuda_nw.LAUNCHES["walk_ops"] == before + 1
+    ops = cuda_nw.unpack_ops(want[0])
+    assert (ops[1:, 0] < 3).any() and (ops[0] == 3).all()
+    if name == "wander_512_partial_block":
+        assert B % 4 and (host[1] + host[2] > S).any()
+
+
+def test_walk_ops_rejects_unaligned_dirs(cuda_device):
+    """K2 stages direction rows with 16 B copies: a matrix that does not
+    start on a 16 B boundary (a view at an odd offset) raises."""
+    B, S, band = 2, 64, 128
+    flat = torch.zeros(1 + B * S * band // 8, dtype=torch.uint8,
+                       device=cuda_device)
+    dirs = flat[1:].view(B, S, band // 8)
+    n = m = torch.ones(B, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="16 B boundary"):
+        cuda_nw.walk_ops(dirs, n, m, band=band)
+
+
 def test_aligner_card_matches_cpu(cuda_device):
     """CudaAligner on the card == CudaAligner(device="cpu"): same CIGARs,
     band escalation and host fallback included."""
