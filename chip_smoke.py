@@ -9,52 +9,67 @@ any phase fails. Phases, one JSON line each:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
              ``nvcc`` per source, all at once;
-3. main    — ``create_polisher(..., aligner="cuda", consensus="cuda")``
+3. ptxas   — registers, stack frame and spills of every kernel;
+4. sass    — ``cuobjdump -sass`` of every kernel: its instruction count
+             and its DPX (VIMNMX, VIMNMX3, VIADDMNMX), local-memory,
+             barrier and shuffle instructions; fails unless K4's wide body
+             runs VIMNMX;
+5. main    — ``create_polisher(..., aligner="cuda", consensus="cuda")``
              polishes a simulated 1 Mbp genome at 30x ONT-like reads
              (seed 23): stage times, kernel launch counts (counted from
-             zero just before the run; all must be > 0), the shape of every
-             launch, host-fallback counts, the draft's and the polished
-             contig's edit distance to the truth, peak device memory;
-4. kernels — each kernel at every shape the main path launched it at (its
-             largest consensus group; each aligner bucket at its largest
-             chunk, on pairs drawn like the simulator's), held bit-exact
-             against its plain PyTorch version on the same card inputs (a
-             prefix of the pairs where the plain version would take
-             minutes), timed with CUDA events. Each ``nw_fwd_i32`` row
-             names the K1 body that ran (``variant``: ``warp`` at the bands
-             128-512, ``wide`` at 1024, 4096 and 8192, ``block`` at the
-             others) and its time over K4's at that shape
-             (``over_nw_fwd_i16x2``); at a ``wide`` shape one more row
-             times the ``block`` body against the same plain reference,
-             and the wide row carries ``over_block``. Each K2 shape has a
-             row for each body (``variant`` ``warp`` or ``thread``, the
-             one ``cuda_nw.walk_ops_body`` picks for it first, with its
-             time over the other's, ``over_thread`` or ``over_warp``).
-             One more shape the main path does not reach, (4096, 1024)
-             with 512 pairs, holds the wide body at band 1024 the same way
-             (no walk row). K2 runs off the main path at the consensus
-             group's shape (on the direction matrix K3 walks, held against
-             the plain walk K3 is held against) and at the aligner buckets
-             whose largest chunks take its thread body (``WALK_OFF_PATH``:
-             each bucket's largest chunk and smaller launches on a prefix
-             of its pairs), and K3 runs once more off the main path on
-             ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
-             geometry;
-5. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
+             zero just before the run; every kernel the engines route the
+             run's launches to must be > 0) and launches per forward body,
+             the shape of every launch, host-fallback counts, the draft's
+             and the polished contig's edit distance to the truth, peak
+             device memory;
+6. kernels — each kernel at every shape the main path launched it at (its
+             largest and smallest consensus groups; each aligner bucket at
+             its largest chunk, on pairs drawn like the simulator's), held
+             bit-exact against its plain PyTorch version on the same card
+             inputs (a prefix of the pairs where the plain version would
+             take minutes), timed with CUDA events. Every forward body of
+             both kernels runs at every forward shape: K1's body for the
+             band (``variant``: ``warp`` at 128-512, ``wide`` at 1024, 4096
+             and 8192, ``block`` elsewhere; at a ``wide`` band its
+             ``block`` body too), and K4's body for the band, its wide body
+             at every other BPT the band instantiates (``bpt``,
+             ``smem_bytes``) and its ``block`` body; each row carries its
+             time over the other kernel's picked body (``over_nw_fwd_i16x2``
+             / ``over_nw_fwd_i32``) and over its own block body
+             (``over_block``); K4's wide body runs at every BPT again on
+             prefixes of ``BPT_LADDER`` pairs (``pairs``,
+             ``engines_pick``). Each K2 shape has a row for each body
+             (``variant`` ``warp`` or ``thread``, the one
+             ``cuda_nw.walk_ops_body`` picks for it first, with its time
+             over the other's, ``over_thread`` or ``over_warp``). Off the
+             main path: the forward kernels at (4096, 1024) with 512 pairs
+             and at the consensus groups of 1024-4096 bp windows
+             (``CONSENSUS_OFF_PATH``) (no walk row); K2 at the consensus group's shape (on the
+             direction matrix K3 walks, held against the plain walk K3 is
+             held against) and at the aligner buckets whose largest chunks
+             take its thread body (``WALK_OFF_PATH``: each bucket's largest
+             chunk and smaller launches on a prefix of its pairs; at the
+             buckets of ``FWD_OFF_PATH``, (256, 128) and (1024, 384), every
+             forward body too); K3 on ``VOTE_PAIRS`` pairs (a partial last
+             warp) at the consensus geometry;
+7. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card and with the plain PyTorch kernels on the CPU: the FASTA
              bytes must be identical;
-6. profile — the main path once more under ``torch.profiler``: device
+8. profile — the main path once more under ``torch.profiler``: device
              time by kernel and the device's idle share.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Details too long for the end of the
-output go to ``chiprun_out/chip_smoke.json``.
+Then the ``{"kernels": [...]}`` line (``on_main_path`` false for a kernel
+the engines give none of the main path's launches: K1 since K4's wide
+body measured faster at every band the 1 Mbp run launches), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
+too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -68,8 +83,8 @@ from racon_tpu_torch import native
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, cuda_nw
 from racon_tpu_torch.ops.nw import CudaAligner, build_rows, sweep_bound
-from racon_tpu_torch.ops.poa import (CH, DEL, GROW, K_INS, Q_PAD, T_PAD,
-                                     sweep_geometry)
+from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
+                                     T_PAD, bucket_geometry, sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
 from racon_tpu_torch.utils.simulate import _mutate, write_inputs
 
@@ -84,12 +99,15 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # from the kernels' code), so both forward kernels share one bound.
 # A DP cell, with its scores held two to a 32-bit lane (every value fits
 # int16, as the packed kernel shows): per pair of cells 3 adds (diagonal +
-# mismatch, insertion + 1, deletion + 1), 3 mins (best of three, the
-# saturation clamp), 2 equality tests and 1 select for the direction code,
-# 2 range compares, 1 and and 1 select for the interior mask = 13 lane
-# operations = 6.5 per cell; the mismatch test at 4 byte lanes per operation
-# (0.25) and the 2-bit direction packing (1 shift-or per cell) bring it to 8.
-OPS_PER_CELL = 8
+# mismatch, insertion + 1, deletion + 1), 2 mins with their predicates for
+# the best of three and its tie order (Hopper's DPX min-with-predicate gives
+# the min of two and which half-words it took in one VIMNMX.S16x2, so each
+# is one operation and the direction code needs no equality tests), 1 min
+# for the saturation clamp, 1 select for the direction code, 2 range
+# compares, 1 and and 1 select for the interior mask = 11 lane operations
+# = 5.5 per cell; the mismatch test at 4 byte lanes per operation (0.25) and
+# the 2-bit direction packing (1 shift-or per cell) bring it to 6.75.
+OPS_PER_CELL = 6.75
 # A walk step: the lane index (3), the direction byte's address (3), the
 # 2-bit code's extraction (2), the boundary selects (2) and the i/j step (2)
 # = 12; the vote stream adds the query lane's weight and code (2), the
@@ -118,6 +136,21 @@ WIDE_1024 = (4096, 1024)
 WALK_OFF_PATH = {(256, 128): ((150, 250, 0.10), (2048, 4096)),
                  (1024, 384): ((700, 1000, 0.12), (4096, 8192)),
                  (4096, 1024): ((3000, 4000, 0.15), (4096, 8192))}
+# the WALK_OFF_PATH buckets at which the kernels phase also holds and
+# times every forward body (K1's warp body against K4's block body there)
+FWD_OFF_PATH = ((256, 128), (1024, 384))
+# the consensus engine's groups at the bands a longer window gives them
+# (poa.bucket_geometry: band 512 * ceil(backbone / 512), at most 4096), off
+# the main path: band -> pairs of the group (MAX_GROUP_PAIRS at band 1024;
+# fewer at 2048 and 4096, where the kernels phase keeps two direction
+# matrices of 18 GB), the window as long as the band. At these and at
+# every other forward shape K4's wide body runs at every BPT the band
+# instantiates, on all the pairs and on their prefixes of BPT_LADDER pairs
+# (1, 4, 16 and 64 pairs an SM of the H100's 132), which span launches
+# from one pair an SM (latency-bound) to a full card (issue-bound); the
+# limits of cuda_nw.I16X2_WIDE_BPT sit between two of them
+CONSENSUS_OFF_PATH = {1024: 32768, 2048: 16384, 4096: 4096}
+BPT_LADDER = (132, 528, 2112, 8448)
 # pairs of the K3 row off the main path: not a multiple of the 32 pairs a
 # warp of walk_vote_kernel walks
 VOTE_PAIRS = 1000
@@ -184,13 +217,15 @@ def mutated_pairs(rng, B, lo, hi, err, alphabet):
     return pairs
 
 
-def consensus_shape_inputs(dev, Lq, band, B):
-    """One consensus group at the main path's geometry (``Lq``, ``band``,
-    ``B`` layer pairs): ~500 bp window layers at 15% error, rows laid out
-    as refine_round builds them (query/target pad codes 6/7)."""
+def consensus_shape_inputs(dev, Lq, band, B, window=500):
+    """One consensus group at the geometry (``Lq``, ``band``, ``B`` layer
+    pairs) of ``window`` bp windows (the main path's 500 by default):
+    window layers of +-6% length at 15% error, rows laid out as
+    refine_round builds them (query/target pad codes 6/7)."""
     rng = np.random.default_rng(101)
     Lb = min(Lq - band + GROW, Lq)
-    pairs = mutated_pairs(rng, B, 470, 530, 0.15,
+    lo, hi = window * 94 // 100, window * 106 // 100
+    pairs = mutated_pairs(rng, B, lo, hi, 0.15,
                           np.arange(4, dtype=np.uint8))
     c = band // 2
     width = c + Lq + band
@@ -206,7 +241,7 @@ def consensus_shape_inputs(dev, Lq, band, B):
     steps, Lq2 = sweep_geometry(Lq, int((n + m).max()) + 65, int(n.max()))
     qpw = ((rng.integers(0, 94, (B, Lq2)).astype(np.uint16) << 3)
            | rng.integers(0, 5, (B, Lq2)).astype(np.uint16))
-    bg = rng.integers(0, Lb - 530, B).astype(np.int32)
+    bg = rng.integers(0, Lb - hi, B).astype(np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return dict(qrp=t(qrp), tp=t(tp), n=t(n), m=t(m), band=band, Lq=Lq,
                 Lb=Lb, steps=steps, qpw=t(qpw.view(np.int16)), bg=t(bg),
@@ -266,11 +301,12 @@ def pair_rows(dev, pairs, max_len, band):
 
 def fwd_err(got, ref, n, m) -> int:
     """Largest |kernel - plain| over the scores and the direction bytes
-    below each pair's n + m (the rows a walk reads); ``ref`` covers a
-    prefix of ``got``'s pairs. Compared 32 pairs at a time."""
+    below each pair's n + m (the rows a walk reads), on the pairs both
+    cover (``ref`` and ``got`` each hold a prefix of one launch's pairs).
+    Compared 32 pairs at a time."""
     (dirs, score), (dirs_ref, score_ref) = got, ref
-    P = dirs_ref.shape[0]
-    err = int((score[:P].long() - score_ref.long()).abs().max())
+    P = min(dirs_ref.shape[0], dirs.shape[0])
+    err = int((score[:P].long() - score_ref[:P].long()).abs().max())
     rows = torch.arange(dirs.shape[1], device=dirs.device)[None, :, None]
     for k in range(0, P, 32):
         sl = slice(k, min(k + 32, P))
@@ -288,53 +324,132 @@ def plain_pairs(inp) -> int:
     return min(B, max(256, PLAIN_CELLS // per_pair))
 
 
-def fwd_rows(inp, reps):
-    """The forward kernels at one shape, each held against its plain
-    version (computed once, on the first ``plain_pairs`` pairs, for every
-    body of the same kernel) and timed: K1 through ``nw_fwd`` (the body
-    ``cuda_nw.fwd_i32_body`` picks, its ``variant``), at a wide band K1's
-    block body too (``variant`` ``block``, launched through its C entry),
-    then K4. Returns K4's output (the walks read it) and the rows."""
+def i16x2_wide_smem(band: int, bpt: int, width: int) -> int:
+    """Dynamic shared memory of a block of K4's wide body, as
+    ``launch_i16x2_wide`` (``nw_fwd.cu``) sizes it: each pair's two staged
+    rows with 16 B of slack, 4 pairs a block at NW = 1, else one pair and
+    the edge ring of 8 * NW + 2 words."""
+    nw = band // (256 * bpt)
+    rows = 2 * (((width + 15) & ~15) + 16)
+    return 4 * rows if nw == 1 else rows + 4 * (8 * nw + 2)
+
+
+def fwd_rows(inp, reps, ladder=()):
+    """The forward kernels at one shape, each body held against its
+    kernel's plain version (computed once, on the first ``plain_pairs``
+    pairs, for every body of the same kernel) and timed. K1: the body
+    ``cuda_nw.fwd_i32_body`` picks (through ``nw_fwd``, its ``variant``)
+    and, at a wide band, its block body. K4: the body
+    ``cuda_nw.fwd_i16x2_body`` picks (through ``nw_fwd``), then its wide
+    body at every other BPT the band instantiates (``variant`` ``wide``,
+    ``bpt``) and its block body (``block``), through their C entries.
+    With ``ladder``, where the band instantiates more than one BPT, K4's
+    wide body at each of them again on each shorter prefix of that many
+    pairs (``pairs``; ``engines_pick`` marks the BPT
+    ``cuda_nw.fwd_i16x2_body`` gives such a launch), after K4's rows. Returns the output of the K4 body the engines pick (the
+    walks read it), K1's rows and K4's rows, the picked body's first."""
     args = (inp["qrp"], inp["tp"], inp["n"], inp["m"])
     kw = dict(max_len=inp["Lq"], band=inp["band"], steps=inp["steps"])
     P = plain_pairs(inp)
     B = args[0].shape[0]
     nm = torch.clamp(inp["n"].long() + inp["m"].long(),
                      max=inp["steps"])
-    U, RB = inp["band"] // 2, inp["band"] // 8
-    cells = float(nm.sum()) * U
-    nbytes = 2 * args[0].numel() + 8 * B + float(nm.sum()) * RB + 4 * B
-    bms, by = bound(cells * OPS_PER_CELL, nbytes)
+    band = inp["band"]
+    U, RB = band // 2, band // 8
+    width = args[0].shape[1]
 
-    def row(launch, ref, plain_ms):
-        got = launch()
-        err = fwd_err(got, ref, inp["n"], inp["m"])
-        ms = time_ms(launch, reps)
-        return got, dict(shape=inp["shape"], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, plain_pairs=P, bound_ms=bms,
-                         bound_by=by, library_ms=None)
+    def fwd_bound(b):
+        """The bound of a launch over the first ``b`` pairs."""
+        live = float(nm[:b].sum())
+        return bound(live * U * OPS_PER_CELL,
+                     2 * b * width + 8 * b + live * RB + 4 * b)
 
-    body = cuda_nw.fwd_i32_body(inp["band"])
-    k1_launch = {body: lambda: cuda_nw.nw_fwd(*args, **kw)}
+    bms, by = fwd_bound(B)
+
+    def rows(ref, plain_ms, launches):
+        """Each launch held and timed; the first one's output kept (one
+        direction matrix alive at a time: 16 GiB at (16384, 4096))."""
+        first, out = None, []
+        for tags, launch in launches:
+            got = launch()
+            err = fwd_err(got, ref, inp["n"], inp["m"])
+            if first is None:
+                first = got
+            del got
+            out.append(dict(shape=inp["shape"], max_abs_err=err,
+                            ms=time_ms(launch, reps), plain_ms=plain_ms,
+                            plain_pairs=P, bound_ms=bms, bound_by=by,
+                            library_ms=None, **tags))
+        return first, out
+
+    body = cuda_nw.fwd_i32_body(band)
+    k1_launch = [(dict(variant=body), lambda: cuda_nw.nw_fwd(*args, **kw))]
     if body == "wide":
-        k1_launch["block"] = lambda: cuda_nw._launch_fwd(
-            cuda_nw.FWD_I32_ENTRIES["block"], *args, **kw)
+        k1_launch.append((dict(variant="block"),
+                          lambda: cuda_nw._launch_fwd(
+                              cuda_nw.FWD_I32_ENTRIES["block"], *args,
+                              **kw)))
     ref, plain_ms = timed_once(
         lambda: cuda_nw.nw_fwd_plain(*(a[:P] for a in args), **kw))
-    k1 = {variant: dict(row(launch, ref, plain_ms)[1], variant=variant)
-          for variant, launch in k1_launch.items()}
+    _, k1 = rows(ref, plain_ms, k1_launch)
     del ref
+    picked, picked_bpt = cuda_nw.fwd_i16x2_body(band, B)
+    k4_launch = [(dict(variant=picked, bpt=picked_bpt,
+                       **({"smem_bytes": i16x2_wide_smem(band, picked_bpt,
+                                                         width)}
+                          if picked == "wide" else {})),
+                  lambda: cuda_nw.nw_fwd(*args, packed16=True, **kw))]
+    for bpt in cuda_nw.I16X2_WIDE_BPTS.get(band, ()):
+        if bpt != picked_bpt:
+            k4_launch.append((dict(variant="wide", bpt=bpt,
+                                   smem_bytes=i16x2_wide_smem(band, bpt,
+                                                              width)),
+                              lambda bpt=bpt: cuda_nw._launch_fwd(
+                                  cuda_nw.FWD_I16X2_ENTRIES["wide"], *args,
+                                  bpt=bpt, **kw)))
+    if picked != "block":
+        k4_launch.append((dict(variant="block", bpt=None),
+                          lambda: cuda_nw._launch_fwd(
+                              cuda_nw.FWD_I16X2_ENTRIES["block"], *args,
+                              **kw)))
     ref, plain_ms = timed_once(lambda: cuda_nw.nw_fwd_plain(
         *(a[:P] for a in args), packed16=True, **kw))
-    got, k4 = row(lambda: cuda_nw.nw_fwd(*args, packed16=True, **kw), ref,
-                  plain_ms)
+    got, k4 = rows(ref, plain_ms, k4_launch)
+    wide = cuda_nw.FWD_I16X2_ENTRIES["wide"]
+    if len(cuda_nw.I16X2_WIDE_BPTS.get(band, ())) < 2:
+        ladder = ()
+    for b in (b for b in ladder if b < B):
+        part = tuple(a[:b] for a in args)
+        lbms, lby = fwd_bound(b)
+        for bpt in cuda_nw.I16X2_WIDE_BPTS[band]:
+            launch = lambda bpt=bpt: cuda_nw._launch_fwd(wide, *part,
+                                                         bpt=bpt, **kw)
+            err = fwd_err(launch(), ref, inp["n"], inp["m"])
+            k4.append(dict(
+                shape=f"{inp['shape']}, first {b} pairs", pairs=b,
+                max_abs_err=err, ms=time_ms(launch, reps),
+                plain_ms=plain_ms, plain_pairs=min(P, b), bound_ms=lbms,
+                bound_by=lby, library_ms=None, variant="wide", bpt=bpt,
+                engines_pick=cuda_nw.fwd_i16x2_body(band, b)[1] == bpt))
     del ref
-    # K1's time over K4's and over its block body's, in this run
-    for r in k1.values():
-        r["over_nw_fwd_i16x2"] = r["ms"] / k4["ms"]
-    if body == "wide":
-        k1["wide"]["over_block"] = k1["wide"]["ms"] / k1["block"]["ms"]
-    return got, list(k1.values()), k4
+    # each body's time over the other kernel's picked body and over its
+    # own kernel's block body, in this run
+    for r in k1:
+        r["over_nw_fwd_i16x2"] = r["ms"] / k4[0]["ms"]
+    for r in k4:
+        if "pairs" not in r:
+            r["over_nw_fwd_i32"] = r["ms"] / k1[0]["ms"]
+    # the body the engines launch at this shape, of either kernel
+    packed16 = use_packed16(inp["Lq"], band)
+    for rs, picked in ((k1, not packed16), (k4, packed16)):
+        for r in rs:
+            r["picked"] = picked and r is rs[0]
+    for rs in (k1, k4):
+        block = next((r for r in rs if r["variant"] == "block"), None)
+        for r in rs:
+            if block is not None and r is not block and "pairs" not in r:
+                r["over_block"] = r["ms"] / block["ms"]
+    return got, k1, k4
 
 
 def walk_rows(dirs, inp, reps, plain=None):
@@ -384,7 +499,9 @@ def walk_off_path_rows(dev, bucket, seed):
     large enough for the thread body: one forward pass over the bucket's
     largest chunk (``CudaAligner._chunk_cap``) of pairs drawn as
     ``WALK_OFF_PATH`` says, then both bodies at each launch size on a
-    prefix of its pairs, held against one plain walk."""
+    prefix of its pairs, held against one plain walk. At the buckets of
+    ``FWD_OFF_PATH`` that forward pass is ``fwd_rows``' (every body of
+    both kernels, held and timed). Returns the walk rows, K1's and K4's."""
     (lo, hi, err), sizes = WALK_OFF_PATH[bucket]
     max_len, band = bucket
     cap = CudaAligner(device=dev)._chunk_cap(sweep_bound(2 * hi, max_len),
@@ -392,8 +509,14 @@ def walk_off_path_rows(dev, bucket, seed):
     pairs = mutated_pairs(np.random.default_rng(seed), cap, lo, hi, err,
                           BASES)
     inp = pair_rows(dev, pairs, max_len, band)
-    dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
-                             max_len=max_len, band=band, steps=inp["steps"])
+    k1 = k4 = []
+    if bucket in FWD_OFF_PATH:
+        inp["shape"] += f", pairs of {lo}-{hi} bp (off the main path)"
+        (dirs, _), k1, k4 = fwd_rows(inp, 3)
+    else:
+        dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
+                                 max_len=max_len, band=band,
+                                 steps=inp["steps"])
     P = plain_pairs(inp)
     plain = timed_once(lambda: cuda_nw.walk_plain(
         dirs[:P], inp["n"][:P], inp["m"][:P], band=band))
@@ -404,7 +527,7 @@ def walk_off_path_rows(dev, bucket, seed):
                           f"steps={inp['steps']}, pairs of {lo}-{hi} bp "
                           f"(off the main path)")
         rows += walk_rows(dirs[:B], part, 3, plain)
-    return rows
+    return rows, k1, k4
 
 
 def vote_entry(dirs, inp, reps):
@@ -440,10 +563,13 @@ def vote_entry(dirs, inp, reps):
 
 def phase_kernels(dev, main):
     """Both forward kernels and the walk that follows at every shape the
-    main path launched: its largest consensus group, and each aligner
-    bucket at its largest chunk; then the forward kernels at
-    ``WIDE_1024`` when the main path did not launch that bucket, and K3 on
-    ``VOTE_PAIRS`` pairs at the consensus geometry. A forward kernel's
+    main path launched: its largest consensus group (and its smallest, the
+    forward kernels only), and each aligner bucket at its largest chunk;
+    then the forward kernels at
+    ``WIDE_1024`` when the main path did not launch that bucket and at the
+    consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
+    ``BPT_LADDER`` prefixes of every shape too), and K3 on ``VOTE_PAIRS`` pairs at the
+    consensus geometry. A forward kernel's
     headline row is the first shape at which the engines pick it
     (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
     the consensus group; the other rows go to ``other_shapes``."""
@@ -455,33 +581,47 @@ def phase_kernels(dev, main):
         chunks[(max_len, bnd)] = (max(big, Bc), count + 1)
     busiest = max(chunks, key=lambda k: chunks[k][1])
     rows = {name: [] for name in cuda_nw.KERNELS}
-    shapes = [("consensus", None)] + sorted(chunks.items())
+    # the smallest consensus group too (the forward kernels only): the
+    # group that closes a run is a launch of a few dozen pairs
+    B_small = min(g[3] for g in main["consensus_group_shapes"])
+    shapes = ([("consensus", None)]
+              + [("consensus_small", None)] * (B_small < B)
+              + sorted(chunks.items()))
     if WIDE_1024 not in chunks:
         shapes.append(("off_path", None))
+    shapes += [("consensus_off", b) for b in CONSENSUS_OFF_PATH]
     for seed, (key, val) in enumerate(shapes):
         if key == "consensus":
             inp = consensus_shape_inputs(dev, Lq, band, B)
             reps = 5
+        elif key == "consensus_small":
+            inp = consensus_shape_inputs(dev, Lq, band, B_small)
+            reps = 20
         elif key == "off_path":
             pairs = mutated_pairs(np.random.default_rng(303), 512, 3000,
                                   4000, 0.15, BASES)
             inp = pair_rows(dev, pairs, *WIDE_1024)
             inp["shape"] += " (off the main path)"
             reps = 3
+        elif key == "consensus_off":
+            c_band, _, c_Lq, _ = bucket_geometry(BAND, val)
+            inp = consensus_shape_inputs(dev, c_Lq, c_band,
+                                         CONSENSUS_OFF_PATH[val], window=val)
+            inp["shape"] += f", {val} bp windows (off the main path)"
+            reps = 3
         else:
             inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed)
             reps = 3
-        (dirs, _), k1, k4 = fwd_rows(inp, reps)
+        (dirs, _), k1, k4 = fwd_rows(inp, reps, BPT_LADDER)
         # headline: the first main-path shape at which the engines pick
         # the kernel
         packed16 = use_packed16(inp["Lq"], inp["band"])
-        on_path = key != "off_path"
-        for r in k1:
-            r["headline"] = (on_path and not packed16
-                             and r["variant"] != "block")
-        k4["headline"] = on_path and packed16
+        on_path = key not in ("off_path", "consensus_off")
+        for k, rs in ((False, k1), (True, k4)):
+            for r in rs:
+                r["headline"] = on_path and packed16 == k and r is rs[0]
         rows["nw_fwd_i32"] += k1
-        rows["nw_fwd_i16x2"].append(k4)
+        rows["nw_fwd_i16x2"] += k4
         if key == "consensus":
             row, walked = vote_entry(dirs, inp, reps)
             row["headline"] = True
@@ -492,7 +632,7 @@ def phase_kernels(dev, main):
                 row["headline"] = False
                 rows["walk_ops"].append(row)
             del walked
-        elif on_path:
+        elif on_path and key != "consensus_small":
             k2 = walk_rows(dirs, inp, reps)
             for row in k2:
                 row["headline"] = key == busiest and row is k2[0]
@@ -500,9 +640,11 @@ def phase_kernels(dev, main):
         del dirs, inp
         torch.cuda.empty_cache()
     for seed, bucket in enumerate(WALK_OFF_PATH, 404):
-        for row in walk_off_path_rows(dev, bucket, seed):
-            row["headline"] = False
-            rows["walk_ops"].append(row)
+        for name, rs in zip(("walk_ops", "nw_fwd_i32", "nw_fwd_i16x2"),
+                            walk_off_path_rows(dev, bucket, seed)):
+            for row in rs:
+                row["headline"] = False
+            rows[name] += rs
         torch.cuda.empty_cache()
     inp = consensus_shape_inputs(dev, Lq, band, VOTE_PAIRS)
     dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
@@ -513,13 +655,103 @@ def phase_kernels(dev, main):
     rows["walk_vote"].append(row)
     entries = {}
     for name, rs in rows.items():
-        head = next((r for r in rs if r["headline"]), rs[0])
+        # off the main path, a shape whose launch the engines give it
+        head = next((r for r in rs if r["headline"]), None) or next(
+            (r for r in rs if r.get("picked")), rs[0])
         for r in rs:
             del r["headline"]
+            r.pop("picked", None)
         entries[name] = dict(head, other_shapes=[r for r in rs
                                                  if r is not head])
         entries[name]["ok"] = all(r["max_abs_err"] == 0 for r in rs)
     return entries
+
+
+def kernel_name(mangled: str) -> str:
+    """``nw_fwd_i16x2_wide_kernel<8,4>`` from a mangled device function
+    name of this repo's kernels."""
+    head, _, rest = mangled.partition("kernel")
+    at = max(head.rfind("nw_fwd_"), head.rfind("walk_"))
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+    return head[at:] + "kernel" + (f"<{','.join(targs)}>" if targs else "")
+
+
+def ptxas_table(ptxas) -> dict:
+    """Registers, stack frame and spills of every kernel, from each
+    library's ``nvcc -Xptxas -v`` output."""
+    out, cur = {}, None
+    for text in ptxas.values():
+        for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = kernel_name(m.group(1)) if "kernel" in m.group(1) \
+                    else None
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(cur, {}).update(
+                    stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                    spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+# SASS opcodes counted per kernel: the DPX min/max family, local memory,
+# barriers and shuffles
+SASS_OPS = ("VIMNMX", "VIMNMX3", "VIADDMNMX", "LDL", "STL", "BAR", "SHFL")
+
+
+def phase_sass() -> dict:
+    """``cuobjdump -sass`` of every kernel library: per kernel, its SASS
+    instruction count (staging, set-up and the loop, most of it the loop)
+    and the count of each of ``SASS_OPS``. Fails unless K4's wide body
+    runs the DPX instructions in hardware (VIMNMX with its predicates)."""
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    table = {}
+    for name in _build.SOURCES:
+        text = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build._lib_path(name))],
+            check=True, capture_output=True, text=True).stdout
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = table.setdefault(kernel_name(m.group(1)),
+                                       dict.fromkeys(("instructions",
+                                                      *SASS_OPS), 0))
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_]*)", line)
+            if m and cur is not None and m.group(1) not in ("NOP",):
+                cur["instructions"] += 1
+                op = m.group(1)
+                if op in cur:
+                    cur[op] += 1
+    out = dict(phase="sass", kernels=table)
+    emit(out)
+    wide = [v for k, v in table.items()
+            if k.startswith("nw_fwd_i16x2_wide_kernel")]
+    if not wide or not all(v["VIMNMX"] > 0 for v in wide):
+        raise RuntimeError("nw_fwd_i16x2_wide_kernel has no VIMNMX in its "
+                           "SASS")
+    return out
+
+
+def main_path_kernels(main) -> set:
+    """The kernels the engines route the main path's launches to: the
+    forward kernel ``swar.use_packed16`` picks at each aligner chunk's and
+    consensus group's (max_len, band), then K2 (the aligner's walk) and K3
+    (the consensus engine's walk + vote)."""
+    shapes = [s[:2] for s in main["aligner_chunk_shapes"]
+              + main["consensus_group_shapes"]]
+    return {"nw_fwd_i16x2" if use_packed16(*s) else "nw_fwd_i32"
+            for s in shapes} | {"walk_ops", "walk_vote"}
 
 
 def phase_main(dev, mbp=1.0):
@@ -539,6 +771,7 @@ def phase_main(dev, mbp=1.0):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(cuda_nw.LAUNCHES)
+    body_launches = dict(cuda_nw.BODY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     stages = dict(polisher.timings)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
@@ -560,6 +793,7 @@ def phase_main(dev, mbp=1.0):
                stages_s=stages, launches=launches,
                n_contigs=len(polished), polished_len=len(polished[0].data),
                truth_len=len(truth), ed_draft=ed_draft,
+               fwd_body_launches=body_launches,
                ed_polished=ed_polished, edit_distance_s=ed_s,
                peak_device_bytes=peak,
                aligner_pairs_device=aligner["device"],
@@ -696,6 +930,9 @@ def main() -> int:
                                        _build.build_log.items()})
     emit(record["build"])
     ptxas = {k: v["ptxas"] for k, v in _build.build_log.items()}
+    record["ptxas"] = dict(phase="ptxas", kernels=ptxas_table(ptxas))
+    emit(record["ptxas"])
+    record["sass"] = phase_sass()
 
     t0 = time.perf_counter()
     record["main"], paths = phase_main(dev)
@@ -708,7 +945,8 @@ def main() -> int:
                              kernels=entries)
     emit(record["kernels"])
     bad = [k for k, e in entries.items() if not e["ok"]]
-    missing = [k for k, v in record["main"]["launches"].items() if v <= 0]
+    on_path = main_path_kernels(record["main"])
+    missing = [k for k in on_path if record["main"]["launches"][k] <= 0]
 
     record["agree"] = phase_agree(dev)
     record["profile"] = phase_profile(dev, paths)
@@ -719,18 +957,20 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=record["main"]["launches"][name],
+            on_main_path=name in on_path,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"], ok=e["ok"],
-            **{k: e[k] for k in ("variant", "over_nw_fwd_i16x2",
-                                 "over_block", "over_thread", "over_warp")
+            **{k: e[k] for k in ("variant", "bpt", "over_nw_fwd_i16x2",
+                                 "over_nw_fwd_i32", "over_block",
+                                 "over_thread", "over_warp")
                if k in e},
             other_shapes=e.get("other_shapes", [])))
     record["total_s"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        dict(record, summary=kernels, ptxas=ptxas), indent=1))
+        dict(record, summary=kernels, ptxas_text=ptxas), indent=1))
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")

@@ -40,6 +40,8 @@ SIGNATURES = {
     "rt_nw_fwd_i32_warp": ("nw_fwd", [_P] * 6 + [_I] * 5 + [_P]),
     "rt_nw_fwd_i32_wide": ("nw_fwd", [_P] * 6 + [_I] * 5 + [_P]),
     "rt_nw_fwd_i16x2": ("nw_fwd", [_P] * 6 + [_I] * 5 + [_P]),
+    # ... B, max_len, band, bpt, width, steps, stream
+    "rt_nw_fwd_i16x2_wide": ("nw_fwd", [_P] * 6 + [_I] * 6 + [_P]),
     "rt_walk_ops": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_ops_thread": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_vote": ("walk_vote", [_P] * 9 + [_I] * 8 + [_P]),

@@ -25,7 +25,7 @@ Layouts are the JAX package's, bit for bit:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,6 +53,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    BODY_LAUNCHES.clear()
 
 
 def _check_launch(fn: str, err: int) -> None:
@@ -103,6 +104,52 @@ def fwd_i32_body(band: int) -> str:
     return "block"
 
 
+# K4 body -> its C entry
+FWD_I16X2_ENTRIES = {"wide": "rt_nw_fwd_i16x2_wide",
+                     "block": "rt_nw_fwd_i16x2"}
+# band -> the bytes a thread owns (BPT) of each nw_fwd_i16x2_wide_kernel
+# rt_nw_fwd_i16x2_wide instantiates (band / (256 * BPT) warps a pair)
+I16X2_WIDE_BPTS = {512: (2,), 1024: (2, 4), 2048: (2, 4, 8),
+                   4096: (2, 4, 8), 8192: (4, 8)}
+# band -> the BPT a launch of B pairs runs: ((most pairs, BPT), ...,
+# (None, BPT)), the first entry whose most pairs is at least B. A launch of
+# about one pair an SM is latency-bound and runs fastest with the most warps
+# a pair (the smaller BPT); a launch that fills the card is issue-bound and
+# runs fastest with the most words a thread. chip_smoke.py kernels phase,
+# one run on an NVIDIA H100 80GB HBM3 at 700.00 W, ms per launch by BPT
+# 2 / 4 / 8 at the consensus groups of 1024-4096 bp windows and their
+# prefixes of 132-8448 pairs, and at the aligner's chunks:
+# - 1024: 0.431 / 0.565 at 132 pairs, 0.550 / 0.567 at 528, 1.764 / 1.379
+#   at 2112, 24.518 / 18.522 at 32768; aligner (4096, 1024) B=512 1.878 /
+#   1.992;
+# - 2048: 0.911 / 0.978 / 1.561 at 132, 1.918 / 1.472 / 1.571 at 528,
+#   6.691 / 4.952 / 4.774 at 2112, 48.938 / 35.646 / 34.364 at 16384;
+#   aligner (8192, 2048) B=128 1.588 / 1.785 / 2.822;
+# - 4096: 2.263 / 1.980 / 2.878 at 132, 6.856 / 5.211 / 4.936 at 528,
+#   25.522 / 18.963 / 19.115 at 2112, 49.145 / 36.386 / 33.794 at 4096;
+#   aligner (16384, 4096) B=2048 41.975 / 31.302 / 31.159;
+# - 8192: aligner (16384, 8192) B=512 BPT 4 / 8 19.168 / 17.562.
+# Each limit sits between the two measured launch sizes either side of it.
+I16X2_WIDE_BPT = {512: ((None, 2),),
+                  1024: ((1024, 2), (None, 4)),
+                  2048: ((256, 2), (1024, 4), (None, 8)),
+                  4096: ((256, 4), (None, 8)),
+                  8192: ((None, 8),)}
+
+
+def fwd_i16x2_body(band: int, B: int) -> Tuple[str, Optional[int]]:
+    """Which body of the int16x2 forward kernel (K4) a launch of ``B``
+    pairs at ``band`` runs: ``("wide", BPT)`` (one pair per block of
+    ``band / (256 * BPT)`` warps, ``nw_fwd_i16x2_wide_kernel``) at the
+    bands of ``I16X2_WIDE_BPT``, with the BPT it gives ``B`` pairs,
+    ``("block", None)`` (one block per pair, ``nw_fwd_i16x2_kernel``) at
+    every other band."""
+    for most, bpt in I16X2_WIDE_BPT.get(band, ()):
+        if most is None or B <= most:
+            return "wide", bpt
+    return "block", None
+
+
 def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
            m: torch.Tensor, *, max_len: int, band: int, steps: int = 0,
            packed16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,7 +160,8 @@ def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
     ``S = steps or 2 * max_len``; a pair with ``n + m > S`` keeps score
     ``1 << 28``. ``packed16`` selects the int16x2 kernel (K4) over the
     int32 one (K1); callers choose it with ``swar.use_packed16``. K1 runs
-    the body :func:`fwd_i32_body` names for ``band``."""
+    the body :func:`fwd_i32_body` names for ``band``, K4 the one
+    :func:`fwd_i16x2_body` names."""
     B, width = qrp.shape
     U = band // 2
     S = steps or 2 * max_len
@@ -128,28 +176,50 @@ def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
         return nw_fwd_plain(qrp, tp, n, m, max_len=max_len, band=band,
                             steps=S, packed16=packed16)
     _check_cuda_inputs("nw_fwd", qrp, tp, n, m)
-    _require(U // 4 <= 1024, f"band {band} exceeds 1024 threads per block")
-    entry = ("rt_nw_fwd_i16x2" if packed16
-             else FWD_I32_ENTRIES[fwd_i32_body(band)])
+    if packed16:
+        body, bpt = fwd_i16x2_body(band, B)
+        entry = FWD_I16X2_ENTRIES[body]
+    else:
+        body, bpt = fwd_i32_body(band), None
+        entry = FWD_I32_ENTRIES[body]
     return _launch_fwd(entry, qrp, tp, n, m, max_len=max_len, band=band,
-                       steps=S)
+                       steps=S, bpt=bpt)
+
+
+# forward-pass C entry -> the kernel it counts under
+FWD_KERNEL_OF = {**{e: "nw_fwd_i32" for e in FWD_I32_ENTRIES.values()},
+                 **{e: "nw_fwd_i16x2" for e in FWD_I16X2_ENTRIES.values()}}
+# launches per forward body, "<C entry>" or "<C entry>:<BPT>" (plain calls do
+# not count), so a run shows which body each launch took
+BODY_LAUNCHES: Dict[str, int] = {}
 
 
 def _launch_fwd(entry: str, qrp, tp, n, m, *, max_len: int, band: int,
-                steps: int):
+                steps: int, bpt: Optional[int] = None):
     """One launch of the forward-pass C function ``entry`` on checked CUDA
-    inputs; counts it under its kernel (``nw_fwd_i16x2`` or
-    ``nw_fwd_i32``, whichever body)."""
+    inputs (``bpt`` for ``rt_nw_fwd_i16x2_wide``); counts it under its
+    kernel (``nw_fwd_i16x2`` or ``nw_fwd_i32``, whichever body) and its
+    body. The block bodies take one thread a direction byte, so at most
+    1024 (band 8192)."""
     B, width = qrp.shape
+    if entry in (FWD_I32_ENTRIES["block"], FWD_I16X2_ENTRIES["block"]):
+        _require(band // 8 <= 1024,
+                 f"band {band} exceeds 1024 threads per block")
     dirs = torch.empty((B, steps, band // 8), dtype=torch.uint8,
                        device=qrp.device)
     score = torch.empty((B,), dtype=torch.int32, device=qrp.device)
-    name = "nw_fwd_i16x2" if entry == "rt_nw_fwd_i16x2" else "nw_fwd_i32"
+    name = FWD_KERNEL_OF[entry]
     fn = _build.function(entry)
-    err = fn(qrp.data_ptr(), tp.data_ptr(), n.data_ptr(), m.data_ptr(),
-             dirs.data_ptr(), score.data_ptr(), B, max_len, band, width,
-             steps, _stream(qrp))
+    head = (qrp.data_ptr(), tp.data_ptr(), n.data_ptr(), m.data_ptr(),
+            dirs.data_ptr(), score.data_ptr(), B, max_len, band)
+    if entry == FWD_I16X2_ENTRIES["wide"]:
+        err = fn(*head, bpt, width, steps, _stream(qrp))
+        key = f"{entry}:{bpt}"
+    else:
+        err = fn(*head, width, steps, _stream(qrp))
+        key = entry
     LAUNCHES[name] += 1
+    BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
     _check_launch(name, err)
     return dirs, score
 

@@ -42,15 +42,24 @@
 // are never read by any walk and are left unwritten). The warp and wide
 // bodies' lane, byte and edge maps are mirrored in numpy, whole loops
 // included, and held against the plain version on the CPU in
-// tests/test_torch_fwd_lanes.py.
+// tests/test_torch_fwd_lanes.py (K4's wide body in
+// tests/test_torch_fwd_packed.py).
 //
-// K4 (nw_fwd_i16x2) is the block body on two int16 scores per 32-bit word
-// (lanes t|t+RB and t+2RB|t+3RB), with the SIMD-in-word intrinsics
-// __vadd2/__vminu2/__vcmpeq2/__vcmpgeu2 and the saturation value BIG16 =
-// 0x4800 of racon_tpu/ops/swar.py: every real cell value is < max_len + 2
-// < BIG16 and the {real, BIG, BIG+1} classes compare the same, so the
-// direction rows are byte-identical to K1's and the score maps BIG16 back
-// to 1 << 28.
+// K4 (nw_fwd_i16x2) has two bodies; racon_tpu_torch/ops/cuda_nw.py
+// fwd_i16x2_body picks one per band. Both hold two int16 scores per 32-bit
+// word with the saturation value BIG16 = 0x4800 of racon_tpu/ops/swar.py:
+// every real cell value is < max_len + 2 < BIG16 and the {real, BIG, BIG+1}
+// classes compare the same, so the direction rows are byte-identical to
+// K1's and the score maps BIG16 back to 1 << 28.
+//
+// - Wide body (nw_fwd_i16x2_wide_kernel<NW, BPT>), bands 256 * BPT * NW
+//   (rt_nw_fwd_i16x2_wide lists them): K1's wide layout on int16x2 words,
+//   thread tg owning BPT whole direction bytes, stepped with Hopper's DPX
+//   min-with-predicate (__vibmin_s16x2, one VIMNMX.S16x2 with two
+//   predicate outputs); described at the body.
+// - Block body (nw_fwd_i16x2_kernel), every other band: K1's block body on
+//   words (lanes t|t+RB and t+2RB|t+3RB), with __vadd2/__vminu2/__vcmpeq2/
+//   __vcmpgeu2.
 //
 // Bound on this card: integer ALU work, 8 operations per DP cell for the
 // function (chip_smoke.py OPS_PER_CELL, shared by K1 and K4), against 64
@@ -668,6 +677,397 @@ __global__ void nw_fwd_i16x2_kernel(const uint8_t* __restrict__ qrp,
     }
 }
 
+// ------------------------------------------------------ K4, wide body
+// Bands 256 * BPT * NW (the (band, BPT) pairs rt_nw_fwd_i16x2_wide lists):
+// K1's wide layout on int16x2 words. One pair per block of NW warps (at
+// NW = 1, kWarps pairs a block, one a warp, as K1's warp body), T = 32 * NW
+// threads, RB = BPT * T bytes a row. Thread tg owns the direction bytes
+// BPT*tg .. BPT*tg + BPT-1 of every row: for plane q = 0..3 the BPT
+// contiguous lanes u = q*RB + BPT*tg + k, held as W = BPT/2 words, slots k
+// (low half) and k+1 (high half) in word k/2. Two wavefronts stay in
+// registers and rotate by parity, as K1's wide body.
+//
+// The +-1 lane shifts: inside a run one __byte_perm of neighbouring words
+// (selector 0x5432: the high half of the first, the low half of the
+// second); across a run's edge inside a warp one shuffle of a word a plane;
+// across a warp's edge K1 wide's ring of words in shared memory (run (q, w)
+// at q*NW + w, a BIG sentinel at each end, one side written a wavefront, one
+// barrier over the NW warps). At NW = 1 there is no ring and no barrier:
+// the shuffle rotates over the warp and thread 31 (0) hands thread 0 (31)
+// the last (first) word of the plane before (after), so lane q*RB - 1
+// reaches lane q*RB; the sentinels are constants.
+//
+// The cell step, per word: cd = v2 + sub, ci = isrc + 1, cdel = dsrc + 1
+// as 32-bit adds (each half stays below 0x8000, so no carry crosses); two
+// DPX min-with-predicate steps give the best of three and K4's tie order:
+// m0 = __vibmin_s16x2(isrc, dsrc) with pred = isrc <= dsrc (consume query
+// before consume target on a tie), then best = __vibmin_s16x2(cd, m0 + 1)
+// with pred = cd <= min(ci, cdel) (the diagonal first). Each value stays in
+// [0, BIG16 + 1] < 0x8000, so the signed s16 forms return the unsigned
+// (__vminu2) answers of the block body. The predicates select the code
+// bits straight into the thread's direction word, slot k at byte k, plane
+// q at bit 2q: one BPT-byte store a row, no exchange.
+//
+// Wavefronts come in two kinds, uniform over the pair: those whose range
+// [lo, hi1) of computed lanes covers every lane (Full: only the saturation
+// clamp, one DPX min), and the rest (Edge: the mask). The range holds the
+// DP boundary (i == 0 or j == 0) too: the step itself gives (0, j) = j and
+// (i, 0) = i from their one finite predecessor, so no lane is set apart.
+// The mask is two whole-word adds against packed lane indices, biased by
+// 0x8000 so that a lane outside [lo, hi1) gets a word half >= 0x7000 >
+// BIG16 and a lane inside a negative one; one __vimax3_s16x2 with best and
+// one min with BIG16 give the clamped, masked value.
+//
+// Characters: a run's BPT query and target bytes are loaded as aligned
+// words (one base and one shift serve the four planes, whose runs lie
+// q*RB bytes apart) and aligned with __funnelshift_r; the two wavefronts
+// of a turn share J0 and so their target words. Query and target words
+// are xor-ed and tested four bytes at a time (bit 7 of each byte: the
+// byte differs), then spread into half-words with __byte_perm.
+//
+// Bound and what holds it: the same integer work as K1 (OPS_PER_CELL); per
+// word the body issues about a dozen instructions (one byte_perm, the
+// adds, two VIMNMX with predicates, four selects, the clamp), against
+// about 15 an int32 cell in K1's wide body. On an H100 (chip_smoke.py) it
+// runs within 1.1-1.2x of the bound on the aligner's large launches; at
+// the consensus groups (BPT 2) a wavefront's fixed work (edge shuffles,
+// the lane range, the row store) falls on four words a thread, and with
+// one pair a SM (the aligner's 128-pair chunks) the wavefront's latency
+// sets the time: the shuffles and, at NW > 1, the ring and the barrier.
+// BPT trades those against the words one warp issues a wavefront.
+
+constexpr unsigned kOnes = 0x00010001u;
+constexpr unsigned kBigW = kBig16 * kOnes;
+// wavefront kinds of the wide int16x2 body
+constexpr int kEdge = 0, kFull = 1;
+
+// stage a pair's two rows into shared memory, 16 bytes a copy where the
+// rows allow it
+__device__ __forceinline__ void stage_rows16(uint8_t* sq, uint8_t* st,
+                                             const uint8_t* qrp,
+                                             const uint8_t* tp, int width,
+                                             int b, int tid, int nthreads) {
+    const uint8_t* q = qrp + static_cast<size_t>(b) * width;
+    const uint8_t* t = tp + static_cast<size_t>(b) * width;
+    if (((width | reinterpret_cast<uintptr_t>(qrp)
+          | reinterpret_cast<uintptr_t>(tp)) & 15) == 0) {
+        for (int x = tid; x < width / 16; x += nthreads) {
+            reinterpret_cast<uint4*>(sq)[x] =
+                reinterpret_cast<const uint4*>(q)[x];
+            reinterpret_cast<uint4*>(st)[x] =
+                reinterpret_cast<const uint4*>(t)[x];
+        }
+    } else {
+        for (int x = tid; x < width; x += nthreads) {
+            sq[x] = q[x];
+            st[x] = t[x];
+        }
+    }
+}
+
+// words of characters a run's BPT bytes take (BPT 2: the low half of one)
+template <int BPT>
+__host__ __device__ constexpr int run_words() {
+    return BPT < 4 ? 1 : BPT / 4;
+}
+
+// the BPT bytes of a run, sh/8 bytes into the aligned words w[0..]: the
+// words are loaded (at most 8 bytes past the run) and aligned with
+// __funnelshift_r
+template <int BPT>
+__device__ __forceinline__ void run_chars(const unsigned* w, unsigned sh,
+                                          unsigned (&x)[run_words<BPT>()]) {
+#pragma unroll
+    for (int i = 0; i < run_words<BPT>(); ++i)
+        x[i] = __funnelshift_r(w[i], w[i + 1], sh);
+}
+
+// the mismatch words of one run: sub[j] holds 1 in the half of each of
+// slots 2j, 2j+1 whose query byte differs from its target byte; the
+// characters are tested four bytes at a time
+template <int BPT>
+__device__ __forceinline__ void run_mismatch(
+    const unsigned (&qx)[run_words<BPT>()],
+    const unsigned (&tx)[run_words<BPT>()], unsigned (&sub)[BPT / 2]) {
+#pragma unroll
+    for (int i = 0; i < run_words<BPT>(); ++i) {
+        const unsigned x = qx[i] ^ tx[i];
+        // bit 7 of each byte: the byte of x is not 0
+        const unsigned f = (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x)
+                           & 0x80808080u;
+        sub[2 * i] = __byte_perm(f, 0, 0x4140) >> 7;
+        if (2 * i + 1 < BPT / 2)
+            sub[2 * i + 1 < BPT / 2 ? 2 * i + 1 : 0] =
+                __byte_perm(f, 0, 0x4342) >> 7;
+    }
+}
+
+// one thread's constants for its pair
+struct I16Pair {
+    const uint8_t* sq;   // the pair's staged rows
+    const uint8_t* st;
+    uint8_t* drow;       // direction matrix of the pair + the thread's bytes
+    int32_t* score;
+    unsigned* ring_r;    // run (q, w)'s last word at q*NW + w, BIG at -1
+    unsigned* ring_l;    // run (q, w)'s first word at q*NW + w, BIG at 4*NW
+    int n, m, nm, L, width, tg, t, w;
+};
+
+// the half of slot k (0..BPT-1) of plane q's run. Masks, not a select
+// under a runtime index: that would move the wavefronts into local memory
+template <int BPT>
+__device__ __forceinline__ unsigned get_slot(const unsigned (&v)[4][BPT / 2],
+                                             int q, int k) {
+    const int at = q * (BPT / 2) + (k >> 1);
+    unsigned s = 0;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+        for (int j = 0; j < BPT / 2; ++j)
+            s |= v[qq][j] & (qq * (BPT / 2) + j == at ? ~0u : 0u);
+    return (k & 1) ? s >> 16 : s & 0xFFFFu;
+}
+
+// wavefront a (parity P, kind Kind) of one thread: cur <- wavefront a from
+// prev = a-1 and cur = a-2; its direction bytes of row a-1, the score at
+// a == n + m, the ring side the next wavefront reads, one barrier
+template <int NW, int BPT, int P, int Kind>
+__device__ __forceinline__ void i16_wavefront(
+    const I16Pair& w, const unsigned (&prev)[4][BPT / 2],
+    unsigned (&cur)[4][BPT / 2],
+    const unsigned (&tx)[4][run_words<BPT>()], int a, int lo, int hi1) {
+    constexpr int W = BPT / 2, RB = 32 * NW * BPT, U = 4 * RB, c = U;
+    constexpr unsigned kFull32 = 0xffffffffu;
+    const int u_t = BPT * w.tg;   // the thread's first lane in plane 0
+    const int I0 = (a + c - P) / 2;
+    const int qs = clampi(c + w.L - I0, 0, w.width - U) + u_t;
+    // the edge word of each plane: P == 0, lane u-1 of the run's first lane
+    // in its high half; P == 1, lane u+1 of its last lane in its low half
+    unsigned edge[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        if (P == 0) {
+            unsigned src = prev[q][W - 1];
+            if (NW == 1) {
+                if (q > 0 && w.t == 31) src = prev[q > 0 ? q - 1 : 0][W - 1];
+                edge[q] = __shfl_sync(kFull32, src, (w.t + 31) & 31);
+                if (q == 0 && w.t == 0) edge[q] = kBigW;
+            } else {
+                edge[q] = __shfl_up_sync(kFull32, src, 1);
+                if (w.t == 0) edge[q] = w.ring_r[q * NW + w.w - 1];
+            }
+        } else {
+            unsigned src = prev[q][0];
+            if (NW == 1) {
+                if (q < 3 && w.t == 0) src = prev[q < 3 ? q + 1 : 3][0];
+                edge[q] = __shfl_sync(kFull32, src, (w.t + 1) & 31);
+                if (q == 3 && w.t == 31) edge[q] = kBigW;
+            } else {
+                edge[q] = __shfl_down_sync(kFull32, src, 1);
+                if (w.t == 31) edge[q] = w.ring_l[q * NW + w.w + 1];
+            }
+        }
+    }
+    // the mask's biased lane words (Edge): lane u's half
+    // of el is 0x8000 + u - lo, of eh 0x8000 + hi1 - 1 - u
+    const unsigned ut = static_cast<unsigned>(u_t) * kOnes + 0x10000u;
+    const unsigned el = ut + static_cast<unsigned>(0x8000 - lo) * kOnes;
+    const unsigned eh = static_cast<unsigned>(0x8000 + hi1 - 1) * kOnes - ut;
+    // the query runs' characters: plane q's run starts q*RB bytes (a
+    // multiple of 4) after plane 0's, so one aligned base and one shift
+    // serve all four
+    const unsigned* wq = reinterpret_cast<const unsigned*>(w.sq + (qs & ~3));
+    const unsigned shq = 8 * (qs & 3);
+    unsigned dir[(BPT + 3) / 4] = {};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        unsigned qx[run_words<BPT>()], sub[W];
+        run_chars<BPT>(wq + q * (RB / 4), shq, qx);
+        run_mismatch<BPT>(qx, tx[q], sub);
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            unsigned isrc, dsrc;
+            if (P == 0) {
+                isrc = prev[q][j];
+                dsrc = __byte_perm(
+                    j == 0 ? edge[q] : prev[q][j > 0 ? j - 1 : 0], prev[q][j],
+                    0x5432);
+            } else {
+                dsrc = prev[q][j];
+                isrc = __byte_perm(prev[q][j],
+                                   j == W - 1 ? edge[q]
+                                              : prev[q][j < W - 1 ? j + 1 : j],
+                                   0x5432);
+            }
+            const unsigned cd = cur[q][j] + sub[j];   // diagonal (i-1, j-1)
+            bool ih, il, mh, ml;
+            // ci <= cdel: consume query (I) before consume target (D)
+            const unsigned m0 = __vibmin_s16x2(isrc, dsrc, &ih, &il);
+            // cd <= min(ci, cdel): the diagonal (M) first
+            const unsigned best = __vibmin_s16x2(cd, m0 + kOnes, &mh, &ml);
+            const int sh = 8 * ((2 * j) % 4) + 2 * q;
+            dir[(2 * j) / 4] |= (ml ? 0u : (il ? 1u : 2u)) << sh
+                                | (mh ? 0u : (ih ? 1u : 2u)) << (sh + 8);
+            unsigned v;
+            if (Kind == kFull) {
+                v = __vmins2(best, kBigW);
+            } else {
+                const unsigned kq = static_cast<unsigned>(q * RB + 2 * j)
+                                    * kOnes;
+                v = __vmins2(__vimax3_s16x2(best, el + kq, eh - kq), kBigW);
+            }
+            cur[q][j] = v;
+        }
+    }
+    uint8_t* dst = w.drow + static_cast<size_t>(a - 1) * RB;
+    if (BPT == 2)
+        *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(dir[0]);
+    else if (BPT == 4)
+        *reinterpret_cast<unsigned*>(dst) = dir[0];
+    else
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(dir[0], dir[(BPT + 3) / 4 - 1]);
+    if (a == w.nm) {
+        // final cell (n, m): u_fin = (m - n + c - p) / 2, clipped; plane
+        // uf / RB, byte uf % RB, so thread (uf % RB) / BPT, slot uf % BPT
+        const int uf = clampi((w.m - w.n + c - P) / 2, 0, U - 1);
+        if ((uf % RB) / BPT == w.tg) {
+            const unsigned s = get_slot<BPT>(cur, uf / RB, uf % BPT);
+            *w.score = s == kBig16 ? kBig32 : static_cast<int>(s);
+        }
+    }
+    if (NW > 1) {
+        if (P == 1) {   // the next wavefront (P == 0) reads the last words
+            if (w.t == 31) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    w.ring_r[q * NW + w.w] = cur[q][W - 1];
+            }
+        } else {        // the next wavefront (P == 1) reads the first words
+            if (w.t == 0) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) w.ring_l[q * NW + w.w] = cur[q][0];
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// wavefront a (parity P): picks its kind from (a, n, m), uniform over the
+// pair's threads
+template <int NW, int BPT, int P>
+__device__ __forceinline__ void i16_step(
+    const I16Pair& w, const unsigned (&prev)[4][BPT / 2],
+    unsigned (&cur)[4][BPT / 2],
+    const unsigned (&tx)[4][run_words<BPT>()], int a) {
+    constexpr int U = 128 * NW * BPT, c = U;
+    const int I0 = (a + c - P) / 2;
+    const int J0 = (a - c + P) / 2;
+    // the lanes the DP computes form one range [lo, hi1) in u: the
+    // interior 1 <= i <= n, 1 <= j <= m and the DP boundary i == 0 or
+    // j == 0, whose cells (0, j) = j and (i, 0) = i the same step yields
+    // from their one finite predecessor (i, j-1) or (i-1, j)
+    const int lo = max(I0 - w.n, -J0);
+    const int hi1 = min(w.m - J0, I0) + 1;
+    if (lo <= 0 && hi1 >= U)
+        i16_wavefront<NW, BPT, P, kFull>(w, prev, cur, tx, a, 0, U);
+    else
+        i16_wavefront<NW, BPT, P, kEdge>(w, prev, cur, tx, a,
+                                         clampi(lo, 0, U), clampi(hi1, 0, U));
+}
+
+// the target runs' characters of a turn, wavefronts a (odd) and a + 1:
+// J0 = (a + 1 - c) / 2 in both, so both read the same target bytes
+template <int NW, int BPT>
+__device__ __forceinline__ void turn_target(
+    const I16Pair& w, int a, unsigned (&tx)[4][run_words<BPT>()]) {
+    constexpr int RB = 32 * NW * BPT, U = 4 * RB, c = U;
+    const int ts = clampi(c + (a + 1 - c) / 2 - 1, 0, w.width - U)
+                   + BPT * w.tg;
+    const unsigned* wt = reinterpret_cast<const unsigned*>(w.st + (ts & ~3));
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        run_chars<BPT>(wt + q * (RB / 4), 8 * (ts & 3), tx[q]);
+}
+
+template <int NW, int BPT>
+__global__ void __launch_bounds__(NW == 1 ? 32 * kWarps : 32 * NW)
+nw_fwd_i16x2_wide_kernel(const uint8_t* __restrict__ qrp,
+                         const uint8_t* __restrict__ tp,
+                         const int32_t* __restrict__ n_arr,
+                         const int32_t* __restrict__ m_arr,
+                         uint8_t* __restrict__ dirs,
+                         int32_t* __restrict__ score_out, int B, int max_len,
+                         int width, int steps) {
+    constexpr int W = BPT / 2, T = 32 * NW, RB = BPT * T;
+    constexpr int PB = NW == 1 ? kWarps : 1;   // pairs a block
+    extern __shared__ unsigned char smem[];
+    const int t = threadIdx.x & 31;
+    // NW == 1: warp = the pair's slot in the block; NW > 1: warp in the pair
+    const int warp = threadIdx.x >> 5;
+    const int slot = NW == 1 ? warp : 0, w = NW == 1 ? 0 : warp;
+    const int tg = NW == 1 ? t : threadIdx.x;
+    const int b = blockIdx.x * PB + slot;
+    if (b >= B) return;   // whole warps, at NW == 1 only (B blocks else)
+    const int S = steps;
+    const int row = round16(width) + 16;   // the run loads read 8 B past
+    uint8_t* sq = smem + 2 * slot * row;
+    uint8_t* st = sq + row;
+    // NW > 1: [BIG, ring_r (4*NW), ring_l (4*NW), BIG]
+    unsigned* ring = reinterpret_cast<unsigned*>(smem + 2 * PB * row);
+    unsigned* ring_r = ring + 1;
+    unsigned* ring_l = ring + 1 + 4 * NW;
+    stage_rows16(sq, st, qrp, tp, width, b, tg, T);
+
+    const int n = n_arr[b], m = m_arr[b];
+    const int nm = n + m;
+    const int last = nm < S ? nm : S;
+    unsigned v1[4][W], v2[4][W];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            v1[q][j] = kBigW;
+            v2[q][j] = kBigW;   // "wavefront -1"
+        }
+    // wavefront 0: only (0, 0), at lane c/2 = 2*RB (thread 0, plane 2,
+    // slot 0)
+    if (tg == 0) v1[2][0] = kBigW & 0xFFFF0000u;
+    if (tg == 0 && (nm == 0 || nm > S)) score_out[b] = nm == 0 ? 0 : kBig32;
+    if (NW == 1) {
+        __syncwarp();
+    } else {
+        if (tg == 0) {
+            ring[0] = kBigW;
+            ring_l[4 * NW] = kBigW;
+        }
+        if (t == 0) {   // wavefront 1 (P == 1) reads wavefront 0's first words
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ring_l[q * NW + w] = v1[q][0];
+        }
+        __syncthreads();
+    }
+
+    const I16Pair pair{sq, st,
+                       dirs + static_cast<size_t>(b) * S * RB + BPT * tg,
+                       score_out + b, ring_r, ring_l, n, m, nm, max_len,
+                       width, tg, t, w};
+    // two wavefronts a turn (fixed parity, in-place rotation), as K1's wide
+    // body; `last` is the pair's, so every thread of a pair meets every
+    // barrier
+    unsigned tx[4][run_words<BPT>()];
+    int a = 1;
+    for (; a + 1 <= last; a += 2) {
+        turn_target<NW, BPT>(pair, a, tx);
+        i16_step<NW, BPT, 1>(pair, v1, v2, tx, a);       // v2 <- wavefront a
+        i16_step<NW, BPT, 0>(pair, v2, v1, tx, a + 1);   // v1 <- a + 1
+    }
+    if (a == last) {
+        turn_target<NW, BPT>(pair, a, tx);
+        i16_step<NW, BPT, 1>(pair, v1, v2, tx, a);
+    }
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, size_t value_bytes, const void* qrp,
            const void* tp, const void* n, const void* m, void* dirs,
@@ -706,6 +1106,32 @@ int launch_warp(const void* qrp, const void* tp, const void* n,
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     kernel<<<(B + kWarps - 1) / kWarps, 32 * kWarps, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(qrp), static_cast<const uint8_t*>(tp),
+        static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
+        static_cast<uint8_t*>(dirs), static_cast<int32_t*>(score), B,
+        max_len, width, steps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int NW, int BPT>
+int launch_i16x2_wide(const void* qrp, const void* tp, const void* n,
+                      const void* m, void* dirs, void* score, int B,
+                      int max_len, int width, int steps, void* stream) {
+    constexpr int PB = NW == 1 ? kWarps : 1;   // pairs a block
+    // each pair's two rows (16 B of slack each), then at NW > 1 the edge
+    // ring with its two sentinels
+    const size_t smem =
+        2 * PB * (static_cast<size_t>((width + 15) & ~15) + 16)
+        + (NW == 1 ? 0 : (8 * NW + 2) * sizeof(unsigned));
+    auto kernel = nw_fwd_i16x2_wide_kernel<NW, BPT>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<(B + PB - 1) / PB, 32 * NW * PB, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(qrp), static_cast<const uint8_t*>(tp),
         static_cast<const int32_t*>(n), static_cast<const int32_t*>(m),
@@ -799,6 +1225,32 @@ int rt_nw_fwd_i16x2(const void* qrp, const void* tp, const void* n,
                     void* stream) {
     return launch(nw_fwd_i16x2_kernel, sizeof(uint16_t), qrp, tp, n, m, dirs,
                   score, B, max_len, band, width, steps, stream);
+}
+
+// K4's wide body at band = 256 * bpt * NW, for the (band, bpt) pairs below
+// (the caller, racon_tpu_torch/ops/cuda_nw.py fwd_i16x2_body, picks bpt).
+int rt_nw_fwd_i16x2_wide(const void* qrp, const void* tp, const void* n,
+                         const void* m, void* dirs, void* score, int B,
+                         int max_len, int band, int bpt, int width,
+                         int steps, void* stream) {
+    if (B <= 0) return 0;
+#define RT_I16X2_WIDE(BAND, BPT)                                             \
+    if (band == BAND && bpt == BPT)                                          \
+        return launch_i16x2_wide<BAND / (256 * BPT), BPT>(                   \
+            qrp, tp, n, m, dirs, score, B, max_len, width, steps, stream);
+    RT_I16X2_WIDE(512, 2)
+    RT_I16X2_WIDE(1024, 2)
+    RT_I16X2_WIDE(1024, 4)
+    RT_I16X2_WIDE(2048, 2)
+    RT_I16X2_WIDE(2048, 4)
+    RT_I16X2_WIDE(2048, 8)
+    RT_I16X2_WIDE(4096, 2)
+    RT_I16X2_WIDE(4096, 4)
+    RT_I16X2_WIDE(4096, 8)
+    RT_I16X2_WIDE(8192, 4)
+    RT_I16X2_WIDE(8192, 8)
+#undef RT_I16X2_WIDE
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

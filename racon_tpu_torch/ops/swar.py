@@ -1,6 +1,6 @@
 """Which forward kernel a launch takes: the int16x2 overflow guard (copy of
-``racon_tpu.ops.swar.swar_fits``) and the bands where the int32 kernel is
-the faster of the two on the card.
+``racon_tpu.ops.swar.swar_fits``) and, per band, the faster of the two
+kernels on the card.
 
 The packed forward kernel (``nw_fwd_i16x2``) saturates scores at
 ``BIG16``; every real cell value of a ``max_len`` bucket is at most
@@ -14,18 +14,30 @@ from __future__ import annotations
 
 BIG16 = 0x4800
 
-# Bands at which the int32 kernel measured faster than the packed one on an
-# NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py kernels phase, at the
-# shapes the 1 Mbp main path launches): 8.81 vs 15.87 ms at band 512
-# (consensus groups, the int32 kernel's one-warp-per-pair body), 57.1 vs
-# 111.5 ms at 4096 and 38.4 vs 68.6 ms at 8192 (aligner chunks, its wide
-# body). At band 2048 the packed kernel stays ahead (2.65 ms against the
-# int32 block body's 2.69); there, and at the other bands, the engines
-# keep the packed kernel, the JAX engines' choice. Band 1024, which the
-# 1 Mbp run does not reach, measured 2.83 ms on the wide body against the
-# packed kernel's 4.19 (the kernels phase's off-path shape); the engines
-# still give it the packed kernel.
-INT32_FASTER_BANDS = frozenset({512, 4096, 8192})
+# band -> the forward kernel the engines launch there: the one that
+# measured faster, each kernel's body as ops/cuda_nw.py picks it for the
+# launch. chip_smoke.py kernels phase, one run on an NVIDIA H100 80GB HBM3
+# at 700.00 W, ms per launch, the winner first:
+# - 128: K1 warp 2.847 vs K4 block 6.423 (aligner (256, 128), 65536 pairs);
+# - 384: K1 warp 23.613 vs K4 block 52.437 (aligner (1024, 384), 65536);
+# - 512: K4 wide 6.133 vs K1 warp 8.813 (consensus group, 32768 pairs;
+#   0.206 vs 0.277 at its 32-pair group);
+# - 1024: K4 wide 1.878 vs K1 wide 2.824 (aligner (4096, 1024), 512);
+#   18.522 vs 32.107 (consensus group of 1024 bp windows, 32768);
+# - 2048: K4 wide 1.588 vs K1 block 2.705 (aligner (8192, 2048), 128);
+#   34.364 vs 120.495 (consensus, 2048 bp windows, 16384);
+# - 4096: K4 wide 31.159 vs K1 wide 56.576 (aligner (16384, 4096), 2048);
+#   33.794 vs 66.006 (consensus, 4096 bp windows, 4096);
+# - 8192: K4 wide 17.562 vs K1 wide 38.397 (aligner (16384, 8192), 512).
+FORWARD_KERNEL = {
+    128: "nw_fwd_i32",
+    384: "nw_fwd_i32",
+    512: "nw_fwd_i16x2",
+    1024: "nw_fwd_i16x2",
+    2048: "nw_fwd_i16x2",
+    4096: "nw_fwd_i16x2",
+    8192: "nw_fwd_i16x2",
+}
 
 
 def swar_fits(max_len: int) -> bool:
@@ -35,5 +47,8 @@ def swar_fits(max_len: int) -> bool:
 
 
 def use_packed16(max_len: int, band: int) -> bool:
-    """Whether a launch at ``(max_len, band)`` takes the int16x2 kernel."""
-    return swar_fits(max_len) and band not in INT32_FASTER_BANDS
+    """Whether a launch at ``(max_len, band)`` takes the int16x2 kernel:
+    where the guard holds and ``FORWARD_KERNEL`` names it (or does not
+    list the band: the JAX engines' choice)."""
+    return (swar_fits(max_len)
+            and FORWARD_KERNEL.get(band, "nw_fwd_i16x2") == "nw_fwd_i16x2")

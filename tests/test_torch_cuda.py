@@ -138,6 +138,60 @@ def test_kernels_match_plain(cuda_device, grid, packed16):
     assert cuda_nw.LAUNCHES["walk_vote"] == before["walk_vote"] + 1
 
 
+def _edge_inputs(band, seed, max_len=0):
+    """Seven pairs (not a multiple of the pairs a block of K4's NW = 1
+    body takes) at ``band``: an empty pair, a target alone (n = 0), a
+    query alone (m = 0), a pair whose lengths differ by c - 40 (near the
+    band's edge), pairs at 15% and 50% error (the latter leaves the band)
+    and a pair longer than the sweep (n + m > steps). ``max_len`` defaults
+    to max(1024, 2 * band)."""
+    rng = np.random.default_rng(seed)
+    c = band // 2
+    max_len = max_len or max(1024, 2 * band)
+    width = c + max_len + band
+    base = min(max_len - c, 3 * c)
+    lens = [(0, 0), (0, 100), (100, 0), (base - c + 40, base),
+            (base, base), (base // 2, base // 2), (max_len - 8, max_len - 8)]
+    qrp = np.full((7, width), 6, np.uint8)
+    tp = np.full((7, width), 7, np.uint8)
+    n = np.zeros(7, np.int32)
+    m = np.zeros(7, np.int32)
+    for k, (nq, nt) in enumerate(lens):
+        t = BASES[rng.integers(0, 4, nt)]
+        q = _mutate(rng, t, 0.5 if k == 5 else 0.15)
+        q = np.resize(q, nq) if len(q) else BASES[rng.integers(0, 4, nq)]
+        qrp[k, c + max_len - nq: c + max_len] = q[::-1]
+        tp[k, c: c + nt] = t
+        n[k], m[k] = nq, nt
+    steps = (2 * max_len - 512) // 512 * 512
+    return [torch.from_numpy(a) for a in (qrp, tp, n, m)], max_len, steps
+
+
+@pytest.mark.parametrize("band,bpt,max_len", [
+    (band, bpt, 0) for band, bpts in cuda_nw.I16X2_WIDE_BPTS.items()
+    for bpt in bpts] + [(512, 2, 1000), (2048, 4, 2500)])
+def test_i16x2_wide_bodies_match_plain(cuda_device, band, bpt, max_len):
+    """K4's wide body at every (band, BPT) it instantiates == the plain
+    packed version on the same edge cases, launch counted under K4; twice
+    more on rows whose width is not a multiple of 16 bytes (staged a byte
+    at a time)."""
+    host, max_len, steps = _edge_inputs(band, seed=band + bpt,
+                                        max_len=max_len)
+    dev = [x.to(cuda_device) for x in host]
+    before = cuda_nw.LAUNCHES["nw_fwd_i16x2"]
+    kw = dict(max_len=max_len, band=band, steps=steps)
+    dk, sk = cuda_nw._launch_fwd(cuda_nw.FWD_I16X2_ENTRIES["wide"], *dev,
+                                 bpt=bpt, **kw)
+    dp, sp = cuda_nw.nw_fwd_plain(*dev, packed16=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sk.cpu(), sp.cpu())
+    _rows_equal(dk.cpu(), dp.cpu(), host[2], host[3])
+    assert cuda_nw.LAUNCHES["nw_fwd_i16x2"] == before + 1
+    nm = host[2] + host[3]
+    assert (nm > steps).any() and (nm == 0).any()
+    assert (host[2] == 0).any() and (host[3] == 0).any()
+
+
 WALK_CASES = {
     # name: (seed, B, band, S, (lo, hi) lengths, codes) for K2 on direction
     # bytes drawn at random, so that a byte served from a stale or wrong
