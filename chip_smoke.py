@@ -19,19 +19,24 @@ any phase fails. Phases, one JSON line each:
              (seed 23): stage times, kernel launch counts (counted from
              zero just before the run; every kernel the engines route the
              run's launches to must be > 0) and launches per forward body,
-             the shape of every launch, host-fallback counts, the draft's
-             and the polished contig's edit distance to the truth, peak
-             device memory;
+             the shape of every launch, host-fallback counts, the aligner's
+             band-ladder and occupancy counters (``ladder_narrow``,
+             ``band_escalated``, ``lanes_occupied``/``lanes_total``) and the
+             bytes it fetched from the card, the draft's and the polished
+             contig's edit distance to the truth, peak device memory;
 6. kernels — each kernel at every shape the main path launched it at (its
-             largest and smallest consensus groups; each aligner bucket at
-             its largest chunk, on pairs drawn like the simulator's), held
+             largest and smallest consensus groups; each aligner (max_len,
+             band) at its largest chunk, band-ladder rungs included, on
+             pairs drawn like the simulator's that the aligner seeds
+             there), held
              bit-exact against its plain PyTorch version on the same card
              inputs (a prefix of the pairs where the plain version would
              take minutes), timed with CUDA events. Every forward body of
              both kernels runs at every forward shape: K1's body for the
              band (``variant``: ``warp`` at 128-512, ``wide`` at 1024, 4096
-             and 8192, ``block`` elsewhere; at a ``wide`` band its
-             ``block`` body too), and K4's body for the band, its wide body
+             and 8192, ``block`` elsewhere; where that is not the block
+             body, its ``block`` body too), and K4's body for the band, its
+             wide body
              at every other BPT the band instantiates (``bpt``,
              ``smem_bytes``) and its ``block`` body; each row carries its
              time over the other kernel's picked body (``over_nw_fwd_i16x2``
@@ -50,13 +55,24 @@ any phase fails. Phases, one JSON line each:
              take its thread body (``WALK_OFF_PATH``: each bucket's largest
              chunk and smaller launches on a prefix of its pairs; at the
              buckets of ``FWD_OFF_PATH``, (256, 128) and (1024, 384), every
-             forward body too); K3 on ``VOTE_PAIRS`` pairs (a partial last
-             warp) at the consensus geometry;
-7. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
+             forward body too); every forward body and K2 at the band
+             ladder's rungs the 1 Mbp run does not launch
+             (``RUNG_OFF_PATH``: 64, 96, 192, 256, 768); K3 on
+             ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
+             geometry;
+7. bp      — at every aligner (max_len, band) of the main path, on its
+             kernels-phase pairs: ``breaking_points`` rows from the card
+             (``CudaAligner._launch_chunk`` + ``_finish_chunk_bp``) equal
+             to the host decode of the same walk (``ops_to_cigar`` +
+             ``decode_breaking_points_batch``), the card's tables equal to
+             ``breaking_points`` on the CPU from the same op stream, and
+             its time (CUDA events);
+8. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card and with the plain PyTorch kernels on the CPU: the FASTA
              bytes must be identical;
-8. profile — the main path once more under ``torch.profiler``: device
-             time by kernel and the device's idle share.
+9. profile — the main path once more under ``torch.profiler``: device
+             time by kernel and of the ``breaking_points`` range, and the
+             device's idle share.
 
 Then the ``{"kernels": [...]}`` line (``on_main_path`` false for a kernel
 the engines give none of the main path's launches: K1 since K4's wide
@@ -82,7 +98,9 @@ import torch
 from racon_tpu_torch import native
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, cuda_nw
-from racon_tpu_torch.ops.nw import CudaAligner, build_rows, sweep_bound
+from racon_tpu_torch.core.overlap import decode_breaking_points_batch
+from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
+                                    sweep_bound, window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
                                      T_PAD, bucket_geometry, sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
@@ -120,6 +138,11 @@ OPS_PER_CELL = 6.75
 # move is one sector of device memory.
 OPS_PER_STEP = {"walk_ops": 12, "walk_vote": 24}
 SECTOR = 32
+# operations a step of breaking_points does: decode the 2-bit code (2), the
+# two position prefix sums (2), the interval index (subtract, divide, clamp
+# = 3), the validity test (2), the packed coordinates (2) and the two
+# reductions (2)
+OPS_PER_BP_STEP = 13
 # pairs x lanes x steps a plain-version comparison may cover: the plain
 # versions loop over wavefronts in Python and would take minutes at the
 # largest aligner chunks, so those are held on a prefix of at least 256 of
@@ -151,6 +174,16 @@ FWD_OFF_PATH = ((256, 128), (1024, 384))
 # limits of cuda_nw.I16X2_WIDE_BPT sit between two of them
 CONSENSUS_OFF_PATH = {1024: 32768, 2048: 16384, 4096: 4096}
 BPT_LADDER = (132, 528, 2112, 8448)
+# band-ladder rungs (ops.nw.BAND_RUNGS) that the 1 Mbp run does not launch,
+# which shorter reads reach: (max_len, band) -> (shortest, longest + 1)
+# pair length, error rate, pairs. The kernels phase holds and times every
+# forward body there and K2's two bodies (rows of 8 and 12 bytes at 64
+# and 96)
+RUNG_OFF_PATH = {(256, 64): (20, 90, 0.08, 2048),
+                 (256, 96): (40, 160, 0.1, 2048),
+                 (1024, 192): (150, 450, 0.1, 2048),
+                 (1024, 256): (250, 650, 0.1, 2048),
+                 (4096, 768): (1000, 2200, 0.12, 2048)}
 # pairs of the K3 row off the main path: not a multiple of the 32 pairs a
 # warp of walk_vote_kernel walks
 VOTE_PAIRS = 1000
@@ -248,30 +281,54 @@ def consensus_shape_inputs(dev, Lq, band, B, window=500):
                 shape=f"consensus B={B} Lq={Lq} band={band} steps={steps}")
 
 
-def aligner_bucket_inputs(dev, bucket, B, seed):
-    """One aligner chunk of ``bucket`` (max_len, band) with ``B`` pairs as
+def aligner_bucket_inputs(dev, shape, B, seed, div_obs):
+    """One aligner chunk of ``shape`` (max_len, band) with ``B`` pairs as
     the main path makes them: a truth span of the simulator's read length
     (normal, mean 7 kbp, sd 1.5 kbp, clipped to 2-8 kbp), the read drawn
     from it with the simulator's read errors and the draft span with its
-    draft errors, kept when the aligner puts the pair in ``bucket``; rows
-    built by ops.nw.build_rows."""
+    draft errors, kept when the aligner seeds the pair at ``shape``: its
+    bucket, and the band the ladder gives it from the cold estimate or from
+    the main run's divergence observations ``div_obs`` (a bucket's own band
+    takes the pairs no narrower rung admits). Rows built by
+    ops.nw.build_rows; the drawn pairs under ``pairs``."""
     rng = np.random.default_rng(seed)
-    aligner = CudaAligner(device=dev)
-    bi = aligner.buckets.index(bucket)
-    max_len, band = bucket
+    cold = CudaAligner(device=dev)
+    warm = CudaAligner(device=dev)
+    warm._div_obs = list(div_obs)
+    max_len, band = shape
+    bi = next(i for i, (ml, bb) in enumerate(cold.buckets)
+              if ml == max_len and band <= bb)
+
+    def seeds(qlen, tlen):
+        err = 1.0 - min(qlen, tlen) / max(qlen, tlen)
+        return {al._seed_geometry(qlen, tlen, err, record=False)
+                for al in (cold, warm)}
+
+    # truth sizes whose equal-length pair seeds at the shape (5% slack for
+    # the read's and the draft's indels), so the draw rejects on size first
+    fits = [x for x in range(2000, 8001, 25)
+            if any((bi, band) in seeds(y, y)
+                   for y in (x * 95 // 100, x, x * 105 // 100))]
+    if not fits:
+        raise RuntimeError(f"no read length seeds at {shape}")
+    lo, hi = min(fits), max(fits)
     pairs = []
     for _ in range(1000 * B):
         if len(pairs) == B:
             break
         size = int(np.clip(rng.normal(7000, 1500), 2000, 8000))
+        if not lo <= size <= hi:
+            continue
         truth = BASES[rng.integers(0, 4, size)]
         q = _mutate(truth, rng, 0.03, 0.03, 0.06)[0]
         t = _mutate(truth, rng, 0.02, 0.02, 0.06)[0]
-        if aligner._bucket_index(len(q), len(t)) == bi:
+        if (bi, band) in seeds(len(q), len(t)):
             pairs.append((q, t))
     if len(pairs) < B:
-        raise RuntimeError(f"could not draw {B} pairs of bucket {bucket}")
-    return pair_rows(dev, pairs, max_len, band)
+        raise RuntimeError(f"could not draw {B} pairs at {shape}")
+    out = pair_rows(dev, pairs, max_len, band)
+    out["pairs"] = pairs
+    return out
 
 
 def pair_rows(dev, pairs, max_len, band):
@@ -339,7 +396,7 @@ def fwd_rows(inp, reps, ladder=()):
     kernel's plain version (computed once, on the first ``plain_pairs``
     pairs, for every body of the same kernel) and timed. K1: the body
     ``cuda_nw.fwd_i32_body`` picks (through ``nw_fwd``, its ``variant``)
-    and, at a wide band, its block body. K4: the body
+    and, where that is not the block body, its block body. K4: the body
     ``cuda_nw.fwd_i16x2_body`` picks (through ``nw_fwd``), then its wide
     body at every other BPT the band instantiates (``variant`` ``wide``,
     ``bpt``) and its block body (``block``), through their C entries.
@@ -384,7 +441,7 @@ def fwd_rows(inp, reps, ladder=()):
 
     body = cuda_nw.fwd_i32_body(band)
     k1_launch = [(dict(variant=body), lambda: cuda_nw.nw_fwd(*args, **kw))]
-    if body == "wide":
+    if body != "block":
         k1_launch.append((dict(variant="block"),
                           lambda: cuda_nw._launch_fwd(
                               cuda_nw.FWD_I32_ENTRIES["block"], *args,
@@ -568,8 +625,9 @@ def phase_kernels(dev, main):
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
-    ``BPT_LADDER`` prefixes of every shape too), and K3 on ``VOTE_PAIRS`` pairs at the
-    consensus geometry. A forward kernel's
+    ``BPT_LADDER`` prefixes of every shape too), every forward body and
+    K2 at the ladder rungs of ``RUNG_OFF_PATH``, and K3 on ``VOTE_PAIRS``
+    pairs at the consensus geometry. A forward kernel's
     headline row is the first shape at which the engines pick it
     (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
     the consensus group; the other rows go to ``other_shapes``."""
@@ -581,6 +639,7 @@ def phase_kernels(dev, main):
         chunks[(max_len, bnd)] = (max(big, Bc), count + 1)
     busiest = max(chunks, key=lambda k: chunks[k][1])
     rows = {name: [] for name in cuda_nw.KERNELS}
+    drawn = {}    # aligner shape -> the pairs its rows were built from
     # the smallest consensus group too (the forward kernels only): the
     # group that closes a run is a launch of a few dozen pairs
     B_small = min(g[3] for g in main["consensus_group_shapes"])
@@ -610,7 +669,9 @@ def phase_kernels(dev, main):
             inp["shape"] += f", {val} bp windows (off the main path)"
             reps = 3
         else:
-            inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed)
+            inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed,
+                                        main["aligner_div_obs"])
+            drawn[key] = inp.pop("pairs")
             reps = 3
         (dirs, _), k1, k4 = fwd_rows(inp, reps, BPT_LADDER)
         # headline: the first main-path shape at which the engines pick
@@ -646,6 +707,20 @@ def phase_kernels(dev, main):
                 row["headline"] = False
             rows[name] += rs
         torch.cuda.empty_cache()
+    for seed, (shape, (lo, hi, err, B_r)) in enumerate(
+            RUNG_OFF_PATH.items(), 606):
+        pairs = mutated_pairs(np.random.default_rng(seed), B_r, lo, hi, err,
+                              BASES)
+        inp = pair_rows(dev, pairs, *shape)
+        inp["shape"] += f", pairs of {lo}-{hi} bp (off the main path)"
+        (dirs, _), k1, k4 = fwd_rows(inp, 3)
+        for name, rs in (("nw_fwd_i32", k1), ("nw_fwd_i16x2", k4),
+                         ("walk_ops", walk_rows(dirs, inp, 3))):
+            for row in rs:
+                row["headline"] = False
+            rows[name] += rs
+        del dirs, inp
+        torch.cuda.empty_cache()
     inp = consensus_shape_inputs(dev, Lq, band, VOTE_PAIRS)
     dirs, _ = cuda_nw.nw_fwd(inp["qrp"], inp["tp"], inp["n"], inp["m"],
                              max_len=Lq, band=band, steps=inp["steps"])
@@ -664,7 +739,7 @@ def phase_kernels(dev, main):
         entries[name] = dict(head, other_shapes=[r for r in rs
                                                  if r is not head])
         entries[name]["ok"] = all(r["max_abs_err"] == 0 for r in rs)
-    return entries
+    return entries, drawn
 
 
 def kernel_name(mangled: str) -> str:
@@ -800,6 +875,12 @@ def phase_main(dev, mbp=1.0):
                aligner_pairs_host=(aligner["fallback_length"]
                                    + aligner["fallback_band"]),
                aligner_band_escalated=aligner["band_escalated"],
+               aligner_ladder_narrow=aligner["ladder_narrow"],
+               aligner_lanes_occupied=aligner["lanes_occupied"],
+               aligner_lanes_total=aligner["lanes_total"],
+               aligner_wavefront_work=aligner["wavefront_work"],
+               aligner_fetched_bytes=aligner["fetched_bytes"],
+               aligner_div_obs=polisher.aligner._div_obs,
                aligner_chunks=aligner["chunks"],
                aligner_swar_chunks=aligner["swar_chunks"],
                consensus_windows_device=consensus["device_windows"],
@@ -818,6 +899,84 @@ def phase_main(dev, mbp=1.0):
         raise RuntimeError(f"polishing did not cut the edit distance: "
                            f"{ed_draft} -> {ed_polished}")
     return out, paths
+
+
+def phase_bp(dev, drawn, w=500):
+    """Breaking points on the card at every aligner shape of the main path,
+    on the pairs its kernels rows were drawn from (its largest chunk), with
+    metas of a 1 Mbp draft: one launch in breaking-points mode
+    (``CudaAligner._launch_chunk``: forward pass, K2, ``breaking_points``)
+    finished by ``_finish_chunk_bp``, one in CIGAR mode for the same walk's
+    op stream. Every accepted pair's rows must equal the host decode of
+    that walk (``ops_to_cigar`` + ``decode_breaking_points_batch``), the
+    accept set must be the CIGAR mode's, and ``breaking_points`` on the CPU
+    must give the card's tables from the same op stream. Timed with CUDA
+    events (``ms``) and on the CPU (``cpu_ms``)."""
+    rows = []
+    for seed, (shape, drawn_pairs) in enumerate(sorted(drawn.items()), 505):
+        max_len, band = shape
+        rng = np.random.default_rng(seed)
+        pairs = [(q.tobytes(), t.tobytes()) for q, t in drawn_pairs]
+        C = len(pairs)
+        metas = [(int(rng.integers(0, 1_000_000 - len(t))),
+                  int(rng.integers(0, 500))) for _, t in pairs]
+        chunk = list(range(C))
+        al = CudaAligner(device=dev)
+        bp_meta = (w, metas)
+        launched = al._launch_chunk(pairs, chunk, max_len, band, bp_meta)
+        got, reject = [None] * C, []
+        al._finish_chunk_bp(launched, band, got, reject, bp_meta)
+        cig_al = CudaAligner(device=dev)
+        walked = cig_al._launch_chunk(pairs, chunk, max_len, band)
+        _, _, n, m, (ops_d, _, _, _) = walked
+        cigars, cig_reject = [None] * C, []
+        cig_al._finish_chunk(walked, band, cigars, cig_reject)
+        ok = sorted(reject) == sorted(cig_reject)
+        accepted = [k for k in chunk
+                    if got[k] is not None and cigars[k] is not None]
+        t0 = time.perf_counter()
+        host = decode_breaking_points_batch(
+            [cigars[k] for k in accepted], [metas[k][1] for k in accepted],
+            [metas[k][0] for k in accepted],
+            [metas[k][0] + len(pairs[k][1]) for k in accepted], w, 8)
+        decode_s = time.perf_counter() - t0
+        ok &= all(np.array_equal(got[k], h) for k, h in zip(accepted, host))
+        # the same op stream through breaking_points on the card and on
+        # the CPU
+        first_rel, nb = window_geometry(
+            np.array([mt[0] for mt in metas]), m, w)
+        NW = max_len // w + 2
+        host_in = [torch.from_numpy(a) for a in (n, m, first_rel, nb)]
+        dev_in = [a.to(dev) for a in host_in]
+        card = breaking_points(ops_d, *dev_in, w=w, NW=NW)
+        ops_h = ops_d.cpu()
+        t0 = time.perf_counter()
+        cpu = breaking_points(ops_h, *host_in, w=w, NW=NW)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        same_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+        ms = time_ms(lambda: breaking_points(ops_d, *dev_in, w=w, NW=NW), 5)
+        B, S4 = ops_d.shape
+        steps_all = B * S4 * 4
+        bms, by = bound(steps_all * OPS_PER_BP_STEP,
+                        B * S4 + 16 * B + 8 * B * NW)
+        rows.append(dict(
+            shape=f"aligner ({max_len}, {band}) B={B} steps={4 * S4}",
+            pairs=C, accepted=len(accepted), rows=sum(len(h) for h in host),
+            rows_equal_host_decode=ok, cpu_tables_equal=same_cpu, ms=ms,
+            cpu_ms=cpu_ms, bound_ms=bms, bound_by=by,
+            host_cigar_decode_s=decode_s,
+            fetched_bytes=al.stats["fetched_bytes"],
+            op_stream_bytes=C * S4))
+        del launched, walked, ops_d, card
+        torch.cuda.empty_cache()
+    out = dict(phase="bp", window_length=w, shapes=rows,
+               ok=all(r["rows_equal_host_decode"] and r["cpu_tables_equal"]
+                      for r in rows))
+    emit(out)
+    if not out["ok"]:
+        raise RuntimeError("device breaking points disagree with the host "
+                           "decode or the CPU")
+    return out
 
 
 def phase_agree(dev):
@@ -872,11 +1031,21 @@ def phase_profile(dev, paths):
         polisher.run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = []
+    rows, bp_s, bp_calls = [], 0.0, 0
     for e in prof.key_averages():
+        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if e.key == "breaking_points":
+            # the record_function range: on the host, with the device time
+            # of the kernels launched inside it; on the device, the range
+            # itself (no kernel of its own)
+            if not on_device:
+                bp_s += (getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0)) / 1e6
+                bp_calls += e.count
+            continue
         # device-side events only (kernels, copies): host ops report the
         # device time of the kernels they launched as well
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if not on_device:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -894,6 +1063,8 @@ def phase_profile(dev, paths):
             / 1e6 for name in cuda_nw.KERNELS}
     out = dict(phase="profile", wall_s=wall_s, stages_s=polisher.timings,
                device_busy_s=busy_s,
+               breaking_points_device_s=bp_s,
+               breaking_points_calls=bp_calls,
                idle_share=(1.0 - busy_s / wall_s) if busy_s else None,
                kernel_device_s=ours,
                top=[dict(name=k[:80], device_s=us / 1e6, count=c)
@@ -939,7 +1110,7 @@ def main() -> int:
     record["main"]["seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    entries = phase_kernels(dev, record["main"])
+    entries, drawn = phase_kernels(dev, record["main"])
     record["kernels"] = dict(phase="kernels",
                              seconds=time.perf_counter() - t0,
                              kernels=entries)
@@ -947,6 +1118,11 @@ def main() -> int:
     bad = [k for k, e in entries.items() if not e["ok"]]
     on_path = main_path_kernels(record["main"])
     missing = [k for k in on_path if record["main"]["launches"][k] <= 0]
+
+    t0 = time.perf_counter()
+    record["bp"] = phase_bp(dev, drawn)
+    record["bp"]["seconds"] = time.perf_counter() - t0
+    del drawn
 
     record["agree"] = phase_agree(dev)
     record["profile"] = phase_profile(dev, paths)

@@ -6,7 +6,8 @@ against the targets), picks the NGS/TGS window type (mean read length
 <= 1000 -> NGS), loads, transmutes and filters the overlaps (error above
 the threshold and self overlaps dropped; for contig polishing only the
 longest overlap of each query group kept), aligns the overlaps through the
-aligner backend, derives per-window breaking points from the CIGARs, and
+aligner backend and takes their per-window breaking points (computed on the
+device by a device aligner, decoded from CIGARs on the host otherwise), and
 builds the windows and their columnar layers (min-span 2% of the window
 length, mean PHRED quality >= threshold). ``polish()`` runs the consensus
 backend over every window and stitches the windows per target with the
@@ -226,26 +227,32 @@ class Polisher:
         return result
 
     def find_overlap_breaking_points(self, overlaps: List[Overlap]) -> None:
-        """Align the CIGAR-less overlaps through the aligner backend, then
-        decode every CIGAR into per-window breaking points."""
+        """Per-window breaking points of every overlap. A device aligner
+        (``wants_full_stream``) returns them itself, computed on the
+        device; a host aligner returns CIGARs, decoded here like the CIGARs
+        of SAM input."""
         log = self.logger
         t0 = time.perf_counter()
         msg = "[racon_tpu::Polisher::initialize] aligning overlaps"
         need = [o for o in overlaps
                 if not o.cigar and o.breaking_points is None]
-        # a device backend takes large slices (it buckets and chunks
-        # itself); the host path keeps transient span copies small
-        chunk = 65536 if getattr(self.aligner, "wants_full_stream",
-                                 False) else 1024
-        for begin in range(0, len(need), chunk):
-            part = need[begin:begin + chunk]
-            pairs = [(o.query_span_bytes(self.sequences),
-                      o.target_span_bytes(self.sequences)) for o in part]
-            for o, cigar in zip(part, self.aligner.align_batch(pairs)):
-                o.cigar = cigar
-            log.bar_to(msg, begin + len(part), len(need))
+        if getattr(self.aligner, "wants_full_stream", False):
+            self._align_device(need, log, msg)
+        else:
+            # host path: bounded slices keep transient span copies small
+            chunk = 1024
+            for begin in range(0, len(need), chunk):
+                part = need[begin:begin + chunk]
+                pairs = [(o.query_span_bytes(self.sequences),
+                          o.target_span_bytes(self.sequences))
+                         for o in part]
+                for o, cigar in zip(part, self.aligner.align_batch(pairs)):
+                    o.cigar = cigar
+                log.bar_to(msg, begin + len(part), len(need))
         self.timings["align_s"] = time.perf_counter() - t0
 
+        # the host CIGARs only (host aligner, SAM input): the device path's
+        # breaking points came off the card above
         t0 = time.perf_counter()
         todo = [o for o in overlaps if o.breaking_points is None]
         if todo:
@@ -260,6 +267,40 @@ class Polisher:
                 o.cigar = None
         self.timings["bp_decode_s"] = time.perf_counter() - t0
         log.log("[racon_tpu::Polisher::initialize] aligned overlaps")
+
+    def _align_device(self, need: List[Overlap], log, msg) -> None:
+        """Breaking points of ``need`` from a device aligner
+        (``racon_tpu.core.polisher.Polisher._align_need``'s device branch):
+        65536-overlap slices feed one ``bp_stream`` session, so chunks
+        pipeline across slice boundaries; each pair carries its overlap's
+        ``(t_begin, query offset)`` and its ``error`` (the band ladder's
+        per-pair estimate). Without a session (``use_ragged=False``) each
+        slice goes through ``breaking_points_batch``."""
+        chunk = 65536
+        sess = self.aligner.bp_stream(
+            self.window_length, total=len(need),
+            progress=lambda d, t: log.bar_to(msg, d, t))
+        for begin in range(0, len(need), chunk):
+            part = need[begin:begin + chunk]
+            pairs = [(o.query_span_bytes(self.sequences),
+                      o.target_span_bytes(self.sequences)) for o in part]
+            metas = [(o.t_begin,
+                      o.q_length - o.q_end if o.strand else o.q_begin)
+                     for o in part]
+            errs = [o.error for o in part]
+            if sess is not None:
+                sess.feed(pairs, metas, errs)
+                continue
+            bps = self.aligner.breaking_points_batch(
+                pairs, metas, self.window_length,
+                progress=lambda d, t, base=begin: log.bar_to(
+                    msg, base + d, len(need)),
+                errors=errs)
+            for o, bp in zip(part, bps):
+                o.breaking_points = bp
+        if sess is not None:
+            for o, bp in zip(need, sess.finish()):
+                o.breaking_points = bp
 
     # ------------------------------------------------------- window build
 

@@ -109,8 +109,8 @@ FWD_I16X2_ENTRIES = {"wide": "rt_nw_fwd_i16x2_wide",
                      "block": "rt_nw_fwd_i16x2"}
 # band -> the bytes a thread owns (BPT) of each nw_fwd_i16x2_wide_kernel
 # rt_nw_fwd_i16x2_wide instantiates (band / (256 * BPT) warps a pair)
-I16X2_WIDE_BPTS = {512: (2,), 1024: (2, 4), 2048: (2, 4, 8),
-                   4096: (2, 4, 8), 8192: (4, 8)}
+I16X2_WIDE_BPTS = {512: (2,), 1024: (2, 4), 1536: (2,), 2048: (2, 4, 8),
+                   3072: (4,), 4096: (2, 4, 8), 8192: (4, 8)}
 # band -> the BPT a launch of B pairs runs: ((most pairs, BPT), ...,
 # (None, BPT)), the first entry whose most pairs is at least B. A launch of
 # about one pair an SM is latency-bound and runs fastest with the most warps
@@ -129,10 +129,17 @@ I16X2_WIDE_BPTS = {512: (2,), 1024: (2, 4), 2048: (2, 4, 8),
 #   25.522 / 18.963 / 19.115 at 2112, 49.145 / 36.386 / 33.794 at 4096;
 #   aligner (16384, 4096) B=2048 41.975 / 31.302 / 31.159;
 # - 8192: aligner (16384, 8192) B=512 BPT 4 / 8 19.168 / 17.562.
+# The band ladder's rungs 1536 and 3072 (NW = 3), on another run of the same
+# card and limit: 1536 (8192, 1536) B=8 BPT 2 1.386 (block body 2.447);
+# 3072 (16384, 3072) B=1024 BPT 4 15.737, its first 528 and 132 pairs
+# 8.309 and 3.788 (BPT 2 at NW = 6: 19.488, 10.631 and 4.314, slower at
+# every size, so it is not instantiated; block body 45.003).
 # Each limit sits between the two measured launch sizes either side of it.
 I16X2_WIDE_BPT = {512: ((None, 2),),
                   1024: ((1024, 2), (None, 4)),
+                  1536: ((None, 2),),
                   2048: ((256, 2), (1024, 4), (None, 8)),
+                  3072: ((None, 4),),
                   4096: ((256, 4), (None, 8)),
                   8192: ((None, 8),)}
 

@@ -1241,9 +1241,11 @@ int rt_nw_fwd_i16x2_wide(const void* qrp, const void* tp, const void* n,
     RT_I16X2_WIDE(512, 2)
     RT_I16X2_WIDE(1024, 2)
     RT_I16X2_WIDE(1024, 4)
+    RT_I16X2_WIDE(1536, 2)
     RT_I16X2_WIDE(2048, 2)
     RT_I16X2_WIDE(2048, 4)
     RT_I16X2_WIDE(2048, 8)
+    RT_I16X2_WIDE(3072, 4)
     RT_I16X2_WIDE(4096, 2)
     RT_I16X2_WIDE(4096, 4)
     RT_I16X2_WIDE(4096, 8)

@@ -29,12 +29,31 @@ BIG16 = 0x4800
 # - 4096: K4 wide 31.159 vs K1 wide 56.576 (aligner (16384, 4096), 2048);
 #   33.794 vs 66.006 (consensus, 4096 bp windows, 4096);
 # - 8192: K4 wide 17.562 vs K1 wide 38.397 (aligner (16384, 8192), 512).
+# The band ladder's rungs (ops/nw.py BAND_RUNGS), another run of the same
+# card and limit: on the 1 Mbp main path
+# - 1536: K4 wide 1.386 vs K1 block 2.546 (aligner (8192, 1536), 8);
+# - 3072: K4 wide 15.737 vs K1 block 42.378 (aligner (16384, 3072), 1024);
+# and off it (chip_smoke.py RUNG_OFF_PATH, in a run at 8192 pairs; 2048
+# at 768)
+# - 64: K1 block 0.280 vs K4 block 0.303 (at 2048 pairs, another run:
+#   0.121 vs 0.098; the order flips with the launch size);
+# - 96: K1 block 0.492 vs K4 block 0.543;
+# - 192: K1 warp 0.854 vs K4 block 1.471 (K1 block 1.346);
+# - 256: K1 warp 1.435 vs K4 block 2.145 (K1 block 2.030);
+# - 768: K1 block 5.618 vs K4 block 6.366.
 FORWARD_KERNEL = {
+    64: "nw_fwd_i32",
+    96: "nw_fwd_i32",
     128: "nw_fwd_i32",
+    192: "nw_fwd_i32",
+    256: "nw_fwd_i32",
     384: "nw_fwd_i32",
     512: "nw_fwd_i16x2",
+    768: "nw_fwd_i32",
     1024: "nw_fwd_i16x2",
+    1536: "nw_fwd_i16x2",
     2048: "nw_fwd_i16x2",
+    3072: "nw_fwd_i16x2",
     4096: "nw_fwd_i16x2",
     8192: "nw_fwd_i16x2",
 }

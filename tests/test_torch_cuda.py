@@ -67,6 +67,15 @@ GRIDS = {
     "aligner_4096_truncated": (12, 6, 5000, 8000, 0.15, 16384, 4096, 12000),
     "aligner_8192_ragged": (13, 7, 5000, 8000, 0.15, 16384, 8192, 0),
     "block_768": (14, 8, 300, 1000, 0.15, 1024, 768, 0),
+    # band-ladder rungs: K4's wide body at NW = 3 (1536 at BPT 2, 3072 at
+    # BPT 4), K1's warp body at 192 and 256, the block bodies at 64 and 96
+    # (each grid runs both kernels)
+    "rung_1536": (15, 6, 2500, 3500, 0.15, 8192, 1536, 0),
+    "rung_3072": (16, 5, 4000, 6000, 0.15, 16384, 3072, 0),
+    "rung_192": (17, 12, 200, 600, 0.1, 1024, 192, 0),
+    "rung_256": (18, 12, 300, 800, 0.1, 1024, 256, 0),
+    "rung_96": (19, 20, 30, 200, 0.1, 256, 96, 0),
+    "rung_64": (20, 20, 20, 150, 0.08, 256, 64, 0),
 }
 # grid -> every how many pairs one is empty (n = m = 0)
 EMPTY_EVERY = {"consensus_ragged": 3, "aligner_8192_ragged": 3}
@@ -205,6 +214,9 @@ WALK_CASES = {
     "wander_384_partial_line": (34, 7, 384, 1040, (200, 700), "wander"),
     "wander_200_no_staging": (35, 9, 200, 300, (0, 150), "wander"),
     "wander_4096_lines": (36, 6, 4096, 16384, (5000, 8000), "wander"),
+    # the ladder's narrowest rungs: rows of 8 and 12 bytes
+    "wander_64_rung": (37, 11, 64, 512, (0, 250), "wander"),
+    "any_bytes_96_rung": (38, 13, 96, 512, (0, 250), "any"),
 }
 
 
@@ -277,6 +289,54 @@ def test_aligner_card_matches_cpu(cuda_device):
                        device="cpu")
     assert card.align_batch(pairs) == host.align_batch(pairs)
     assert card.stats["device"] > 30
+
+
+def test_breaking_points_card_matches_cpu(cuda_device):
+    """breaking_points on the card == on the CPU from one chunk's op stream
+    (the aligner grid's forward pass and walk on the card), at window
+    lengths 100 and 500."""
+    from racon_tpu_torch.ops.nw import breaking_points, window_geometry
+    host, max_len, band, steps = _inputs("aligner")
+    dev = [x.to(cuda_device) for x in host]
+    dirs, _ = cuda_nw.nw_fwd(*dev[:4], max_len=max_len, band=band,
+                             steps=steps, packed16=True)
+    ops = cuda_nw.walk_ops(dirs, dev[2], dev[3], band=band)[0]
+    rng = np.random.default_rng(3)
+    for w in (100, 500):
+        tb = rng.integers(0, 100000, len(host[2]))
+        first_rel, nb = window_geometry(tb, host[3].numpy(), w)
+        args = [host[2], host[3], torch.from_numpy(first_rel),
+                torch.from_numpy(nb)]
+        NW = max_len // w + 2
+        card = breaking_points(ops, *(a.to(cuda_device) for a in args),
+                               w=w, NW=NW)
+        cpu = breaking_points(ops.cpu(), *args, w=w, NW=NW)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+        assert (cpu[0] < 1 << 30).any()
+
+
+def test_aligner_breaking_points_card_matches_cpu(cuda_device):
+    """CudaAligner.breaking_points_batch on the card == on the CPU, on its
+    default ragged stream and band ladder (rungs 64 and 96 included)."""
+    rng = np.random.default_rng(19)
+    pairs = []
+    for k in range(60):
+        t = BASES[rng.integers(0, 4, int(rng.integers(20, 240)))]
+        err = 0.6 if k % 8 == 0 else 0.06
+        pairs.append((_mutate(rng, t, err).tobytes(), t.tobytes()))
+    metas = [(int(rng.integers(0, 5000)), int(rng.integers(0, 300)))
+             for _ in pairs]
+    buckets = ((64, 32), (128, 64), (256, 128))
+    out = []
+    for where in (cuda_device, "cpu"):
+        al = CudaAligner(fallback=backends.NativeAligner(1),
+                         buckets=buckets, device=where)
+        out.append((al.breaking_points_batch(pairs, metas, 50), al.stats))
+    (card, st), (cpu, _) = out
+    assert all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    assert st["ladder_narrow"] > 0
+    assert {s[1] for s in st["chunk_shapes"]} & {64, 96}
 
 
 def _windows(seed, n_w=6, wl=300, depth=10):
