@@ -22,10 +22,19 @@ any phase fails. Phases, one JSON line each:
              the shape of every launch, host-fallback counts, the aligner's
              band-ladder and occupancy counters (``ladder_narrow``,
              ``band_escalated``, ``lanes_occupied``/``lanes_total``) and the
-             bytes it fetched from the card, the draft's and the polished
+             bytes it fetched from the card, the consensus stream's
+             counters (each group's (Lq, band, pairs, B, steps, rounds,
+             stage), stage ``A``, ``in_place``, ``B`` or ``full``; stage-B
+             windows, lanes, the band, the rounds run after all of a
+             group's windows had converged) and the pipeline's
+             ``consensus_feed_s``/``consensus_finish_s``/
+             ``pipeline_overlap_saved_s``, the draft's and the polished
              contig's edit distance to the truth, peak device memory;
-6. kernels — each kernel at every shape the main path launched it at (its
-             largest and smallest consensus groups; each aligner (max_len,
+6. kernels — each kernel at every shape the main path launched it at
+             (every consensus (Lq, band) at its largest and smallest
+             group, K4 and K3 at each, stage-B groups included, and the
+             stream's 256 bp bucket, ``CONSENSUS_TAIL``, off the main path
+             where the run did not launch it; each aligner (max_len,
              band) at its largest chunk, band-ladder rungs included, on
              pairs drawn like the simulator's that the aligner seeds
              there), held
@@ -68,8 +77,9 @@ any phase fails. Phases, one JSON line each:
              ``breaking_points`` on the CPU from the same op stream, and
              its time (CUDA events);
 8. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
-             card and with the plain PyTorch kernels on the CPU: the FASTA
-             bytes must be identical;
+             card through the consensus stream and through the padded path
+             (``use_ragged=False``), and with the plain PyTorch kernels on
+             the CPU: the three FASTA must be byte-identical;
 9. profile — the main path once more under ``torch.profiler``: device
              time by kernel and of the ``breaking_points`` range, and the
              device's idle share.
@@ -96,13 +106,15 @@ import numpy as np
 import torch
 
 from racon_tpu_torch import native
+from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, cuda_nw
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
                                     sweep_bound, window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
-                                     T_PAD, bucket_geometry, sweep_geometry)
+                                     T_PAD, CudaPoaConsensus, bucket_geometry,
+                                     sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
 from racon_tpu_torch.utils.simulate import _mutate, write_inputs
 
@@ -173,6 +185,12 @@ FWD_OFF_PATH = ((256, 128), (1024, 384))
 # from one pair an SM (latency-bound) to a full card (issue-bound); the
 # limits of cuda_nw.I16X2_WIDE_BPT sit between two of them
 CONSENSUS_OFF_PATH = {1024: 32768, 2048: 16384, 4096: 4096}
+# the consensus stream's 256 bp bucket (Lq 768 at band 512): windows under
+# 256 bp, a contig's tail or a short contig. The 1 Mbp run launches it only
+# when its draft ends in such a window, so K4 and K3 are held and timed
+# there at a group of a few tails and at one of a fragmented assembly's
+# many, off the main path where the run did not launch the shape
+CONSENSUS_TAIL = ((256 + BAND, BAND, 32), (256 + BAND, BAND, 4096))
 BPT_LADDER = (132, 528, 2112, 8448)
 # band-ladder rungs (ops.nw.BAND_RUNGS) that the 1 Mbp run does not launch,
 # which shorter reads reach: (max_len, band) -> (shortest, longest + 1)
@@ -618,10 +636,22 @@ def vote_entry(dirs, inp, reps):
                 bound_by=by, library_ms=None), walked
 
 
+def consensus_shapes(groups):
+    """Every distinct consensus (Lq, band) the main path launched, at its
+    largest and its smallest group: ``(Lq, band, B)``, the largest group's
+    first."""
+    by_geom = {}
+    for g in sorted(groups, key=lambda g: -g[3]):
+        by_geom.setdefault((g[0], g[1]), []).append(g[3])
+    return [(Lq, band, B) for (Lq, band), Bs in by_geom.items()
+            for B in sorted({max(Bs), min(Bs)}, reverse=True)]
+
+
 def phase_kernels(dev, main):
     """Both forward kernels and the walk that follows at every shape the
-    main path launched: its largest consensus group (and its smallest, the
-    forward kernels only), and each aligner bucket at its largest chunk;
+    main path launched: every consensus (Lq, band) at its largest and
+    smallest group (K3 at each; K2 at the largest group's geometry, off
+    the main path), and each aligner bucket at its largest chunk;
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
@@ -631,8 +661,8 @@ def phase_kernels(dev, main):
     headline row is the first shape at which the engines pick it
     (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
     the consensus group; the other rows go to ``other_shapes``."""
-    Lq, band, _, B, _ = max(main["consensus_group_shapes"],
-                            key=lambda g: g[3])
+    consensus = consensus_shapes(main["consensus_group_shapes"])
+    Lq, band, B = consensus[0]
     chunks = {}   # bucket -> (largest padded batch, chunks launched)
     for max_len, bnd, _, Bc, _ in main["aligner_chunk_shapes"]:
         big, count = chunks.get((max_len, bnd), (0, 0))
@@ -640,22 +670,23 @@ def phase_kernels(dev, main):
     busiest = max(chunks, key=lambda k: chunks[k][1])
     rows = {name: [] for name in cuda_nw.KERNELS}
     drawn = {}    # aligner shape -> the pairs its rows were built from
-    # the smallest consensus group too (the forward kernels only): the
-    # group that closes a run is a launch of a few dozen pairs
-    B_small = min(g[3] for g in main["consensus_group_shapes"])
-    shapes = ([("consensus", None)]
-              + [("consensus_small", None)] * (B_small < B)
-              + sorted(chunks.items()))
+    # the aligner's pairs are drawn with seeds 204, 205, ... in bucket order
+    shapes = ([("consensus", c, None) for c in consensus]
+              + [("consensus_tail", c, None) for c in CONSENSUS_TAIL
+                 if c not in consensus]
+              + [(k, v, 204 + i) for i, (k, v) in
+                 enumerate(sorted(chunks.items()))])
     if WIDE_1024 not in chunks:
-        shapes.append(("off_path", None))
-    shapes += [("consensus_off", b) for b in CONSENSUS_OFF_PATH]
-    for seed, (key, val) in enumerate(shapes):
-        if key == "consensus":
-            inp = consensus_shape_inputs(dev, Lq, band, B)
-            reps = 5
-        elif key == "consensus_small":
-            inp = consensus_shape_inputs(dev, Lq, band, B_small)
-            reps = 20
+        shapes.append(("off_path", None, None))
+    shapes += [("consensus_off", b, None) for b in CONSENSUS_OFF_PATH]
+    for key, val, seed in shapes:
+        if key in ("consensus", "consensus_tail"):
+            c_Lq, c_band, c_B = val
+            inp = consensus_shape_inputs(dev, c_Lq, c_band, c_B,
+                                         window=min(500, c_Lq - c_band))
+            if key == "consensus_tail":
+                inp["shape"] += " (off the main path)"
+            reps = 5 if c_B > 4096 else 20
         elif key == "off_path":
             pairs = mutated_pairs(np.random.default_rng(303), 512, 3000,
                                   4000, 0.15, BASES)
@@ -669,7 +700,7 @@ def phase_kernels(dev, main):
             inp["shape"] += f", {val} bp windows (off the main path)"
             reps = 3
         else:
-            inp = aligner_bucket_inputs(dev, key, val[0], 202 + seed,
+            inp = aligner_bucket_inputs(dev, key, val[0], seed,
                                         main["aligner_div_obs"])
             drawn[key] = inp.pop("pairs")
             reps = 3
@@ -677,23 +708,24 @@ def phase_kernels(dev, main):
         # headline: the first main-path shape at which the engines pick
         # the kernel
         packed16 = use_packed16(inp["Lq"], inp["band"])
-        on_path = key not in ("off_path", "consensus_off")
+        on_path = key not in ("off_path", "consensus_off", "consensus_tail")
         for k, rs in ((False, k1), (True, k4)):
             for r in rs:
                 r["headline"] = on_path and packed16 == k and r is rs[0]
         rows["nw_fwd_i32"] += k1
         rows["nw_fwd_i16x2"] += k4
-        if key == "consensus":
+        if key in ("consensus", "consensus_tail"):
             row, walked = vote_entry(dirs, inp, reps)
-            row["headline"] = True
+            row["headline"] = key == "consensus" and val == consensus[0]
             rows["walk_vote"].append(row)
-            # K2 at the consensus geometry (the engines give it K3)
-            for row in walk_rows(dirs, inp, reps, plain=walked):
-                row["shape"] += " (off the main path)"
-                row["headline"] = False
-                rows["walk_ops"].append(row)
+            if key == "consensus" and val == consensus[0]:
+                # K2 at the consensus geometry (the engines give it K3)
+                for row in walk_rows(dirs, inp, reps, plain=walked):
+                    row["shape"] += " (off the main path)"
+                    row["headline"] = False
+                    rows["walk_ops"].append(row)
             del walked
-        elif on_path and key != "consensus_small":
+        elif on_path:
             k2 = walk_rows(dirs, inp, reps)
             for row in k2:
                 row["headline"] = key == busiest and row is k2[0]
@@ -888,6 +920,15 @@ def phase_main(dev, mbp=1.0):
                consensus_windows_passthrough=consensus["passthrough"],
                consensus_groups=consensus["groups"],
                consensus_wavefront_steps=consensus["wavefront_steps"],
+               consensus_stage_b_windows=consensus["stage_b_windows"],
+               consensus_lanes_occupied=consensus["lanes_occupied"],
+               consensus_lanes_total=consensus["lanes_total"],
+               consensus_band=consensus.get("band"),
+               consensus_rounds_after_converged=consensus[
+                   "rounds_after_converged"],
+               consensus_feed_s=stages["consensus_feed_s"],
+               consensus_finish_s=stages["consensus_finish_s"],
+               pipeline_overlap_saved_s=stages["pipeline_overlap_saved_s"],
                aligner_chunk_shapes=aligner["chunk_shapes"],
                consensus_group_shapes=consensus["group_shapes"])
     emit(out)
@@ -982,9 +1023,10 @@ def phase_bp(dev, drawn, w=500):
 def phase_agree(dev):
     """The card against the plain PyTorch kernels end to end: a small
     simulated genome (0.02 Mbp, 1-2 kbp reads, seed 11) polished with both
-    device engines on the card and on the CPU must give the same FASTA
-    bytes (the CPU side is held byte-identical to the JAX package by
-    tests/test_torch_pipeline.py)."""
+    device engines on the card, once through the consensus stream and once
+    through its padded path (``use_ragged=False``), and on the CPU must
+    give the same FASTA bytes (the CPU side is held byte-identical to the
+    JAX package by tests/test_torch_pipeline.py)."""
     from racon_tpu_torch.utils.simulate import simulate
     reads, paf, draft, _ = simulate(0.02, seed=11, mean_read=1500,
                                     max_read=2000, min_read=1000)
@@ -997,21 +1039,26 @@ def phase_agree(dev):
         paths[key] = str(data / name)
         pathlib.Path(paths[key]).write_bytes(blob)
     fasta, seconds = {}, {}
-    for where in (dev, torch.device("cpu")):
+    for name, where, ragged in (("cuda", dev, True),
+                                ("cuda_padded", dev, False),
+                                ("cpu", torch.device("cpu"), True)):
         t0 = time.perf_counter()
+        consensus = CudaPoaConsensus(
+            3, -5, -4, fallback=NativePoaConsensus(3, -5, -4, 8),
+            use_ragged=ragged, device=where)
         out = create_polisher(paths["reads"], paths["overlaps"],
                               paths["draft"], num_threads=8,
-                              aligner="cuda", consensus="cuda",
+                              aligner="cuda", consensus=consensus,
                               device=where).run()
-        seconds[where.type] = time.perf_counter() - t0
-        fasta[where.type] = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
-                                     for s in out)
-    same = fasta["cuda"] == fasta["cpu"]
+        seconds[name] = time.perf_counter() - t0
+        fasta[name] = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                               for s in out)
+    same = fasta["cuda"] == fasta["cuda_padded"] == fasta["cpu"]
     out = dict(phase="agree", fasta_bytes=len(fasta["cuda"]),
                identical=same, seconds=seconds)
     emit(out)
     if not same:
-        raise RuntimeError("card and plain-kernel FASTA differ")
+        raise RuntimeError("stream, padded and plain-kernel FASTA differ")
     return out
 
 

@@ -11,19 +11,23 @@ device by a device aligner, decoded from CIGARs on the host otherwise), and
 builds the windows and their columnar layers (min-span 2% of the window
 length, mean PHRED quality >= threshold). ``polish()`` runs the consensus
 backend over every window and stitches the windows per target with the
-reference's ``LN:i/RC:i/XC:f`` tags.
+reference's ``LN:i/RC:i/XC:f`` tags. ``run()`` pipelines the two: a
+producer thread assembles the layers and hands window ranges through a
+bounded queue to the consensus engine's streaming session, so groups are
+dispatched while later windows are still being built.
 
 Left out of this slice (the JAX package keeps them): the exec/serve/fleet
-runners, observability, fault injection, the sanitizer, the pipelined
-``run()`` queue (output-invariant), the resident dataflow and the
-``--overlaps auto`` overlapper.
+runners, observability, fault injection, the sanitizer and the queue
+watchdog, the resident dataflow and the ``--overlaps auto`` overlapper.
 """
 
 from __future__ import annotations
 
 import enum
 import sys
+import threading
 import time
+from queue import Empty, Queue
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -35,6 +39,9 @@ from .layers import LayerStore
 from .overlap import Overlap, decode_breaking_points_batch
 from .sequence import Sequence
 from .window import Window, WindowType
+
+# fewest windows in a range that Polisher.run() hands the consensus engine
+MIN_CHUNK_WINDOWS = 1024
 
 
 class PolisherType(enum.Enum):
@@ -105,6 +112,7 @@ class Polisher:
         self._dummy_quality = b"!" * window_length
         self._id_to_first_window: Optional[np.ndarray] = None
         self._window_lengths: Optional[np.ndarray] = None
+        self._backbone_s = 0.0
         # wall-clock stage times (seconds)
         self.timings: Dict[str, float] = {}
 
@@ -115,19 +123,28 @@ class Polisher:
             print("[racon_tpu::Polisher::initialize] warning: "
                   "object already initialized!", file=sys.stderr)
             return
-        log = self.logger
-        log.log()
+        overlaps = self._initialize_core()
+        self.logger.log()
+        t0 = time.perf_counter()
+        self._assemble_layers(overlaps)
+        self.timings["build_windows_s"] = (
+            self._backbone_s + time.perf_counter() - t0)
+        self.logger.log("[racon_tpu::Polisher::initialize] "
+                        "transformed data into windows")
+
+    def _initialize_core(self) -> List[Overlap]:
+        """Every initialize phase before the layer assembly: parse, filter
+        and transmute, breaking points, backbone windows. Returns the
+        overlaps the layers come from."""
+        self.logger.log()
         t0 = time.perf_counter()
         overlaps = self._load()
         self.timings["parse_s"] = time.perf_counter() - t0
         self.find_overlap_breaking_points(overlaps)
         t0 = time.perf_counter()
         self._build_backbone_windows()
-        log.log()
-        self._assemble_layers(overlaps)
-        self.timings["build_windows_s"] = time.perf_counter() - t0
-        log.log("[racon_tpu::Polisher::initialize] "
-                "transformed data into windows")
+        self._backbone_s = time.perf_counter() - t0
+        return overlaps
 
     def _load(self) -> List[Overlap]:
         """Parse targets, reads and overlaps; filter and transmute."""
@@ -391,11 +408,14 @@ class Polisher:
         keep &= layer_begin != layer_end
         return keep, win_id, layer_begin, layer_end
 
-    def _assemble_layers(self, overlaps: List[Overlap]) -> None:
+    def _assemble_layers(self, overlaps: List[Overlap], emit=None,
+                         chunk_windows: int = 0) -> None:
         """Columnar layer assembly: one (P, 4) breaking-point matrix,
         vectorized filters, a stable argsort grouping layers by window
         (layers keep the overlap-stream order inside a window), and one
-        :class:`LayerStore` the windows view."""
+        :class:`LayerStore` the windows view. With ``emit``, the windows
+        are attached ``chunk_windows`` at a time and ``emit(a, b)`` is
+        called once windows ``[a, b)`` have their layers."""
         n_ov = len(overlaps)
         n_win = len(self.windows)
         t_ids = np.fromiter((o.t_id for o in overlaps), np.int64, n_ov)
@@ -405,6 +425,8 @@ class Polisher:
             (0 if o.breaking_points is None else len(o.breaking_points)
              for o in overlaps), np.int64, n_ov)
         if int(counts.sum()) == 0:
+            if emit is not None:
+                emit(0, n_win)
             return
         bp = np.concatenate(
             [o.breaking_points for o in overlaps
@@ -427,10 +449,15 @@ class Polisher:
             q_endx[order], win_id[order], layer_begin[order],
             layer_end[order], n_win)
         bounds = store.row_bounds
-        for wi in range(n_win):
-            r0, r1 = int(bounds[wi]), int(bounds[wi + 1])
-            if r1 > r0:
-                self.windows[wi].attach_layers(store, r0, r1)
+        chunk_windows = chunk_windows or max(1, n_win)
+        for w0 in range(0, n_win, chunk_windows):
+            w1 = min(w0 + chunk_windows, n_win)
+            for wi in range(w0, w1):
+                r0, r1 = int(bounds[wi]), int(bounds[wi + 1])
+                if r1 > r0:
+                    self.windows[wi].attach_layers(store, r0, r1)
+            if emit is not None:
+                emit(w0, w1)
         for o in overlaps:
             o.breaking_points = None
 
@@ -450,10 +477,124 @@ class Polisher:
         return out
 
     def run(self, drop_unpolished_sequences: bool = True) -> List[Sequence]:
-        """initialize() then polish()."""
-        if not self.windows:
+        """initialize() and polish() pipelined
+        (``racon_tpu.core.polisher.Polisher.run``): a producer thread
+        assembles the layers (numpy and Python only) and puts each window
+        range that has its layers on a bounded queue; this thread feeds
+        the ranges to the consensus engine's streaming session (opened at
+        the first non-empty range, with the live windows' longest backbone
+        as its band hint), or calls ``run`` a range on an engine without
+        one. With ``num_threads <= 1``, or once initialized, it is
+        initialize() then polish(). The bytes are the same either way.
+
+        Timings besides initialize()'s and polish()'s: ``consensus_s``
+        from the first queue read to the end of ``finish()``,
+        ``consensus_feed_s`` (the ``feed``/``run`` calls),
+        ``consensus_finish_s``, ``queue_wait_s`` and
+        ``pipeline_overlap_saved_s`` (layer assembly that did not keep
+        the consensus waiting); ``build_windows_s`` counts the producer's
+        thread time."""
+        if self.windows:
+            return self.polish(drop_unpolished_sequences)
+        if self.num_threads <= 1:
             self.initialize()
-        return self.polish(drop_unpolished_sequences)
+            return self.polish(drop_unpolished_sequences)
+        overlaps = self._initialize_core()
+        log = self.logger
+        log.log()
+        n_win = len(self.windows)
+        # about one device group's worth of layer pairs a range
+        rows = sum(0 if o.breaking_points is None
+                   else len(o.breaking_points) for o in overlaps)
+        depth = max(1.0, rows / max(1, n_win))
+        chunk_windows = max(MIN_CHUNK_WINDOWS, int(
+            getattr(self.consensus, "group_pairs_hint", 32768) / depth))
+        ranges: Queue = Queue(maxsize=4)
+        failure: List[BaseException] = []
+
+        def produce():
+            try:
+                t_cpu = time.thread_time()
+                self._assemble_layers(
+                    overlaps, emit=lambda a, b: ranges.put((a, b)),
+                    chunk_windows=chunk_windows)
+                # thread time: the wall stretches while this thread waits
+                # for the interpreter lock or on a full queue
+                self.timings["build_windows_s"] = (
+                    self._backbone_s + time.thread_time() - t_cpu)
+            except BaseException as e:  # raised again on the consumer
+                failure.append(e)
+            finally:
+                ranges.put(None)
+
+        producer = threading.Thread(target=produce, name="racon-layers",
+                                    daemon=True)
+        producer.start()
+        msg = "[racon_tpu::Polisher::polish] generating consensus"
+        polished = [False] * n_win
+        stream_f = getattr(self.consensus, "stream", None)
+        sess, fed = None, []
+        queue_wait = feed_s = 0.0
+        t_start = time.perf_counter()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = ranges.get()
+                queue_wait += time.perf_counter() - t0
+                if item is None:
+                    if failure:
+                        raise failure[0]
+                    break
+                a, b = item
+                if b > a:
+                    t0 = time.perf_counter()
+                    if stream_f is not None and sess is None and not fed:
+                        band_hint = max(
+                            (len(w.backbone) for w in self.windows
+                             if w.layer_count >= 2), default=0)
+                        sess = stream_f(trim=self.trim, band_hint=band_hint)
+                    if sess is not None:
+                        sess.feed(self.windows[a:b])
+                    else:
+                        polished[a:b] = self.consensus.run(
+                            self.windows[a:b], self.trim)
+                    fed.append((a, b))
+                    feed_s += time.perf_counter() - t0
+                log.bar_to(msg, b, n_win)
+            t0 = time.perf_counter()
+            if sess is not None:
+                flags = sess.finish()
+                pos = 0
+                for a, b in fed:
+                    polished[a:b] = flags[pos:pos + b - a]
+                    pos += b - a
+            t_end = time.perf_counter()
+        except BaseException:
+            # a consensus fault must not leave the producer blocked on the
+            # bounded queue: drain it (without blocking: the sentinel may
+            # be gone already) and join the thread before raising
+            while True:
+                try:
+                    if ranges.get_nowait() is None:
+                        break
+                except Empty:
+                    if not producer.is_alive():
+                        break
+                    time.sleep(0.01)
+            producer.join()
+            raise
+        producer.join()
+        self.timings.update(
+            consensus_s=t_end - t_start, consensus_feed_s=feed_s,
+            consensus_finish_s=t_end - t0, queue_wait_s=queue_wait,
+            pipeline_overlap_saved_s=max(
+                0.0, self.timings["build_windows_s"] - queue_wait))
+        log.log("[racon_tpu::Polisher::initialize] "
+                "transformed data into windows")
+        t0 = time.perf_counter()
+        out = self._stitch(polished, drop_unpolished_sequences)
+        self.timings["stitch_s"] = time.perf_counter() - t0
+        return out
 
     def _stitch(self, polished_flags: List[bool],
                 drop_unpolished_sequences: bool) -> List[Sequence]:

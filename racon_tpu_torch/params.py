@@ -64,13 +64,17 @@ def refine_state_to_torch(state, device="cpu") -> Dict[str, torch.Tensor]:
     win_of, real, bg, ed, bcodes, bweights, blen, covs, ever, frozen,
     conv, dropped`` — to numpy arrays) as the port's tensors on
     ``device``. The uint16 ``weight << 3 | code`` lanes become int16 with
-    the same bits (their values stay below 2^15)."""
+    the same bits (their values stay below 2^15). To a card the arrays go
+    through pinned memory, so the copies do not wait for the work already
+    queued on the stream."""
+    dev = torch.device(device)
     out = {}
     for name in STATE_NAMES:
         arr = np.asarray(state[name])
         if name == "qpw":
             arr = arr.astype(np.uint16).view(np.int16)
-        out[name] = torch.as_tensor(
-            np.ascontiguousarray(arr)).to(device=device,
-                                          dtype=STATE_DTYPES[name])
+        t = torch.as_tensor(np.ascontiguousarray(arr)).to(STATE_DTYPES[name])
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        out[name] = t.to(dev)
     return out

@@ -15,7 +15,7 @@ import torch
 
 from racon_tpu_torch.core import backends
 from racon_tpu_torch.core.window import Window, WindowType
-from racon_tpu_torch.ops import cuda_nw
+from racon_tpu_torch.ops import cuda_nw, poa
 from racon_tpu_torch.ops.nw import CudaAligner
 from racon_tpu_torch.ops.poa import CudaPoaConsensus
 
@@ -363,3 +363,67 @@ def test_consensus_card_matches_cpu(cuda_device):
     assert card.run(wc, trim=True) == host.run(wh, trim=True)
     assert [w.consensus for w in wc] == [w.consensus for w in wh]
     assert card.stats["device_windows"] == len(wc)
+
+
+def _mixed_windows(seed, n_w=18):
+    """Windows of 60, 150 and 300 bp (the ragged buckets L = 256 and 512
+    at band 128), 6-10 layers of 8% error each, half with qualities."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for wi in range(n_w):
+        wl = (60, 150, 300)[wi % 3]
+        truth = BASES[rng.integers(0, 4, wl)]
+        bb = _mutate(rng, truth, 0.1)
+        win = Window(0, wi, WindowType.TGS, bb.tobytes(), b"!" * len(bb))
+        for _ in range(int(rng.integers(6, 11))):
+            layer = _mutate(rng, truth, 0.08)
+            qual = (bytes(33 + int(x) for x in rng.integers(5, 45, len(layer)))
+                    if wi % 2 else None)
+            win.add_layer(layer.tobytes(), qual, 0, len(bb) - 1)
+        out.append(win)
+    return out
+
+
+@pytest.mark.parametrize("frac,stage", [(0.0, "in_place"), (1.0, "B")])
+def test_consensus_stream_matches_padded_on_card(cuda_device, monkeypatch,
+                                                 frac, stage):
+    """The stream on the card (two buckets, four windows a group, so each
+    bucket runs stage A, then continues in place or repacks stage B) ==
+    the padded path on the card: same flags and bytes."""
+    monkeypatch.setattr(poa, "MAX_GROUP_WINDOWS", 4)
+    monkeypatch.setattr(poa, "STAGE_B_MAX_SURVIVOR_FRAC", frac)
+    fb = backends.NativePoaConsensus(3, -5, -4)
+    ws, wp = _mixed_windows(31), _mixed_windows(31)
+    kw = dict(fallback=fb, band=128, rounds=4, device=cuda_device)
+    stream = CudaPoaConsensus(3, -5, -4, **kw)
+    padded = CudaPoaConsensus(3, -5, -4, use_ragged=False, **kw)
+    assert stream.run(ws, trim=True) == padded.run(wp, trim=True)
+    assert [w.consensus for w in ws] == [w.consensus for w in wp]
+    shapes = stream.stats["group_shapes"]
+    assert {g[0] for g in shapes} == {256 + 128, 512 + 128}
+    assert "A" in {g[6] for g in shapes} and stage in {g[6] for g in shapes}
+    assert stream.stats["device_windows"] > len(ws) // 2
+
+
+def test_consensus_stream_feed_does_not_wait(cuda_device, monkeypatch):
+    """feed() packs, uploads and enqueues full groups with no
+    synchronising call (CUDA sync debug mode raises on one), and the
+    session's bytes equal the padded path's."""
+    monkeypatch.setattr(poa, "MAX_GROUP_PAIRS", 16)
+    monkeypatch.setattr(poa, "MAX_GROUP_WINDOWS", 4)
+    fb = backends.NativePoaConsensus(3, -5, -4)
+    ws, wp = _mixed_windows(32), _mixed_windows(32)
+    kw = dict(fallback=fb, band=128, rounds=4, device=cuda_device)
+    sess = CudaPoaConsensus(3, -5, -4, **kw).stream(trim=True,
+                                                    band_hint=300)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.feed(ws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sess.inflight and sess.fetched == 0
+    flags = sess.finish()
+    padded = CudaPoaConsensus(3, -5, -4, use_ragged=False, **kw)
+    assert flags == padded.run(wp, trim=True)
+    assert [w.consensus for w in ws] == [w.consensus for w in wp]

@@ -9,7 +9,8 @@ Each checkout is the root of a tree holding ``racon_tpu_torch`` (a ``git
 archive`` of a commit, or the working tree ``.``). Per run, one JSON line:
 the card (``nvidia-smi`` name and power limit), the stage seconds and wall
 of a first pass (cold, as ``chip_smoke.py``'s main phase), the aligner's
-counters, launches per kernel, the SHA-256 of the polished FASTA (it must
+and the consensus engine's counters (and its group shapes, where the tree
+records them), launches per kernel, the SHA-256 of the polished FASTA (it must
 be the same for every tree), then a second pass under ``torch.profiler``:
 its wall, the device's busy seconds and idle share, and the device seconds
 of the forward kernels, the walks and the ``breaking_points`` range. It
@@ -65,6 +66,10 @@ rec = dict(card=subprocess.run(
                text=True).stdout.strip(),
            wall_s=wall, stages_s=polisher.timings,
            aligner={k: st[k] for k in keys if k in st},
+           consensus={k: v for k, v in polisher.consensus.stats.items()
+                      if k != "group_shapes"},
+           consensus_group_shapes=polisher.consensus.stats.get(
+               "group_shapes"),
            launches=dict(cuda_nw.LAUNCHES),
            fasta_sha256=hashlib.sha256(fasta).hexdigest())
 
