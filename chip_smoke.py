@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``racon_tpu_torch``) on one GPU.
 
 Run from the root of a checkout, with no arguments: ``python3
-chip_smoke.py``. It needs one CUDA device, ``nvcc`` and ``nvidia-smi``,
-and it exits non-zero (printing no result) when any of them is missing or
-any phase fails. Phases, one JSON line each:
+chip_smoke.py``. It needs one CUDA device, ``nvcc``, ``nvidia-smi`` and a
+``g++`` that finds zlib's header, and it exits non-zero (printing no
+result) when any of them is missing or any phase fails. Phases, one JSON
+line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
-             ``nvcc`` per source, all at once;
+             ``nvcc`` per source, all at once, and the native host library
+             (``racon_tpu_torch/native``, linked with zlib);
 3. ptxas   — registers, stack frame and spills of every kernel;
 4. sass    — ``cuobjdump -sass`` of every kernel: its instruction count
              and its DPX (VIMNMX, VIMNMX3, VIADDMNMX), local-memory,
@@ -29,8 +31,18 @@ any phase fails. Phases, one JSON line each:
              group's windows had converged) and the pipeline's
              ``consensus_feed_s``/``consensus_finish_s``/
              ``pipeline_overlap_saved_s``, the draft's and the polished
-             contig's edit distance to the truth, peak device memory;
-6. kernels — each kernel at every shape the main path launched it at
+             contig's edit distance to the truth, peak device memory, and
+             the files the native parser read (``native_parse_calls``:
+             the draft and the reads, then the overlaps; the polisher
+             parses nothing another way);
+6. parse   — the main path's inputs (draft, reads, PAF), plain and as
+             gzip level 1 copies, parsed by the native parser
+             (``io.parsers.parse_*``) and by the Python oracle
+             (``_parse_*_py``): the records must be equal; each parse's
+             seconds, and whether ``g++`` finds ``zlib.h`` (checked before
+             any build); then the main path's ``Polisher._load`` twice
+             with its split (targets, reads, overlaps, filter, transmute);
+7. kernels — each kernel at every shape the main path launched it at
              (every consensus (Lq, band) at its largest and smallest
              group, K4 and K3 at each, stage-B groups included, and the
              stream's 256 bp bucket, ``CONSENSUS_TAIL``, off the main path
@@ -69,18 +81,18 @@ any phase fails. Phases, one JSON line each:
              (``RUNG_OFF_PATH``: 64, 96, 192, 256, 768); K3 on
              ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
              geometry;
-7. bp      — at every aligner (max_len, band) of the main path, on its
+8. bp      — at every aligner (max_len, band) of the main path, on its
              kernels-phase pairs: ``breaking_points`` rows from the card
              (``CudaAligner._launch_chunk`` + ``_finish_chunk_bp``) equal
              to the host decode of the same walk (``ops_to_cigar`` +
              ``decode_breaking_points_batch``), the card's tables equal to
              ``breaking_points`` on the CPU from the same op stream, and
              its time (CUDA events);
-8. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
+9. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card through the consensus stream and through the padded path
              (``use_ragged=False``), and with the plain PyTorch kernels on
              the CPU: the three FASTA must be byte-identical;
-9. profile — the main path once more under ``torch.profiler``: device
+10. profile — the main path once more under ``torch.profiler``: device
              time by kernel and of the ``breaking_points`` range, and the
              device's idle share.
 
@@ -93,9 +105,12 @@ too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gzip
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +125,7 @@ from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, cuda_nw
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
+from racon_tpu_torch.io import parsers
 from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
                                     sweep_bound, window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
@@ -869,6 +885,7 @@ def phase_main(dev, mbp=1.0):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_nw.reset_launches()
+    native.reset_parse_calls()
     t0 = time.perf_counter()
     polisher = create_polisher(paths["reads"], paths["overlaps"],
                                paths["draft"], num_threads=8,
@@ -878,6 +895,7 @@ def phase_main(dev, mbp=1.0):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(cuda_nw.LAUNCHES)
+    parse_calls = dict(native.PARSE_CALLS)
     body_launches = dict(cuda_nw.BODY_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     stages = dict(polisher.timings)
@@ -898,6 +916,7 @@ def phase_main(dev, mbp=1.0):
     ed_s = time.perf_counter() - t0
     out = dict(phase="main", simulate_s=sim_s, wall_s=wall_s,
                stages_s=stages, launches=launches,
+               native_parse_calls=parse_calls,
                n_contigs=len(polished), polished_len=len(polished[0].data),
                truth_len=len(truth), ed_draft=ed_draft,
                fwd_body_launches=body_launches,
@@ -932,6 +951,9 @@ def phase_main(dev, mbp=1.0):
                aligner_chunk_shapes=aligner["chunk_shapes"],
                consensus_group_shapes=consensus["group_shapes"])
     emit(out)
+    if parse_calls != {"seqfile": 2, "ovlfile": 1}:
+        raise RuntimeError(f"the main path did not parse its three files "
+                           f"natively: {parse_calls}")
     if len(polished) != 1 or not polished[0].data:
         raise RuntimeError("expected one polished contig")
     if set(polished[0].data) - set(b"ACGTN"):
@@ -940,6 +962,69 @@ def phase_main(dev, mbp=1.0):
         raise RuntimeError(f"polishing did not cut the edit distance: "
                            f"{ed_draft} -> {ed_polished}")
     return out, paths
+
+
+def zlib_check() -> dict:
+    """Whether ``g++`` compiles ``#include <zlib.h>`` (the native parsers
+    inflate gzip with zlib), and which ``g++`` it is."""
+    proc = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-"],
+                          input="#include <zlib.h>\n", capture_output=True,
+                          text=True)
+    version = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True).stdout.splitlines()
+    return dict(ok=proc.returncode == 0, gxx=version[0] if version else "",
+                stderr=proc.stderr[-1000:])
+
+
+def phase_parse(dev, paths, zlib):
+    """The native parser against the Python oracle on the main path's
+    inputs, plain and gzipped (level 1, written here): equal records, and
+    each parse's seconds."""
+    rows = []
+    for key, kind in (("draft", "fasta"), ("reads", "fastq"),
+                      ("overlaps", "paf")):
+        plain = paths[key]
+        gz = plain + ".gz"
+        t0 = time.perf_counter()
+        with open(plain, "rb") as src, \
+                gzip.open(gz, "wb", compresslevel=1) as dst:
+            shutil.copyfileobj(src, dst, 1 << 20)
+        gzip_s = time.perf_counter() - t0
+        for path in (plain, gz):
+            t0 = time.perf_counter()
+            got = getattr(parsers, f"parse_{kind}")(path)
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = list(getattr(parsers, f"_parse_{kind}_py")(path))
+            oracle_s = time.perf_counter() - t0
+            rows.append(dict(file=os.path.basename(path), format=kind,
+                             gzip=path == gz, bytes=os.path.getsize(path),
+                             records=len(got), native_s=native_s,
+                             oracle_s=oracle_s, equal=got == want,
+                             **({"gzip_write_s": gzip_s}
+                                if path == gz else {})))
+            del got, want
+    # Polisher._load (parse, filter, transmute) of the main path's polisher,
+    # twice: its split
+    loads = []
+    for _ in range(2):
+        polisher = create_polisher(paths["reads"], paths["overlaps"],
+                                   paths["draft"], num_threads=8,
+                                   aligner="cuda", consensus="cuda",
+                                   device=dev)
+        t0 = time.perf_counter()
+        polisher._load()
+        loads.append(dict(seconds=time.perf_counter() - t0,
+                          **{k: v for k, v in polisher.timings.items()
+                             if k.startswith("load_")
+                             or k in ("filter_s", "transmute_s")}))
+        del polisher
+    out = dict(phase="parse", zlib=zlib, files=rows, loads=loads)
+    emit(out)
+    bad = [r["file"] for r in rows if not r["equal"] or not r["records"]]
+    if bad:
+        raise RuntimeError(f"native and oracle records differ: {bad}")
+    return out
 
 
 def phase_bp(dev, drawn, w=500):
@@ -1136,12 +1221,17 @@ def main() -> int:
                             torch=torch.__version__,
                             cuda=torch.version.cuda)
     emit(record["device"])
+    zlib = zlib_check()
+    if not zlib["ok"]:
+        raise RuntimeError(f"g++ does not find zlib.h, which the native "
+                           f"parsers need: {zlib}")
 
     t0 = time.perf_counter()
     _build.build_all(force=True, verbose_ptxas=True)
     cuda_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    native.build(force=True)   # the host engines the device ones fall back to
+    # the parsers, and the host engines the device ones fall back to
+    native.build(force=True)
     record["build"] = dict(phase="build", cuda_s=cuda_s,
                            native_s=time.perf_counter() - t1,
                            per_source={k: v["seconds"] for k, v in
@@ -1155,6 +1245,9 @@ def main() -> int:
     t0 = time.perf_counter()
     record["main"], paths = phase_main(dev)
     record["main"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["parse"] = phase_parse(dev, paths, zlib)
+    record["parse"]["seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     entries, drawn = phase_kernels(dev, record["main"])

@@ -149,6 +149,7 @@ class Polisher:
     def _load(self) -> List[Overlap]:
         """Parse targets, reads and overlaps; filter and transmute."""
         log = self.logger
+        t0 = time.perf_counter()
         tparse = parsers.sequence_parser_for(self.target_path)
         self.sequences = [Sequence(r.name, r.data, r.quality)
                           for r in tparse(self.target_path)]
@@ -166,6 +167,8 @@ class Polisher:
         has_reverse = [False] * self.targets_size
         log.log("[racon_tpu::Polisher::initialize] loaded target sequences")
         log.log()
+        t1 = time.perf_counter()
+        self.timings["load_targets_s"] = t1 - t0
 
         sparse = parsers.sequence_parser_for(self.sequences_path)
         raw_index = 0
@@ -199,6 +202,8 @@ class Polisher:
                              else WindowType.TGS)
         log.log("[racon_tpu::Polisher::initialize] loaded sequences")
         log.log()
+        t2 = time.perf_counter()
+        self.timings["load_reads_s"] = t2 - t1
 
         oparse = parsers.overlap_parser_for(self.overlaps_path)
         overlaps = []
@@ -207,6 +212,8 @@ class Polisher:
             o.transmute(self.sequences, name_to_id, id_to_id)
             if o.is_valid:
                 overlaps.append(o)
+        t3 = time.perf_counter()
+        self.timings["load_overlaps_s"] = t3 - t2
         overlaps = self._filter_overlaps(overlaps)
         if not overlaps:
             raise ValueError("empty overlap set")
@@ -217,9 +224,22 @@ class Polisher:
                 has_data[o.q_id] = True
         log.log("[racon_tpu::Polisher::initialize] loaded overlaps")
         log.log()
+        t4 = time.perf_counter()
+        self.timings["filter_s"] = t4 - t3
+        self._transmute_all(has_name, has_data, has_reverse)
+        self.timings["transmute_s"] = time.perf_counter() - t4
+        return overlaps
+
+    def _transmute_all(self, has_name, has_data, has_reverse) -> None:
+        """Free what each sequence no longer needs and materialise the
+        reverse complements, serially. Departure from the JAX package, on
+        purpose: its chunked thread pool relies on numpy releasing the
+        GIL, while the port's reverse complement is ``bytes.translate``
+        (``sequence.py``), which holds it, and the pool measured slower
+        than one thread (PERF.md §6, PR 13). Each sequence is filled in
+        place; no torch tensor is touched."""
         for i, seq in enumerate(self.sequences):
             seq.transmute(has_name[i], has_data[i], has_reverse[i])
-        return overlaps
 
     def _filter_overlaps(self, overlaps: List[Overlap]) -> List[Overlap]:
         """Per-query group filter: drop error > threshold and self

@@ -13,11 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
-
 _COMPLEMENT = bytes.maketrans(b"ACGT", b"TGCA")
-_COMPLEMENT_LUT = np.frombuffer(bytes(range(256)).translate(_COMPLEMENT),
-                                np.uint8)
 
 
 class Sequence:
@@ -58,11 +54,11 @@ class Sequence:
     def create_reverse_complement(self) -> None:
         if self._reverse_complement is not None:
             return
-        # numpy LUT + flip: byte-identical to bytes.translate()[::-1] but
-        # releases the GIL on large arrays, so the polisher's transmute
-        # thread pool (reference P3) parallelizes for real
-        arr = np.frombuffer(self.data, np.uint8)
-        self._reverse_complement = _COMPLEMENT_LUT[arr][::-1].tobytes()
+        # bytes.translate + flip: byte-identical to the JAX package's numpy
+        # LUT take and faster on the main path's reads; the take's release
+        # of the GIL bought a transmute thread pool no speed-up (PERF.md §6,
+        # PR 13), so the polisher transmutes serially
+        self._reverse_complement = self.data.translate(_COMPLEMENT)[::-1]
         self._reverse_quality = (self.quality[::-1]
                                  if self.quality is not None else None)
 

@@ -1,5 +1,12 @@
-"""Streaming FASTA/FASTQ/PAF/SAM/MHAP parsers with transparent gzip (copy
-of the pure-Python paths of ``racon_tpu.io.parsers``).
+"""FASTA/FASTQ/PAF/MHAP/SAM parsers with transparent gzip (the port of
+``racon_tpu.io.parsers``).
+
+Every ``parse_*`` goes through the native streaming parser
+(``native/parsers.cpp``: chunked inflate through a bounded rolling buffer)
+and returns a materialised list. There is no Python fallback: a failed
+native build raises ``native.NativeBuildError``. The Python loops
+``_parse_*_py`` are the behavioural oracle the tests hold the native
+records equal to, field for field, and are called only by name.
 
 Matches bioparser's observable behaviour, as the reference package does:
 names are truncated at the first whitespace character, FASTA/FASTQ records
@@ -12,7 +19,9 @@ from __future__ import annotations
 import gzip
 import io
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
+
+from .. import native
 
 SEQUENCE_EXTENSIONS = (
     ".fasta", ".fasta.gz", ".fna", ".fna.gz", ".fa", ".fa.gz",
@@ -61,7 +70,56 @@ def _first_token(line: bytes) -> bytes:
     return line.split(None, 1)[0] if line else b""
 
 
-def parse_fasta(path: str) -> Iterator[SequenceRecord]:
+def _native(parse, path: str, arg) -> list:
+    """``parse(path, arg)`` of the native module; a malformed record, which
+    it reports as a plain ValueError, becomes a ParseError (a failed build,
+    NativeBuildError, passes through)."""
+    try:
+        return parse(path, arg)
+    except ValueError as e:
+        raise ParseError(path, str(e)) from e
+
+
+def _sequences(path: str, is_fastq: bool) -> List[SequenceRecord]:
+    return [SequenceRecord(n, d, q)
+            for n, d, q in _native(native.parse_seqfile, path, is_fastq)]
+
+
+_OVL_FORMATS = ("paf", "mhap", "sam")  # rt_parse_ovlfile's format codes
+
+
+def _overlaps(path: str, fmt: str) -> List[OverlapRecord]:
+    return [OverlapRecord(fmt, f) for f in
+            _native(native.parse_ovlfile, path, _OVL_FORMATS.index(fmt))]
+
+
+def parse_fasta(path: str) -> List[SequenceRecord]:
+    return _sequences(path, False)
+
+
+def parse_fastq(path: str) -> List[SequenceRecord]:
+    """Multi-line-tolerant FASTQ: sequence lines until '+', then quality
+    bytes until their length matches the sequence length."""
+    return _sequences(path, True)
+
+
+def parse_paf(path: str) -> List[OverlapRecord]:
+    """PAF: qname qlen qstart qend strand tname tlen tstart tend ..."""
+    return _overlaps(path, "paf")
+
+
+def parse_mhap(path: str) -> List[OverlapRecord]:
+    """MHAP: aid bid jaccard shared arc astart aend alen brc bstart bend
+    blen (space-separated, 1-based ids)."""
+    return _overlaps(path, "mhap")
+
+
+def parse_sam(path: str) -> List[OverlapRecord]:
+    """SAM: qname flag rname pos mapq cigar ... (header lines skipped)."""
+    return _overlaps(path, "sam")
+
+
+def _parse_fasta_py(path: str) -> Iterator[SequenceRecord]:
     name = None
     chunks: list = []
     with open_maybe_gzip(path) as f:
@@ -87,7 +145,7 @@ def parse_fasta(path: str) -> Iterator[SequenceRecord]:
             yield SequenceRecord(name, b"".join(chunks))
 
 
-def parse_fastq(path: str) -> Iterator[SequenceRecord]:
+def _parse_fastq_py(path: str) -> Iterator[SequenceRecord]:
     """Multi-line-tolerant FASTQ: sequence lines until '+', then quality
     bytes until their length matches the sequence length."""
     with open_maybe_gzip(path) as f:
@@ -147,7 +205,7 @@ def parse_fastq(path: str) -> Iterator[SequenceRecord]:
             yield SequenceRecord(name, data, quality)
 
 
-def parse_paf(path: str) -> Iterator[OverlapRecord]:
+def _parse_paf_py(path: str) -> Iterator[OverlapRecord]:
     """PAF: qname qlen qstart qend strand tname tlen tstart tend ..."""
     with open_maybe_gzip(path) as f:
         for ln, raw in enumerate(f, 1):
@@ -167,7 +225,7 @@ def parse_paf(path: str) -> Iterator[OverlapRecord]:
                           f"{line[:60]!r}", line=ln) from e
 
 
-def parse_mhap(path: str) -> Iterator[OverlapRecord]:
+def _parse_mhap_py(path: str) -> Iterator[OverlapRecord]:
     """MHAP: aid bid jaccard shared arc astart aend alen brc bstart bend
     blen (space-separated, 1-based ids)."""
     with open_maybe_gzip(path) as f:
@@ -188,7 +246,7 @@ def parse_mhap(path: str) -> Iterator[OverlapRecord]:
                           f"{line[:60]!r}", line=ln) from e
 
 
-def parse_sam(path: str) -> Iterator[OverlapRecord]:
+def _parse_sam_py(path: str) -> Iterator[OverlapRecord]:
     """SAM: qname flag rname pos mapq cigar ... (header lines skipped)."""
     with open_maybe_gzip(path) as f:
         for ln, raw in enumerate(f, 1):

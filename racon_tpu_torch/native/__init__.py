@@ -1,10 +1,15 @@
-"""Host-native core of the port: the C++ aligner, POA engine and CIGAR
-breaking-point decoder (copies of ``racon_tpu/native/{nw,poa,bp}.cpp``),
-loaded with ctypes.
+"""Host-native core of the port: the C++ aligner, POA engine, CIGAR
+breaking-point decoder and streaming FASTA/FASTQ/PAF/MHAP/SAM parsers
+(copies of ``racon_tpu/native/{nw,poa,bp,parsers}.cpp``), loaded with
+ctypes.
 
-Built on demand with g++ into ``build/native`` at the root of the checkout
-and rebuilt when a source is newer. The device engines send the pairs and windows they reject here,
-and the smoke scores polished contigs with :func:`edit_distance`.
+Built on demand with g++ (linked with zlib, which the parsers inflate
+gzip with) into ``build/native`` at the root of the checkout and rebuilt
+when a source is newer. Every input file is parsed here
+(``io/parsers.py``), the device engines send the pairs and windows they
+reject here, and the smoke scores polished contigs with
+:func:`edit_distance`. ``PARSE_CALLS`` counts the files parsed without
+error, by entry point.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ _DIR = pathlib.Path(__file__).resolve().parent
 _SOURCES = sorted(_DIR.glob("*.cpp"))
 _lock = threading.Lock()
 _lib = None
+PARSE_CALLS = {"seqfile": 0, "ovlfile": 0}
 
 
 class NativeBuildError(RuntimeError):
@@ -43,7 +49,7 @@ def build(force: bool = False) -> pathlib.Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}")
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-pthread", *[str(s) for s in _SOURCES], "-o", str(tmp)]
+           "-pthread", *[str(s) for s in _SOURCES], "-o", str(tmp), "-lz"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise NativeBuildError(f"native build failed:\n{proc.stderr[-4000:]}")
@@ -77,6 +83,16 @@ def load():
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
         lib.rt_free.restype = None
         lib.rt_free.argtypes = [ctypes.c_void_p]
+        lib.rt_parse_seqfile.restype = i64
+        lib.rt_parse_seqfile.argtypes = [
+            ctypes.c_char_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_char_p]
+        lib.rt_parse_ovlfile.restype = i64
+        lib.rt_parse_ovlfile.argtypes = [
+            ctypes.c_char_p, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p]
         lib.rt_bp_from_cigar_batch.restype = None
         lib.rt_bp_from_cigar_batch.argtypes = [
             i64, ctypes.POINTER(ctypes.c_char_p), i64p, i64p, i64p, i64,
@@ -191,3 +207,90 @@ def bp_from_cigar_batch(cigars, q_offs, t_begins, t_ends,
         counts.ctypes.data_as(i64p))
     return [out[int(offs[i]) * 4: (int(offs[i]) + int(counts[i])) * 4]
             .reshape(-1, 4) for i in range(count)]
+
+
+def reset_parse_calls() -> None:
+    for key in PARSE_CALLS:
+        PARSE_CALLS[key] = 0
+
+
+def parse_seqfile(path: str, is_fastq: bool) -> list:
+    """Parse a (possibly gzipped) FASTA or FASTQ file; returns a list of
+    ``(name, data, quality | None)`` byte tuples. Raises ValueError with
+    the parser's message on malformed input."""
+    lib = load()
+    blob = ctypes.c_void_p()
+    offs = ctypes.c_void_p()
+    err = ctypes.create_string_buffer(256)
+    n = lib.rt_parse_seqfile(os.fsencode(path), 1 if is_fastq else 0,
+                             ctypes.byref(blob), ctypes.byref(offs), err)
+    if n < 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    PARSE_CALLS["seqfile"] += 1
+    try:
+        o = ((ctypes.c_int64 * (6 * n)).from_address(offs.value)[:]
+             if n else [])
+        base = blob.value
+        out = []
+        for i in range(0, 6 * n, 6):
+            no, nl, so, sl, qo, ql = o[i:i + 6]
+            out.append((ctypes.string_at(base + no, nl),
+                        ctypes.string_at(base + so, sl),
+                        ctypes.string_at(base + qo, ql) if qo >= 0 else None))
+        return out
+    finally:
+        lib.rt_free(blob)
+        lib.rt_free(offs)
+
+
+# per-format (strings, numbers) of one rt_parse_ovlfile record:
+# 0 = PAF, 1 = MHAP, 2 = SAM
+_OVL_ARITY = {0: (2, 7), 1: (0, 12), 2: (3, 2)}
+
+
+def parse_ovlfile(path: str, fmt: int) -> list:
+    """Parse a (possibly gzipped) overlap file, ``fmt`` 0 = PAF, 1 = MHAP,
+    2 = SAM; returns one field tuple per record, equal to the Python
+    parsers' ``OverlapRecord.fields``: PAF ``(qname, qlen, qstart, qend,
+    strand, tname, tlen, tstart, tend)``, MHAP its twelve numbers
+    (``jaccard`` a float), SAM ``(qname, flag, rname, pos, cigar)``.
+    Raises ValueError with the parser's message on malformed input."""
+    lib = load()
+    blob = ctypes.c_void_p()
+    soffs = ctypes.c_void_p()
+    nums = ctypes.c_void_p()
+    err = ctypes.create_string_buffer(256)
+    n = lib.rt_parse_ovlfile(os.fsencode(path), fmt, ctypes.byref(blob),
+                             ctypes.byref(soffs), ctypes.byref(nums), err)
+    if n < 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    PARSE_CALLS["ovlfile"] += 1
+    ns, nn = _OVL_ARITY[fmt]
+    try:
+        so = ((ctypes.c_int64 * (2 * ns * n)).from_address(soffs.value)[:]
+              if n and ns else [])
+        nu = ((ctypes.c_double * (nn * n)).from_address(nums.value)[:]
+              if n else [])
+        base = blob.value
+        out = []
+        for i in range(n):
+            strs = [ctypes.string_at(base + so[2 * (ns * i + k)],
+                                     so[2 * (ns * i + k) + 1])
+                    for k in range(ns)]
+            num = nu[nn * i: nn * i + nn]
+            if fmt == 0:
+                b = int(num[3])
+                out.append((strs[0], int(num[0]), int(num[1]), int(num[2]),
+                            chr(b) if b else "", strs[1], int(num[4]),
+                            int(num[5]), int(num[6])))
+            elif fmt == 1:
+                out.append((int(num[0]), int(num[1]), num[2], int(num[3]),
+                            *[int(x) for x in num[4:]]))
+            else:
+                out.append((strs[0], int(num[0]), strs[1], int(num[1]),
+                            strs[2]))
+        return out
+    finally:
+        lib.rt_free(blob)
+        lib.rt_free(soffs)
+        lib.rt_free(nums)

@@ -9,8 +9,11 @@ under ``cProfile``, enabled on the calling thread, which runs the aligner,
 feeds the consensus stream and stitches (on Python 3.12 the listing holds
 the layer-assembly thread's calls too, under ``produce``, and the calling
 thread's waits for it under ``queue.get``). Prints the card
-(``nvidia-smi`` name and power limit), the profiled run's stage seconds
-and the ``TOP`` (default 40) functions by cumulative time, and writes the
+(``nvidia-smi`` name and power limit), the profiled run's stage seconds,
+the split of ``Polisher._load`` (targets, reads, overlaps, filter,
+transmute: the ``load_*_s``, ``filter_s`` and ``transmute_s`` timings) in
+the warm-up pass and in the profiled one, and the ``TOP`` (default 40)
+functions by cumulative time, and writes the
 whole listing to ``host_profile.txt`` in ``chip_smoke.py``'s output
 directory (``OUT_DIR``). Host times are wall seconds on the card
 machine's CPU, with the device running beside them.
@@ -60,7 +63,7 @@ def main(top: int) -> int:
         torch.cuda.synchronize()
         return polisher, time.perf_counter() - t0
 
-    polish()
+    warm, warm_wall = polish()
     prof = cProfile.Profile()
     prof.enable()
     polisher, wall = polish()
@@ -73,8 +76,15 @@ def main(top: int) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
+    split = ("load_targets_s", "load_reads_s", "load_overlaps_s",
+             "filter_s", "transmute_s")
     print(json.dumps(dict(card=card, wall_s=wall,
-                          stages_s=polisher.timings)))
+                          stages_s=polisher.timings,
+                          load_split_s={
+                              "warm_up": {k: warm.timings[k] for k in split},
+                              "profiled": {k: polisher.timings[k]
+                                           for k in split}},
+                          warm_up_wall_s=warm_wall)))
     lines = text.splitlines()
     head = next(i for i, line in enumerate(lines) if "ncalls" in line)
     print("\n".join(lines[head:head + top + 1]))
