@@ -35,21 +35,39 @@ line each:
              the files the native parser read (``native_parse_calls``:
              the draft and the reads, then the overlaps; the polisher
              parses nothing another way);
-6. parse   — the main path's inputs (draft, reads, PAF), plain and as
+6. main_auto — the same polish with ``--overlaps auto``:
+             ``create_polisher(reads, "auto", draft, ...)`` on the same
+             1 Mbp inputs, so the first-party overlapper (minimizer seeding
+             and the seed join, plain PyTorch on the card; the chain DP,
+             CUDA kernel ``chain_dp``) streams its rows into the aligner:
+             stage times with ``overlap_feed_s``, the overlapper's counters
+             (``chain.STATS``), the overlaps kept against the PAF path's,
+             the launches of ``chain_dp``, K4, K2 and K3 (counted from zero
+             just before the run; each must be > 0), the edit distance with
+             the main phase's gate, peak device memory; it fails on a join
+             bail-out (the 1 Mbp tables fit the device join) and unless the
+             native parser read exactly the two sequence files;
+   overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
+             its tensors on the card and on the CPU (the plain versions):
+             every row array equal; then, on the card, the seconds of the
+             overlapper's steps on the 1 Mbp inputs (``split_1mbp``);
+7. parse   — the main path's inputs (draft, reads, PAF), plain and as
              gzip level 1 copies, parsed by the native parser
              (``io.parsers.parse_*``) and by the Python oracle
              (``_parse_*_py``): the records must be equal; each parse's
              seconds, and whether ``g++`` finds ``zlib.h`` (checked before
              any build); then the main path's ``Polisher._load`` twice
              with its split (targets, reads, overlaps, filter, transmute);
-7. kernels — each kernel at every shape the main path launched it at
-             (every consensus (Lq, band) at its largest and smallest
-             group, K4 and K3 at each, stage-B groups included, and the
+8. kernels — each kernel at every shape the main path or the main_auto
+             path launched it at (every consensus (Lq, band) of either at
+             its largest and smallest group, K4 and K3 at each, stage-B
+             groups included, and the
              stream's 256 bp bucket, ``CONSENSUS_TAIL``, off the main path
              where the run did not launch it; each aligner (max_len,
-             band) at its largest chunk, band-ladder rungs included, on
-             pairs drawn like the simulator's that the aligner seeds
-             there), held
+             band) at the main path's largest chunk, and at main_auto's
+             where that is larger or the bucket is main_auto's alone,
+             band-ladder rungs included, on pairs drawn like the
+             simulator's that the aligner seeds there), held
              bit-exact against its plain PyTorch version on the same card
              inputs (a prefix of the pairs where the plain version would
              take minutes), timed with CUDA events. Every forward body of
@@ -80,19 +98,24 @@ line each:
              ladder's rungs the 1 Mbp run does not launch
              (``RUNG_OFF_PATH``: 64, 96, 192, 256, 768); K3 on
              ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
-             geometry;
-8. bp      — at every aligner (max_len, band) of the main path, on its
+             geometry; ``chain_dp`` at every (S, B) the main_auto run
+             launched it at, on the lanes that run gave it, bit-exact
+             against ``chain.chain_dp_plain`` on the same card tensors.
+             It fails when a launch of either path falls on a geometry
+             not held at a batch at least as large (``unheld``);
+9. bp      — at every aligner (max_len, band) of the main path, then at
+             main_auto's own buckets, on its
              kernels-phase pairs: ``breaking_points`` rows from the card
              (``CudaAligner._launch_chunk`` + ``_finish_chunk_bp``) equal
              to the host decode of the same walk (``ops_to_cigar`` +
              ``decode_breaking_points_batch``), the card's tables equal to
              ``breaking_points`` on the CPU from the same op stream, and
              its time (CUDA events);
-9. agree   — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
+10. agree  — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card through the consensus stream and through the padded path
              (``use_ragged=False``), and with the plain PyTorch kernels on
              the CPU: the three FASTA must be byte-identical;
-10. profile — the main path once more under ``torch.profiler``: device
+11. profile — the main path once more under ``torch.profiler``: device
              time by kernel and of the ``breaking_points`` range, and the
              device's idle share.
 
@@ -123,7 +146,7 @@ import torch
 from racon_tpu_torch import native
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
-from racon_tpu_torch.ops import _build, cuda_nw
+from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
@@ -171,6 +194,16 @@ SECTOR = 32
 # = 3), the validity test (2), the packed coordinates (2) and the two
 # reductions (2)
 OPS_PER_BP_STEP = 13
+# The chain DP, per predecessor a live seed is scored against: the two
+# coordinate deltas (2), the drift and its absolute value (2), five range
+# tests and their four ands (9), the span min(k, dq, dt) (2), the score
+# (shift, add, subtract = 3), the strict-> compare and the two selects of
+# the best and its offset (3) = 21; per live seed: the floor max, the
+# parent select and the best-end compare and two selects (5); per chained
+# seed of the walk back: the parent test, the step and the count (3).
+OPS_PER_CHAIN_PRED = 21
+OPS_PER_CHAIN_SLOT = 5
+OPS_PER_CHAIN_BACK = 3
 # pairs x lanes x steps a plain-version comparison may cover: the plain
 # versions loop over wavefronts in Python and would take minutes at the
 # largest aligner chunks, so those are held on a prefix of at least 256 of
@@ -347,12 +380,14 @@ def aligner_bucket_inputs(dev, shape, B, seed, div_obs):
         raise RuntimeError(f"no read length seeds at {shape}")
     lo, hi = min(fits), max(fits)
     pairs = []
-    for _ in range(1000 * B):
-        if len(pairs) == B:
-            break
+    # up to 1000 tries a pair on sizes that fit (a bucket of short reads
+    # rejects most sizes first)
+    tries = 0
+    while len(pairs) < B and tries < 1000 * B:
         size = int(np.clip(rng.normal(7000, 1500), 2000, 8000))
         if not lo <= size <= hi:
             continue
+        tries += 1
         truth = BASES[rng.integers(0, 4, size)]
         q = _mutate(truth, rng, 0.03, 0.03, 0.06)[0]
         t = _mutate(truth, rng, 0.02, 0.02, 0.06)[0]
@@ -663,11 +698,39 @@ def consensus_shapes(groups):
             for B in sorted({max(Bs), min(Bs)}, reverse=True)]
 
 
-def phase_kernels(dev, main):
+def aligner_buckets(path) -> dict:
+    """(max_len, band) -> (largest padded batch, chunks) of one path's
+    aligner launches."""
+    out = {}
+    for max_len, bnd, _, Bc, _ in path["aligner_chunk_shapes"]:
+        big, count = out.get((max_len, bnd), (0, 0))
+        out[(max_len, bnd)] = (max(big, Bc), count + 1)
+    return out
+
+
+def unheld_shapes(path, held) -> list:
+    """The launches of one path whose geometry the kernels phase did not
+    hold at a batch at least as large. ``held`` maps an aligner bucket or
+    a consensus (Lq, band) to the largest batch held there; every body of
+    every kernel is held at each such shape (K4 at each BPT its band
+    instantiates, K2's two bodies), so a launch of B pairs at a geometry
+    held at B' >= B pairs runs a body held on more pairs of that
+    geometry."""
+    shapes = ([("aligner", ml, bnd, Bc) for ml, bnd, _, Bc, _ in
+               path["aligner_chunk_shapes"]]
+              + [("consensus", g[0], g[1], g[3])
+                 for g in path["consensus_group_shapes"]])
+    return [sh for sh in shapes if held.get(sh[:3], 0) < sh[3]]
+
+
+def phase_kernels(dev, main, auto):
     """Both forward kernels and the walk that follows at every shape the
-    main path launched: every consensus (Lq, band) at its largest and
+    main path (``main``) and the ``--overlaps auto`` path (``auto``)
+    launched: every consensus (Lq, band) of either at its largest and
     smallest group (K3 at each; K2 at the largest group's geometry, off
-    the main path), and each aligner bucket at its largest chunk;
+    the main path), and each aligner bucket at the main path's largest
+    chunk there, and again at the auto path's where that is larger or the
+    bucket is the auto path's alone;
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
@@ -676,22 +739,35 @@ def phase_kernels(dev, main):
     pairs at the consensus geometry. A forward kernel's
     headline row is the first shape at which the engines pick it
     (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
-    the consensus group; the other rows go to ``other_shapes``."""
-    consensus = consensus_shapes(main["consensus_group_shapes"])
+    the consensus group; the other rows go to ``other_shapes``. Returns
+    the entries, the main path's drawn aligner pairs by bucket (and the
+    auto path's at its own buckets), and the largest batch held at each
+    on-path geometry (``("aligner" | "consensus", dims...) -> B``)."""
+    consensus = consensus_shapes(main["consensus_group_shapes"]
+                                 + auto["consensus_group_shapes"])
     Lq, band, B = consensus[0]
-    chunks = {}   # bucket -> (largest padded batch, chunks launched)
-    for max_len, bnd, _, Bc, _ in main["aligner_chunk_shapes"]:
-        big, count = chunks.get((max_len, bnd), (0, 0))
-        chunks[(max_len, bnd)] = (max(big, Bc), count + 1)
+    chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
-    rows = {name: [] for name in cuda_nw.KERNELS}
+    rows = {name: [] for name in cuda_nw.KERNELS if name != "chain_dp"}
     drawn = {}    # aligner shape -> the pairs its rows were built from
-    # the aligner's pairs are drawn with seeds 204, 205, ... in bucket order
+    held = {("consensus", *c[:2]): max(b[2] for b in consensus
+                                       if b[:2] == c[:2])
+            for c in consensus}
+    # the aligner's pairs are drawn with seeds 204, 205, ... in the main
+    # path's bucket order, then the auto path's, each with its own path's
+    # divergence observations
+    aligner = [((k, v[0], main["aligner_div_obs"], ""), 204 + i)
+               for i, (k, v) in enumerate(sorted(chunks.items()))]
+    for k, (Bc, _) in sorted(aligner_buckets(auto).items()):
+        if Bc > chunks.get(k, (0, 0))[0]:
+            aligner.append(((k, Bc, auto["aligner_div_obs"], " (auto path)"),
+                            204 + len(aligner)))
+    for (k, Bc, _, _), _ in aligner:
+        held[("aligner", *k)] = max(held.get(("aligner", *k), 0), Bc)
     shapes = ([("consensus", c, None) for c in consensus]
               + [("consensus_tail", c, None) for c in CONSENSUS_TAIL
                  if c not in consensus]
-              + [(k, v, 204 + i) for i, (k, v) in
-                 enumerate(sorted(chunks.items()))])
+              + [("aligner", v, seed) for v, seed in aligner])
     if WIDE_1024 not in chunks:
         shapes.append(("off_path", None, None))
     shapes += [("consensus_off", b, None) for b in CONSENSUS_OFF_PATH]
@@ -716,9 +792,13 @@ def phase_kernels(dev, main):
             inp["shape"] += f", {val} bp windows (off the main path)"
             reps = 3
         else:
-            inp = aligner_bucket_inputs(dev, key, val[0], seed,
-                                        main["aligner_div_obs"])
-            drawn[key] = inp.pop("pairs")
+            bucket, Bc, div_obs, label = val
+            inp = aligner_bucket_inputs(dev, bucket, Bc, seed, div_obs)
+            inp["shape"] += label
+            pairs = inp.pop("pairs")
+            if not label or bucket not in chunks:
+                drawn[bucket] = pairs
+            del pairs
             reps = 3
         (dirs, _), k1, k4 = fwd_rows(inp, reps, BPT_LADDER)
         # headline: the first main-path shape at which the engines pick
@@ -744,7 +824,8 @@ def phase_kernels(dev, main):
         elif on_path:
             k2 = walk_rows(dirs, inp, reps)
             for row in k2:
-                row["headline"] = key == busiest and row is k2[0]
+                row["headline"] = (val[0] == busiest and not val[3]
+                                   and row is k2[0])
             rows["walk_ops"] += k2
         del dirs, inp
         torch.cuda.empty_cache()
@@ -787,14 +868,15 @@ def phase_kernels(dev, main):
         entries[name] = dict(head, other_shapes=[r for r in rs
                                                  if r is not head])
         entries[name]["ok"] = all(r["max_abs_err"] == 0 for r in rs)
-    return entries, drawn
+    return entries, drawn, held
 
 
 def kernel_name(mangled: str) -> str:
     """``nw_fwd_i16x2_wide_kernel<8,4>`` from a mangled device function
     name of this repo's kernels."""
     head, _, rest = mangled.partition("kernel")
-    at = max(head.rfind("nw_fwd_"), head.rfind("walk_"))
+    at = max(head.rfind("nw_fwd_"), head.rfind("walk_"),
+             head.rfind("chain_dp_"))
     args = re.match(r"I((?:Li-?\d+E)+)E", rest)
     targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
     return head[at:] + "kernel" + (f"<{','.join(targs)}>" if targs else "")
@@ -901,10 +983,6 @@ def phase_main(dev, mbp=1.0):
     stages = dict(polisher.timings)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
 
-    def fasta_seq(path):
-        lines = pathlib.Path(path).read_bytes().split(b"\n")
-        return b"".join(l for l in lines if l and not l.startswith(b">"))
-
     truth = fasta_seq(paths["truth"])
     draft = fasta_seq(paths["draft"])
     t0 = time.perf_counter()
@@ -916,6 +994,7 @@ def phase_main(dev, mbp=1.0):
     ed_s = time.perf_counter() - t0
     out = dict(phase="main", simulate_s=sim_s, wall_s=wall_s,
                stages_s=stages, launches=launches,
+               overlaps=sum(polisher.targets_coverages),
                native_parse_calls=parse_calls,
                n_contigs=len(polished), polished_len=len(polished[0].data),
                truth_len=len(truth), ed_draft=ed_draft,
@@ -962,6 +1041,187 @@ def phase_main(dev, mbp=1.0):
         raise RuntimeError(f"polishing did not cut the edit distance: "
                            f"{ed_draft} -> {ed_polished}")
     return out, paths
+
+
+def fasta_seq(path):
+    lines = pathlib.Path(path).read_bytes().split(b"\n")
+    return b"".join(l for l in lines if l and not l.startswith(b">"))
+
+
+def phase_main_auto(dev, paths, main):
+    """The main path with ``--overlaps auto``: the same inputs polished
+    with the overlaps computed in-process (seeding, the seed join and the
+    chain DP on the card, streamed into the aligner). The chain DP's
+    inputs are recorded launch by launch (the wrapper is called through a
+    recorder that keeps the card tensors) for the kernels phase."""
+    launched = []
+    wrapper = chain.chain_dp
+
+    def recorder(ts, qs, ns, *, k):
+        launched.append((ts, qs, ns, k))
+        return wrapper(ts, qs, ns, k=k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    overlap_seed.clear_table_cache()
+    cuda_nw.reset_launches()
+    chain.reset_stats()
+    native.reset_parse_calls()
+    chain.chain_dp = recorder
+    try:
+        t0 = time.perf_counter()
+        polisher = create_polisher(paths["reads"], "auto", paths["draft"],
+                                   num_threads=8, aligner="cuda",
+                                   consensus="cuda", device=dev)
+        polished = polisher.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        chain.chain_dp = wrapper
+    launches = dict(cuda_nw.LAUNCHES)
+    parse_calls = dict(native.PARSE_CALLS)
+    stats = dict(chain.STATS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
+    t0 = time.perf_counter()
+    ed_polished = native.edit_distance(polished[0].data,
+                                       fasta_seq(paths["truth"]))
+    out = dict(phase="main_auto", wall_s=wall_s,
+               stages_s=dict(polisher.timings), launches=launches,
+               overlapper=stats, overlaps=sum(polisher.targets_coverages),
+               overlaps_paf_path=main["overlaps"],
+               native_parse_calls=parse_calls, n_contigs=len(polished),
+               polished_len=len(polished[0].data), ed_draft=main["ed_draft"],
+               ed_polished=ed_polished,
+               ed_polished_paf_path=main["ed_polished"],
+               edit_distance_s=time.perf_counter() - t0,
+               peak_device_bytes=peak,
+               aligner_pairs_device=aligner["device"],
+               aligner_div_obs=polisher.aligner._div_obs,
+               aligner_chunk_shapes=aligner["chunk_shapes"],
+               consensus_group_shapes=consensus["group_shapes"])
+    emit(out)
+    if launches["chain_dp"] <= 0:
+        raise RuntimeError("the auto path launched no chain_dp")
+    if stats["join_bailouts"] > 0:
+        raise RuntimeError(f"the seed join bailed out to the host: {stats}")
+    if parse_calls != {"seqfile": 2, "ovlfile": 0}:
+        raise RuntimeError(f"the auto path did not parse exactly its two "
+                           f"sequence files natively: {parse_calls}")
+    if len(polished) != 1 or set(polished[0].data) - set(b"ACGTN"):
+        raise RuntimeError("expected one polished contig of bases")
+    if not ed_polished * 4 < main["ed_draft"]:
+        raise RuntimeError(f"auto polishing did not cut the edit distance: "
+                           f"{main['ed_draft']} -> {ed_polished}")
+    return out, launched
+
+
+def overlap_split(dev, paths) -> dict:
+    """Where the overlapper's time goes on the main path's 1 Mbp inputs,
+    on the card (each step ends in a synchronise): seeding the reads,
+    seeding the draft, the seed join, then ``find_overlaps`` whole (its
+    draft table from the cache); its chain stage and group emission take
+    the whole less the reads' seeding and the join."""
+    reads = [r.data for r in parsers.parse_fastq(paths["reads"])]
+    draft = [r.data for r in parsers.parse_fasta(paths["draft"])]
+    self_t = np.full(len(reads), -1, np.int64)
+    qlens = np.fromiter((len(r) for r in reads), np.int64, len(reads))
+    overlap_seed.clear_table_cache()
+    out = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        return res
+
+    rt = timed("seed_reads_s", lambda: overlap_seed.build_seed_table(
+        reads, device=dev))
+    tt = timed("seed_draft_s", lambda: overlap_seed.build_seed_table(
+        draft, cache=True, device=dev))
+    hits, _ = timed("join_s", lambda: chain.join_seeds(
+        rt, tt, self_t, qlens, k=overlap_seed.DEFAULT_K,
+        max_occ=chain.DEFAULT_MAX_OCC, device=dev))
+    timed("find_overlaps_s", lambda: chain.find_overlaps(
+        reads, draft, self_t, device=dev))
+    out["chain_and_emit_s"] = (out["find_overlaps_s"] - out["seed_reads_s"]
+                               - out["join_s"])
+    out.update(read_minimizers=int(rt[0].size),
+               draft_minimizers=int(tt[0].size), hits=int(hits["q"].size))
+    return out
+
+
+def phase_overlap(dev, paths, mbp=0.2):
+    """``chain.find_overlaps`` on a 0.2 Mbp genome (seed 23) with its
+    tensors on the card and on the CPU (the plain versions of the seeding,
+    the join and the chain DP): every row array must be equal. Then
+    :func:`overlap_split` on the main path's inputs."""
+    data = ROOT / "build" / "smoke_overlap"
+    small = write_inputs(mbp, str(data), seed=23, coverage=30)
+    reads = [r.data for r in parsers.parse_fastq(small["reads"])]
+    draft = [r.data for r in parsers.parse_fasta(small["draft"])]
+    self_t = np.full(len(reads), -1, np.int64)
+    rows, seconds, stats = {}, {}, {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        overlap_seed.clear_table_cache()
+        chain.reset_stats()
+        t0 = time.perf_counter()
+        rows[name] = chain.find_overlaps(reads, draft, self_t, device=where)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        stats[name] = {k: v for k, v in chain.STATS.items()
+                       if k != "chunk_shapes"}
+    same = all(np.array_equal(rows["cuda"][k], rows["cpu"][k])
+               for k in rows["cpu"])
+    out = dict(phase="overlap", mbp=mbp, reads=len(reads),
+               rows=int(rows["cuda"]["q_ord"].size), identical=same,
+               seconds=seconds, stats=stats,
+               split_1mbp=overlap_split(dev, paths))
+    emit(out)
+    if not same or not rows["cuda"]["q_ord"].size:
+        raise RuntimeError("the overlapper's card and CPU rows differ")
+    return out
+
+
+def chain_bound(ns: np.ndarray, n_chained: np.ndarray):
+    """The chain DP's least time on this run's lanes: bytes (a live seed's
+    two coordinates, each lane's count and its output row) and operations
+    (each live seed against its min(i, CHAIN_LOOKBACK) predecessors, the
+    seed's own work and the walk back)."""
+    H = chain.CHAIN_LOOKBACK
+    preds = sum(int(n) * H - H * (H + 1) // 2 if n > H
+                else int(n) * (int(n) - 1) // 2 for n in ns)
+    ops = (preds * OPS_PER_CHAIN_PRED + int(ns.sum()) * OPS_PER_CHAIN_SLOT
+           + int(n_chained.sum()) * OPS_PER_CHAIN_BACK)
+    nbytes = 8 * int(ns.sum()) + 28 * ns.size
+    return bound(ops, nbytes)
+
+
+def chain_entry(launched) -> dict:
+    """``chain_dp`` at every (S, B) of the auto path, on its own lanes:
+    bit-exact against ``chain_dp_plain`` on the same card tensors, timed
+    with CUDA events. The headline shape is the one with the most live
+    seeds."""
+    rows = []
+    for ts, qs, ns, k in launched:
+        B, S = ts.shape
+        got = chain.chain_dp(ts, qs, ns, k=k)
+        want, plain_ms = timed_once(
+            lambda: chain.chain_dp_plain(ts, qs, ns, k=k))
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        ms = time_ms(lambda: chain.chain_dp(ts, qs, ns, k=k), 20)
+        ns_np = ns.cpu().numpy()
+        bound_ms, bound_by = chain_bound(ns_np, got[:, 1].cpu().numpy())
+        rows.append(dict(shape=f"S={S}, B={B}", S=S, B=B,
+                         live_seeds=int(ns_np.sum()), max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+    head = max(rows, key=lambda r: r["live_seeds"])
+    entry = dict(head, other_shapes=[r for r in rows if r is not head])
+    entry["ok"] = all(r["max_abs_err"] == 0 for r in rows)
+    return entry
 
 
 def zlib_check() -> dict:
@@ -1029,7 +1289,8 @@ def phase_parse(dev, paths, zlib):
 
 def phase_bp(dev, drawn, w=500):
     """Breaking points on the card at every aligner shape of the main path,
-    on the pairs its kernels rows were drawn from (its largest chunk), with
+    then at the auto path's own, on the pairs its kernels rows were drawn
+    from (its largest chunk), with
     metas of a 1 Mbp draft: one launch in breaking-points mode
     (``CudaAligner._launch_chunk``: forward pass, K2, ``breaking_points``)
     finished by ``_finish_chunk_bp``, one in CIGAR mode for the same walk's
@@ -1039,7 +1300,7 @@ def phase_bp(dev, drawn, w=500):
     must give the card's tables from the same op stream. Timed with CUDA
     events (``ms``) and on the CPU (``cpu_ms``)."""
     rows = []
-    for seed, (shape, drawn_pairs) in enumerate(sorted(drawn.items()), 505):
+    for seed, (shape, drawn_pairs) in enumerate(drawn.items(), 505):
         max_len, band = shape
         rng = np.random.default_rng(seed)
         pairs = [(q.tobytes(), t.tobytes()) for q, t in drawn_pairs]
@@ -1246,11 +1507,21 @@ def main() -> int:
     record["main"], paths = phase_main(dev)
     record["main"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["main_auto"], launched = phase_main_auto(dev, paths,
+                                                    record["main"])
+    record["main_auto"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["overlap"] = phase_overlap(dev, paths)
+    record["overlap"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["parse"] = phase_parse(dev, paths, zlib)
     record["parse"]["seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    entries, drawn = phase_kernels(dev, record["main"])
+    entries, drawn, held = phase_kernels(dev, record["main"],
+                                         record["main_auto"])
+    entries["chain_dp"] = chain_entry(launched)
+    del launched
     record["kernels"] = dict(phase="kernels",
                              seconds=time.perf_counter() - t0,
                              kernels=entries)
@@ -1258,6 +1529,15 @@ def main() -> int:
     bad = [k for k, e in entries.items() if not e["ok"]]
     on_path = main_path_kernels(record["main"])
     missing = [k for k in on_path if record["main"]["launches"][k] <= 0]
+    # the auto path: the chain DP, then the kernels its aligner and
+    # consensus shapes route to
+    on_auto = main_path_kernels(record["main_auto"]) | {"chain_dp"}
+    missing += [f"{k} (auto)" for k in on_auto
+                if record["main_auto"]["launches"][k] <= 0]
+    # every shape either path launched, held at a batch at least as large
+    unheld = {p: unheld_shapes(record[p], held)
+              for p in ("main", "main_auto")}
+    record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
     record["bp"] = phase_bp(dev, drawn)
@@ -1272,8 +1552,9 @@ def main() -> int:
         source, replaces = cuda_nw.KERNELS[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=record["main"]["launches"][name],
-            on_main_path=name in on_path,
+            launches=record["main_auto" if name == "chain_dp"
+                            else "main"]["launches"][name],
+            on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
@@ -1290,6 +1571,9 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
+    if any(unheld.values()):
+        raise RuntimeError(f"launched shapes the kernels phase did not "
+                           f"hold against the plain versions: {unheld}")
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")

@@ -7,8 +7,8 @@ CUDA names for the accelerator knobs: ``-c/--cudapoa-batches``,
 ``-b/--cuda-banded-alignment`` and ``--cudaaligner-batches``. Without
 ``-c`` the consensus runs on the host engine, without
 ``--cudaaligner-batches`` the alignment does. ``--device`` (default
-``cuda``) is where the device engines run; ``cpu`` runs the kernels'
-plain PyTorch versions.
+``cuda``) is where the device engines and the ``auto`` overlapper run;
+``cpu`` runs the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -31,7 +31,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "used for correction")
     p.add_argument("overlaps",
                    help="MHAP/PAF/SAM file (may be gzipped) with overlaps "
-                        "between sequences and targets")
+                        "between sequences and targets, or the literal "
+                        "'auto' to compute overlaps in-process with the "
+                        "first-party minimizer-chain overlapper (on "
+                        "--device)")
     p.add_argument("target_sequences",
                    help="FASTA/FASTQ file (may be gzipped) with targets to "
                         "correct")
@@ -68,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cudaaligner-batches", type=int, default=0,
                    help="number of batches for CUDA accelerated alignment")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="where the device engines run (cpu: the kernels' "
-                        "plain PyTorch versions)")
+                   help="where the device engines and the 'auto' "
+                        "overlapper run (cpu: the kernels' plain PyTorch "
+                        "versions)")
     return p
 
 

@@ -18,7 +18,16 @@ dispatched while later windows are still being built.
 
 Left out of this slice (the JAX package keeps them): the exec/serve/fleet
 runners, observability, fault injection, the sanitizer and the queue
-watchdog, the resident dataflow and the ``--overlaps auto`` overlapper.
+watchdog, and the resident dataflow.
+
+``--overlaps auto`` (the literal ``auto`` in place of an overlaps file)
+runs the first-party overlapper (``ops/overlap_seed.py``, ``ops/chain.py``)
+on the loaded reads and targets and streams its rows into the aligner:
+each query group's overlaps are filtered as they arrive and fed to the
+device aligner's session in batches, so the device aligns earlier groups
+while the host builds later ones (and, once a seed bucket fills a chain
+arena, while the device chains later groups; at 1 Mbp and 30x no bucket
+fills one, and all chaining is done before the first group comes).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..device import resolve
 from ..io import parsers
 from ..utils.logger import Logger
 from .backends import make_aligner, make_consensus
@@ -71,10 +81,12 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
             raise ValueError(
                 f"file {path} has unsupported format extension (valid: "
                 f"{', '.join(parsers.SEQUENCE_EXTENSIONS)})")
-    if parsers.overlap_parser_for(overlaps_path) is None:
+    auto = parsers.overlaps_mode(overlaps_path) == "auto"
+    if not auto and parsers.overlap_parser_for(overlaps_path) is None:
         raise ValueError(
             f"file {overlaps_path} has unsupported format extension (valid: "
-            f"{', '.join(parsers.OVERLAP_EXTENSIONS)})")
+            f"{', '.join(parsers.OVERLAP_EXTENSIONS)}, or the literal "
+            f"'auto' for the first-party overlapper)")
     if isinstance(aligner, str):
         aligner = make_aligner(aligner, num_threads,
                                num_batches=aligner_batches, device=device)
@@ -85,13 +97,14 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                                    banded=banded, device=device)
     return Polisher(sequences_path, overlaps_path, target_path, type_,
                     window_length, quality_threshold, error_threshold, trim,
-                    num_threads, aligner, consensus)
+                    num_threads, aligner, consensus,
+                    device=resolve(device) if auto else device)
 
 
 class Polisher:
     def __init__(self, sequences_path, overlaps_path, target_path, type_,
                  window_length, quality_threshold, error_threshold, trim,
-                 num_threads, aligner, consensus):
+                 num_threads, aligner, consensus, device="cuda"):
         self.sequences_path = sequences_path
         self.overlaps_path = overlaps_path
         self.target_path = target_path
@@ -103,6 +116,8 @@ class Polisher:
         self.num_threads = num_threads
         self.aligner = aligner
         self.consensus = consensus
+        # where the overlapper runs (``--overlaps auto`` only)
+        self.device = device
         self.logger = Logger()
         self.sequences: List[Sequence] = []
         self.windows: List[Window] = []
@@ -138,9 +153,13 @@ class Polisher:
         overlaps the layers come from."""
         self.logger.log()
         t0 = time.perf_counter()
-        overlaps = self._load()
-        self.timings["parse_s"] = time.perf_counter() - t0
-        self.find_overlap_breaking_points(overlaps)
+        if parsers.overlaps_mode(self.overlaps_path) == "auto":
+            overlaps = self._generate_overlaps_stream(
+                *self._load_sequences(), t0)
+        else:
+            overlaps = self._load()
+            self.timings["parse_s"] = time.perf_counter() - t0
+            self.find_overlap_breaking_points(overlaps)
         t0 = time.perf_counter()
         self._build_backbone_windows()
         self._backbone_s = time.perf_counter() - t0
@@ -148,6 +167,14 @@ class Polisher:
 
     def _load(self) -> List[Overlap]:
         """Parse targets, reads and overlaps; filter and transmute."""
+        return self._load_overlaps(*self._load_sequences()[1:])
+
+    def _load_sequences(self):
+        """Parse the targets, then the reads (deduplicated by name against
+        the targets). Returns ``(raw_index, name_to_id, id_to_id,
+        has_name, has_data, has_reverse)``: the reads' count, the id maps
+        an overlap transmutes through, and the per-sequence flags of the
+        transmute."""
         log = self.logger
         t0 = time.perf_counter()
         tparse = parsers.sequence_parser_for(self.target_path)
@@ -202,9 +229,16 @@ class Polisher:
                              else WindowType.TGS)
         log.log("[racon_tpu::Polisher::initialize] loaded sequences")
         log.log()
-        t2 = time.perf_counter()
-        self.timings["load_reads_s"] = t2 - t1
+        self.timings["load_reads_s"] = time.perf_counter() - t1
+        return (raw_index, name_to_id, id_to_id, has_name, has_data,
+                has_reverse)
 
+    def _load_overlaps(self, name_to_id, id_to_id, has_name, has_data,
+                       has_reverse) -> List[Overlap]:
+        """Parse, transmute and filter the overlaps file; transmute the
+        sequences."""
+        log = self.logger
+        t2 = time.perf_counter()
         oparse = parsers.overlap_parser_for(self.overlaps_path)
         overlaps = []
         for rec in oparse(self.overlaps_path):
@@ -241,6 +275,85 @@ class Polisher:
         for i, seq in enumerate(self.sequences):
             seq.transmute(has_name[i], has_data[i], has_reverse[i])
 
+    def _generate_overlaps_stream(self, raw_index, name_to_id, id_to_id,
+                                  has_name, has_data, has_reverse,
+                                  t_parse: float) -> List[Overlap]:
+        """``--overlaps auto``: the streaming overlap->align handoff
+        (``racon_tpu.core.polisher.Polisher._generate_overlaps_stream``).
+        The overlapper yields rows per query group; each consecutive
+        same-query run goes through the :meth:`_filter_overlaps` sweep as
+        it completes, and the kept overlaps feed the aligner in batches of
+        512, so the device aligns earlier groups while later ones are
+        built (see ``chain.iter_overlap_groups`` for when chaining runs
+        ahead too). Kept overlaps accumulate in feed order, which is the
+        order a phase barrier would give (the rows' first key is the
+        query)."""
+        from ..ops import chain
+        read_pos = [id_to_id[i << 1] for i in range(raw_index)]
+        read_seqs = [self.sequences[p].data for p in read_pos]
+        target_seqs = [self.sequences[i].data
+                       for i in range(self.targets_size)]
+        # read i is target read_self_t[i] (its self hits are dropped), or -1
+        read_self_t = np.fromiter(
+            (p if p < self.targets_size else -1 for p in read_pos),
+            np.int64, raw_index)
+
+        def flush_run(run: List[Overlap]) -> List[Overlap]:
+            # one query's run: the filter's sweep over one group
+            kept = self._filter_overlaps(run)
+            for o in kept:
+                if o.strand:
+                    has_reverse[o.q_id] = True
+                    # the aligner reads the reverse complement before the
+                    # transmute below runs
+                    self.sequences[o.q_id].create_reverse_complement()
+                else:
+                    has_data[o.q_id] = True
+            return kept
+
+        def batches():
+            buf: List[Overlap] = []
+            run: List[Overlap] = []
+            for rows in chain.iter_overlap_groups(
+                    read_seqs, target_seqs, read_self_t,
+                    device=self.device):
+                for i in range(rows["q_ord"].size):
+                    q = int(rows["q_ord"][i])
+                    t = int(rows["t_idx"][i])
+                    o = Overlap.from_paf(
+                        self.sequences[read_pos[q]].name,
+                        len(read_seqs[q]),
+                        int(rows["q_begin"][i]), int(rows["q_end"][i]),
+                        "-" if int(rows["strand"][i]) else "+",
+                        self.sequences[t].name, len(target_seqs[t]),
+                        int(rows["t_begin"][i]), int(rows["t_end"][i]))
+                    o.transmute(self.sequences, name_to_id, id_to_id)
+                    if not o.is_valid:
+                        continue
+                    if run and o.q_id != run[-1].q_id:
+                        buf.extend(flush_run(run))
+                        run.clear()
+                    run.append(o)
+                if len(buf) >= 512:
+                    yield buf
+                    buf = []
+            buf.extend(flush_run(run))
+            if buf:
+                yield buf
+
+        overlaps: List[Overlap] = []
+        self.timings["parse_s"] = time.perf_counter() - t_parse
+        self.find_overlap_breaking_points(overlaps, feed=batches())
+        if not overlaps:
+            raise ValueError("empty overlap set")
+        self.logger.log("[racon_tpu::Polisher::initialize] generated "
+                        "overlaps (first-party overlapper, streamed)")
+        self.logger.log()
+        t0 = time.perf_counter()
+        self._transmute_all(has_name, has_data, has_reverse)
+        self.timings["transmute_s"] = time.perf_counter() - t0
+        return overlaps
+
     def _filter_overlaps(self, overlaps: List[Overlap]) -> List[Overlap]:
         """Per-query group filter: drop error > threshold and self
         overlaps; for contig polishing keep only the longest overlap per
@@ -263,17 +376,31 @@ class Polisher:
             i = j
         return result
 
-    def find_overlap_breaking_points(self, overlaps: List[Overlap]) -> None:
+    def find_overlap_breaking_points(self, overlaps: List[Overlap],
+                                     feed=None) -> None:
         """Per-window breaking points of every overlap. A device aligner
         (``wants_full_stream``) returns them itself, computed on the
         device; a host aligner returns CIGARs, decoded here like the CIGARs
-        of SAM input."""
+        of SAM input.
+
+        ``feed`` (``--overlaps auto``) is an iterator of overlap batches
+        still being produced: each batch is appended to ``overlaps`` and,
+        on a device aligner, fed to its session as it arrives. A host
+        aligner has no session, so it drains the feed first and takes the
+        barrier path; the bytes are the same either way."""
         log = self.logger
         t0 = time.perf_counter()
         msg = "[racon_tpu::Polisher::initialize] aligning overlaps"
+        device = getattr(self.aligner, "wants_full_stream", False)
+        if feed is not None and not device:
+            for batch in feed:
+                overlaps.extend(batch)
+            feed = None
         need = [o for o in overlaps
                 if not o.cigar and o.breaking_points is None]
-        if getattr(self.aligner, "wants_full_stream", False):
+        if feed is not None:
+            self._align_feed(feed, overlaps, need, log, msg)
+        elif device:
             self._align_device(need, log, msg)
         else:
             # host path: bounded slices keep transient span copies small
@@ -338,6 +465,42 @@ class Polisher:
         if sess is not None:
             for o, bp in zip(need, sess.finish()):
                 o.breaking_points = bp
+
+    def _align_feed(self, feed, overlaps, need, log, msg) -> None:
+        """The streaming half of the overlap->align handoff
+        (``racon_tpu.core.polisher.Polisher._align_feed``): each batch off
+        the overlapper is fed to the device aligner's session as it
+        arrives. ``overlap_feed_s`` is the wall spent waiting on the
+        producer (seeding, joining, chaining, filtering). Without a
+        session (``use_ragged=False``) the feed is drained and the
+        overlaps go through :meth:`_align_device`."""
+        sess = self.aligner.bp_stream(
+            self.window_length, total=len(need),
+            progress=lambda d, t: log.bar_to(msg, d, t))
+        feed_wall = 0.0
+        t0 = time.perf_counter()
+        for batch in feed:
+            feed_wall += time.perf_counter() - t0
+            overlaps.extend(batch)
+            part = [o for o in batch
+                    if not o.cigar and o.breaking_points is None]
+            if part:
+                need.extend(part)
+                if sess is not None:
+                    sess.feed([(o.query_span_bytes(self.sequences),
+                                o.target_span_bytes(self.sequences))
+                               for o in part],
+                              [(o.t_begin, o.q_length - o.q_end
+                                if o.strand else o.q_begin)
+                               for o in part],
+                              [o.error for o in part])
+            t0 = time.perf_counter()
+        if sess is not None:
+            for o, bp in zip(need, sess.finish()):
+                o.breaking_points = bp
+        else:
+            self._align_device(need, log, msg)
+        self.timings["overlap_feed_s"] = feed_wall
 
     # ------------------------------------------------------- window build
 

@@ -30,6 +30,21 @@ SEQUENCE_EXTENSIONS = (
 FASTQ_EXTENSIONS = (".fastq", ".fastq.gz", ".fq", ".fq.gz")
 OVERLAP_EXTENSIONS = (".mhap", ".mhap.gz", ".paf", ".paf.gz", ".sam", ".sam.gz")
 
+# the overlaps argument that runs the first-party overlapper
+# (ops/overlap_seed.py + ops/chain.py) instead of reading a file
+AUTO_OVERLAPS = "auto"
+
+
+def is_auto_overlaps(path: str) -> bool:
+    """True when ``path`` is the ``auto`` sentinel (no overlaps file)."""
+    return path == AUTO_OVERLAPS
+
+
+def overlaps_mode(path: str) -> str:
+    """``auto`` for the sentinel, else ``paf`` (an overlaps file). The
+    JAX package's ``RACON_TPU_OVERLAP`` override is not ported."""
+    return "auto" if is_auto_overlaps(path) else "paf"
+
 
 class ParseError(ValueError):
     """A malformed input record, with its file and 1-based line."""

@@ -28,6 +28,7 @@ SOURCES = {
     "nw_fwd": "nw_fwd.cu",
     "walk_ops": "walk_ops.cu",
     "walk_vote": "walk_vote.cu",
+    "chain_dp": "chain_dp.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -45,6 +46,8 @@ SIGNATURES = {
     "rt_walk_ops": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_ops_thread": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_vote": ("walk_vote", [_P] * 9 + [_I] * 8 + [_P]),
+    # ts_t, qs_t, ns, parent, out, B, S, k, stream
+    "rt_chain_dp": ("chain_dp", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

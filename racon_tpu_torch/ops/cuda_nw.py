@@ -45,6 +45,10 @@ KERNELS = {
                  "racon_tpu/ops/pallas_nw.py:643"),
     "walk_vote": ("racon_tpu_torch/ops/kernels/walk_vote.cu",
                   "racon_tpu/ops/pallas_nw.py:973"),
+    # the overlapper's chain DP (wrapper ops/chain.py chain_dp); it
+    # replaces an XLA scan, not a Pallas kernel
+    "chain_dp": ("racon_tpu_torch/ops/kernels/chain_dp.cu",
+                 "racon_tpu/ops/chain.py:129"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -7,8 +7,10 @@ package's), the filter, the transmute, the windows and the stitch. On
 ``write_inputs(0.01, seed=5)`` each variant's stdout must be
 byte-identical: gzipped reads, overlaps and draft; MHAP and SAM overlaps
 made from the PAF; FASTA reads; ``-u`` with an extra 3 kbp contig that no
-overlap reaches; ``-w 1000``; ``-m 5 -x -4 -g -8``. The two CLIs of a
-case run side by side.
+overlap reaches; ``-w 1000``; ``-m 5 -x -4 -g -8``; ``--overlaps auto``
+(the first-party overlapper; the port's on ``--device cpu``, its plain
+versions) in contig and fragment (``-f``) mode. The two CLIs of a case run
+side by side.
 """
 
 import gzip
@@ -54,6 +56,7 @@ def files(tmp_path_factory):
              draft + b">contig_extra\n" + extra + b"\n")):
         out[key] = str(d / name)
         pathlib.Path(out[key]).write_bytes(blob)
+    out["auto"] = parsers.AUTO_OVERLAPS
     return out
 
 
@@ -67,7 +70,13 @@ CASES = {
     "window_1000": (["-w", "1000"], "reads", "overlaps", "draft"),
     "scores": (["-m", "5", "-x", "-4", "-g", "-8"], "reads", "overlaps",
                "draft"),
+    "auto": ([], "reads", "auto", "draft"),
+    "auto_fragment": (["-f"], "reads", "auto", "reads"),
 }
+# options only the port CLI takes: its overlapper runs on the card unless
+# told otherwise
+PORT_OPTIONS = {"auto": ["--device", "cpu"],
+                "auto_fragment": ["--device", "cpu"]}
 
 
 def _cli(module, args, extra_env):
@@ -84,12 +93,14 @@ def test_port_cli_matches_jax_cli_on_host_engines(files, case):
     jax_proc = _cli("racon_tpu", args,
                     {"JAX_PLATFORMS": "cpu", "XLA_FLAGS":
                      "--xla_force_host_platform_device_count=1"})
-    port_proc = _cli("racon_tpu_torch", args, {"OMP_NUM_THREADS": "2"})
+    port_proc = _cli("racon_tpu_torch", PORT_OPTIONS.get(case, []) + args,
+                     {"OMP_NUM_THREADS": "2"})
     port_out, port_err = port_proc.communicate(timeout=300)
     jax_out, jax_err = jax_proc.communicate(timeout=300)
     assert port_proc.returncode == 0, port_err.decode()[-2000:]
     assert jax_proc.returncode == 0, jax_err.decode()[-2000:]
-    assert port_out.startswith(b">contig_0 LN:i:")
+    assert port_out.startswith(b">read_" if case == "auto_fragment"
+                               else b">contig_0 LN:i:")
     assert port_out == jax_out
     if case == "include_unpolished":
         assert b">contig_extra" in port_out

@@ -15,7 +15,7 @@ import torch
 
 from racon_tpu_torch.core import backends
 from racon_tpu_torch.core.window import Window, WindowType
-from racon_tpu_torch.ops import cuda_nw, poa
+from racon_tpu_torch.ops import chain, cuda_nw, overlap_seed, poa
 from racon_tpu_torch.ops.nw import CudaAligner
 from racon_tpu_torch.ops.poa import CudaPoaConsensus
 
@@ -427,3 +427,54 @@ def test_consensus_stream_feed_does_not_wait(cuda_device, monkeypatch):
     padded = CudaPoaConsensus(3, -5, -4, use_ragged=False, **kw)
     assert flags == padded.run(wp, trim=True)
     assert [w.consensus for w in ws] == [w.consensus for w in wp]
+
+
+def _chain_arena(rng, S, B):
+    """Seed lanes for the chain DP: dead lanes, full lanes, random counts;
+    coordinates near one diagonal with noise, gaps past MAX_GAP on some
+    lanes."""
+    ts = np.zeros((B, S), np.int32)
+    qs = np.zeros((B, S), np.int32)
+    ns = np.zeros(B, np.int32)
+    for b in range(B):
+        if b % 7 == 3:
+            continue
+        n = S if b % 5 == 0 else int(rng.integers(1, S + 1))
+        step = 12_000 if b % 11 == 4 else 150
+        t = np.sort(rng.integers(0, step * n, n))
+        ts[b, :n] = t
+        qs[b, :n] = np.clip(t + rng.integers(-800, 800, n), 0, None)
+        ns[b] = n
+    return ts, qs, ns
+
+
+@pytest.mark.parametrize("S,B", [(16, 64), (64, 37), (256, 130),
+                                 (1024, 40)])
+def test_chain_dp_matches_plain(cuda_device, S, B):
+    ts, qs, ns = (torch.from_numpy(x).to(cuda_device)
+                  for x in _chain_arena(np.random.default_rng(S), S, B))
+    before = cuda_nw.LAUNCHES["chain_dp"]
+    got = chain.chain_dp(ts, qs, ns, k=15)
+    torch.cuda.synchronize()
+    assert cuda_nw.LAUNCHES["chain_dp"] == before + 1
+    assert torch.equal(got, chain.chain_dp_plain(ts, qs, ns, k=15))
+    assert torch.equal(got.cpu(), chain.chain_dp(ts.cpu(), qs.cpu(),
+                                                 ns.cpu(), k=15))
+
+
+def test_overlapper_card_matches_cpu(cuda_device):
+    """find_overlaps with its tensors on the card (the seeding and the
+    join in plain PyTorch, the chain DP's kernel) gives the CPU's rows."""
+    rng = np.random.default_rng(3)
+    genome = BASES[rng.integers(0, 4, 20_000)]
+    reads = [_mutate(rng, genome[s:s + 3000], 0.12).tobytes()
+             for s in rng.integers(0, 17_000, 150)]
+    self_t = np.full(len(reads), -1, np.int64)
+    rows = {}
+    for where in (cuda_device, torch.device("cpu")):
+        overlap_seed.clear_table_cache()
+        rows[where.type] = chain.find_overlaps(reads, [genome.tobytes()],
+                                               self_t, device=where)
+    assert rows["cuda"]["q_ord"].size > 100
+    for key in rows["cpu"]:
+        assert np.array_equal(rows["cuda"][key], rows["cpu"][key]), key
