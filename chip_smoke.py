@@ -47,6 +47,22 @@ line each:
              the main phase's gate, peak device memory; it fails on a join
              bail-out (the 1 Mbp tables fit the device join) and unless the
              native parser read exactly the two sequence files;
+   obs     — the PAF main path once more through the port's CLI
+             (``cli.main`` in this process, ``-t 8 -c 1
+             --cudaaligner-batches 1``) with ``--trace``, ``--run-report``
+             and ``--profile``, and the sanitizer on with every K4 chunk
+             and group shadowed by K1 (``RACON_TPU_SANITIZE=1``,
+             ``RACON_TPU_SANITIZE_SAMPLE=1``): the FASTA's SHA-256 (it must
+             equal the main phase's), the report (it must pass
+             ``obs.report.validate_report``), the timers of
+             ``align.dispatch``/``align.fetch``/``poa.pack``/
+             ``poa.dispatch``/``poa.fetch`` and the top span timers, the
+             shadows per engine (each > 0; a mismatch raises), K1's
+             launches (> 0), ``compiles.post_warm`` (0), peak device
+             bytes, the wall beside the main phase's; then
+             ``RACON_TPU_FAULTS=align.dispatch:oom`` on a 0.02 Mbp genome:
+             the polish must raise and ``faults.classify`` must say
+             ``device-oom``;
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -128,7 +144,10 @@ too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import hashlib
+import io
 import json
 import os
 import pathlib
@@ -143,7 +162,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from racon_tpu_torch import native
+from racon_tpu_torch import cli, contracts, faults, native, obs
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
@@ -992,7 +1011,11 @@ def phase_main(dev, mbp=1.0):
             lambda seq: native.edit_distance(seq, truth),
             [draft, polished[0].data])
     ed_s = time.perf_counter() - t0
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polished)
     out = dict(phase="main", simulate_s=sim_s, wall_s=wall_s,
+               card=gpu_line(),
+               fasta_sha256=hashlib.sha256(fasta).hexdigest(),
                stages_s=stages, launches=launches,
                overlaps=sum(polisher.targets_coverages),
                native_parse_calls=parse_calls,
@@ -1086,7 +1109,7 @@ def phase_main_auto(dev, paths, main):
     t0 = time.perf_counter()
     ed_polished = native.edit_distance(polished[0].data,
                                        fasta_seq(paths["truth"]))
-    out = dict(phase="main_auto", wall_s=wall_s,
+    out = dict(phase="main_auto", wall_s=wall_s, card=gpu_line(),
                stages_s=dict(polisher.timings), launches=launches,
                overlapper=stats, overlaps=sum(polisher.targets_coverages),
                overlaps_paf_path=main["overlaps"],
@@ -1114,6 +1137,127 @@ def phase_main_auto(dev, paths, main):
         raise RuntimeError(f"auto polishing did not cut the edit distance: "
                            f"{main['ed_draft']} -> {ed_polished}")
     return out, launched
+
+
+# the spans the obs phase prints the timers of (the report's dispatch/fetch
+# split reads them)
+OBS_SPANS = ("align.dispatch", "align.fetch", "poa.pack", "poa.dispatch",
+             "poa.fetch")
+
+
+@contextlib.contextmanager
+def _env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_obs(dev, paths, main, line):
+    """The PAF main path through ``cli.main`` with every observability
+    output and the sanitizer at full sampling, then one injected fault
+    (see the module docstring)."""
+    out_dir = OUT_DIR / "obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    # the torch profile of a whole run is large: it stays on the machine
+    prof_dir = ROOT / "build" / "obs_profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    argv = ["-t", "8", "-c", "1", "--cudaaligner-batches", "1",
+            "--trace", str(out_dir / "trace.json"),
+            "--run-report", str(out_dir / "run_report.json"),
+            "--profile", str(prof_dir),
+            paths["reads"], paths["overlaps"], paths["draft"]]
+    stdout = io.TextIOWrapper(io.BytesIO())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    try:
+        with _env(RACON_TPU_SANITIZE="1", RACON_TPU_SANITIZE_SAMPLE="1"), \
+                contextlib.redirect_stdout(stdout):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        # later phases time the main path with spans off
+        obs.trace.deactivate()
+    launches = dict(cuda_nw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fasta = stdout.buffer.getvalue()
+    rep = json.loads((out_dir / "run_report.json").read_text())
+    errors = obs.report.validate_report(rep)
+    timers = rep["metrics"]["timers"]
+    counters = rep["metrics"]["counters"]
+    spans = {k: v for k, v in timers.items()
+             if k in contracts.SPANS}
+    top = sorted(spans.items(), key=lambda kv: -kv[1])[:10]
+    shadows = {"aligner": counters.get("align.shadow_chunks", 0),
+               "consensus": counters.get("consensus.shadow_groups", 0)}
+    fault = phase_obs_fault(dev)
+    out = dict(phase="obs", rc=rc, wall_s=wall_s, main_wall_s=main["wall_s"],
+               card=line, fasta_sha256=hashlib.sha256(fasta).hexdigest(),
+               main_fasta_sha256=main["fasta_sha256"],
+               report_errors=errors, span_timers_s={
+                   k: timers.get(k, 0.0) for k in OBS_SPANS},
+               top_spans_s=top, shadows=shadows,
+               aligner_swar_chunks=counters.get("aligner.swar_chunks", 0),
+               consensus_groups=counters.get("consensus.groups", 0),
+               launches=launches, k1_launches=launches["nw_fwd_i32"],
+               compiles=rep["compiles"], peak_device_bytes=peak,
+               main_peak_device_bytes=main["peak_device_bytes"],
+               dispatch_fetch=rep["dispatch_fetch"], queue=rep["queue"],
+               profile_stop_s=timers.get("trace.profile_stop_s", 0.0),
+               trace_bytes=(out_dir / "trace.json").stat().st_size,
+               profile_bytes=sum(f.stat().st_size
+                                 for f in prof_dir.glob("*.json")),
+               fault=fault)
+    emit(out)
+    if rc != 0 or out["fasta_sha256"] != main["fasta_sha256"]:
+        raise RuntimeError(f"the CLI with observability on (rc {rc}) did "
+                           f"not polish the main phase's bytes")
+    if errors:
+        raise RuntimeError(f"the run report is not valid: {errors}")
+    if min(shadows.values()) <= 0 or launches["nw_fwd_i32"] <= 0:
+        raise RuntimeError(f"the sanitizer shadowed nothing: {shadows}, "
+                           f"K1 launches {launches['nw_fwd_i32']}")
+    if rep["compiles"]["post_warm"] != 0:
+        raise RuntimeError(f"kernel builds after the first launch: "
+                           f"{rep['compiles']}")
+    if not all(out["span_timers_s"][k] > 0 for k in OBS_SPANS):
+        raise RuntimeError(f"span timers missing: {out['span_timers_s']}")
+    return out
+
+
+def phase_obs_fault(dev) -> dict:
+    """``RACON_TPU_FAULTS=align.dispatch:oom`` on a 0.02 Mbp genome: the
+    polish must raise, with ``faults.classify`` ``device-oom``. No raise
+    (bytes were polished) or another class fails the smoke."""
+    small = write_inputs(0.02, str(ROOT / "build" / "smoke_fault"),
+                         seed=11)
+    polisher = create_polisher(small["reads"], small["overlaps"],
+                               small["draft"], num_threads=8,
+                               aligner="cuda", consensus="cuda", device=dev)
+    faults.reset()
+    try:
+        with _env(RACON_TPU_FAULTS="align.dispatch:oom"):
+            polished = polisher.run()
+    except faults.DeviceOOMError as e:
+        cls = faults.classify(e)
+        if cls != faults.CLASS_OOM:
+            raise RuntimeError(f"the injected OOM classified {cls}") from e
+        return dict(site="align.dispatch", exception=type(e).__name__,
+                    classify=cls, message=str(e))
+    finally:
+        faults.reset()
+    raise RuntimeError(f"align.dispatch:oom did not raise: "
+                       f"{len(polished)} sequences polished")
 
 
 def overlap_split(dev, paths) -> dict:
@@ -1511,6 +1655,9 @@ def main() -> int:
                                                     record["main"])
     record["main_auto"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["obs"] = phase_obs(dev, paths, record["main"], line)
+    record["obs"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1554,6 +1701,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=record["main_auto" if name == "chain_dp"
                             else "main"]["launches"][name],
+            # the PAF main path with the sanitizer's K1 shadows
+            launches_sanitized=record["obs"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -9,14 +9,24 @@ CUDA names for the accelerator knobs: ``-c/--cudapoa-batches``,
 ``--cudaaligner-batches`` the alignment does. ``--device`` (default
 ``cuda``) is where the device engines and the ``auto`` overlapper run;
 ``cpu`` runs the kernels' plain PyTorch versions.
+
+Observability (``racon_tpu/cli.py``'s): ``--trace FILE`` writes the run's
+spans as Chrome trace-event JSON, ``--run-report FILE`` the
+schema-versioned run report (next to the trace as ``run_report.json`` when
+only ``--trace`` is given), ``--profile DIR`` a ``torch.profiler`` trace of
+the run; ``RACON_TPU_TRACE`` and ``RACON_TPU_RUN_REPORT`` are the first
+two's environment equivalents. The trace and the report are written on the
+error paths too. None of them changes an output byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import time
 
-from . import __version__
+from . import __version__, flags, obs
 from .core.polisher import PolisherType, create_polisher
 from .params import DEFAULT_GAP, DEFAULT_MATCH, DEFAULT_MISMATCH
 
@@ -74,6 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the device engines and the 'auto' "
                         "overlapper run (cpu: the kernels' plain PyTorch "
                         "versions)")
+    p.add_argument("--trace", metavar="FILE", default=None,
+                   help="write a Chrome trace-event JSON of the run's "
+                        "spans (Perfetto / chrome://tracing) to FILE")
+    p.add_argument("--run-report", metavar="FILE", default=None,
+                   help="write the schema-versioned run_report.json to "
+                        "FILE (with --trace alone: next to the trace)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="record the run in torch.profiler and write its "
+                        "Chrome trace into DIR")
     return p
 
 
@@ -98,10 +117,40 @@ def _preprocess_argv(argv):
     return out
 
 
+def _obs_paths(args):
+    """(trace_path, report_path) from the flags and their environment
+    equivalents; ``--trace`` without ``--run-report`` puts the report
+    next to the trace."""
+    trace_path = args.trace or flags.get_str("RACON_TPU_TRACE") or None
+    report_path = (args.run_report
+                   or flags.get_str("RACON_TPU_RUN_REPORT") or None)
+    if trace_path and report_path is None:
+        report_path = os.path.join(
+            os.path.dirname(os.path.abspath(trace_path)),
+            "run_report.json")
+    return trace_path, report_path
+
+
+def _finish_obs(trace_path, report_path, argv, t_start, t0,
+                phases=None) -> None:
+    """Write the requested artifacts (on the error paths too). The trace
+    goes first, so its ring-overflow gauge lands in the report."""
+    if trace_path:
+        obs.trace.export(trace_path)
+    if report_path:
+        obs.report.write_report(report_path, obs.report.build_report(
+            "cli", argv=argv, started_unix=t_start,
+            wall_s=time.perf_counter() - t0, phases=phases))
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(_preprocess_argv(list(argv)))
+    trace_path, report_path = _obs_paths(args)
+    obs.begin(trace_path, report_path)
+    t_start = time.time()
+    t0 = time.perf_counter()
     try:
         polisher = create_polisher(
             args.sequences, args.overlaps, args.target_sequences,
@@ -119,16 +168,34 @@ def main(argv=None) -> int:
             banded=args.cuda_banded_alignment, device=args.device)
     except (ValueError, RuntimeError) as e:
         print(f"[racon::createPolisher] error: {e}", file=sys.stderr)
+        _finish_obs(trace_path, report_path, list(argv), t_start, t0)
         return 1
+    if args.profile and flags.get_str("RACON_TPU_TORCH_PROFILE"):
+        # one profiler a process: the run-wide session holds it, and the
+        # polish phase's bracket becomes a no-op
+        print("[racon::] note: --profile supersedes "
+              "RACON_TPU_TORCH_PROFILE (nested torch profiler sessions "
+              "are not supported)", file=sys.stderr)
     try:
-        polished = polisher.run(not args.include_unpolished)
+        with obs.profile(args.profile or ""):
+            polished = polisher.run(not args.include_unpolished)
     except (ValueError, OSError) as e:
         print(f"[racon::] error: {e}", file=sys.stderr)
+        _finish_obs(trace_path, report_path, list(argv), t_start, t0,
+                    phases=dict(polisher.timings))
         return 1
+    except BaseException:
+        # a fault that propagates (a kernel's, an injected one) still
+        # leaves its trace and report
+        _finish_obs(trace_path, report_path, list(argv), t_start, t0,
+                    phases=dict(polisher.timings))
+        raise
     out = sys.stdout.buffer
     for seq in polished:
         out.write(b">" + seq.name + b"\n" + seq.data + b"\n")
     out.flush()
+    _finish_obs(trace_path, report_path, list(argv), t_start, t0,
+                phases=dict(polisher.timings))
     return 0
 
 

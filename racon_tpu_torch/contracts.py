@@ -1,0 +1,175 @@
+"""The port's contract registry (counterpart of ``racon_tpu/contracts.py``,
+trimmed to what the port emits): the metric names, the span names, the
+fault-injection sites and the run report's schema, declared once.
+
+The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`)
+import their sets from here, and ``tests/test_torch_obs.py`` holds the
+registry to a traced run in both directions: every name a run emits is
+declared, and every declared span is opened by the PAF path, the auto
+path or the device engines. The report schema is the JAX package's
+(version 11, every section), so a port report passes the JAX validator
+and a JAX CLI report passes the port's. Stdlib only.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, FrozenSet, Tuple
+
+# ----------------------------------------------------------- metric names
+
+# lowercase dotted segments: the report groups metrics by "segment."
+# prefixes, so a stray uppercase or separator breaks an aggregation
+METRIC_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z0-9_]+)*$")
+
+# every statically named counter, gauge and timer the port publishes
+# (span timers are keyed by the span name and declared in SPANS)
+METRICS: FrozenSet[str] = frozenset((
+    # aligner chunks: wavefront-arena occupancy, packed (K4) chunks and
+    # the sanitizer's K1 shadows of them
+    "align.chunks", "align.lanes_occupied", "align.lanes_total",
+    "align.steps_wasted", "align.wavefront_work", "align.shadow_chunks",
+    "aligner.swar_chunks",
+    # kernel library builds (obs.buildwatch)
+    "compile.build_s", "compile.builds",
+    # consensus groups, and the sanitizer's K1 shadows of them
+    "consensus.dropped_layers", "consensus.fallback_windows",
+    "consensus.group_windows", "consensus.groups", "consensus.ins_overflow",
+    "consensus.lanes_occupied", "consensus.lanes_total",
+    "consensus.shadow_groups", "consensus.sweep_truncated",
+    "consensus.wavefront_steps",
+    # first-party overlapper
+    "overlap.cache_hits", "overlap.cache_misses", "overlap.candidate_pairs",
+    "overlap.chains_dropped", "overlap.chains_kept", "overlap.chunks",
+    "overlap.freq_capped_buckets", "overlap.join_bailouts",
+    "overlap.lanes_occupied", "overlap.lanes_total", "overlap.minimizers",
+    "overlap.mode_auto", "overlap.seed_lanes_occupied",
+    "overlap.seed_lanes_total", "overlap.stream_groups",
+    # the pipelined polish's bounded queue
+    "queue.consumer_wait_s", "queue.depth", "queue.producer_wait_s",
+    # the span rings' overflow; the torch profile's stop and export
+    "trace.dropped_events", "trace.profile_stop_s",
+))
+
+# f"<prefix>{suffix}" families: the suffix is a runtime value
+DYNAMIC_METRIC_PREFIXES: Tuple[str, ...] = (
+    "compile.",          # compile.<library> builds per library
+    "faults.injected.",  # faults.injected.<site>
+    "swallowed.",        # swallowed.<context>|<exception type>
+)
+
+# every name under these prefixes describes one run: obs.begin() clears
+# them (span timers are keyed by the span name, hence the phase prefixes)
+RUN_PREFIXES: Tuple[str, ...] = (
+    "align.", "aligner.", "poa.", "consensus.", "queue.", "retrace.",
+    "retrace_total.", "swallowed.", "trace.", "parse.", "overlap.",
+    "transmute", "bp.", "build.", "stitch", "exec.", "faults.",
+    "lease.", "device.", "compile.", "dataflow.",
+)
+
+# ------------------------------------------------------------- span names
+
+# every obs.span name the port opens; a span's exits land in the metrics
+# timer of the same name, which the report's dispatch/fetch splits read
+SPANS: FrozenSet[str] = frozenset((
+    "align", "align.dispatch", "align.fetch",
+    "bp.decode",
+    "build.backbone", "build.store", "build.windows",
+    "consensus", "consensus.feed", "consensus.finish", "consensus.run",
+    "overlap.chain", "overlap.chain.dispatch", "overlap.chain.fetch",
+    "overlap.filter", "overlap.join.dispatch", "overlap.join.fetch",
+    "overlap.match", "overlap.seed", "overlap.seed.dispatch",
+    "overlap.seed.fetch",
+    "parse.overlaps", "parse.reads", "parse.targets",
+    "poa.dispatch", "poa.fetch", "poa.pack", "poa.stage_b",
+    "queue.get", "queue.put",
+    "stitch", "transmute",
+))
+
+# ------------------------------------------------------------ fault sites
+
+# the RACON_TPU_FAULTS injection points (faults.check call sites)
+FAULT_SITES: Tuple[str, ...] = ("consensus.dispatch", "align.dispatch",
+                                "align.fetch")
+
+FAULT_KINDS: Tuple[str, ...] = ("io", "enospc", "oom", "err", "stall",
+                                "kill")
+
+FAULT_CLASSES: Tuple[str, ...] = ("transient-io", "device-oom", "stall",
+                                  "deterministic-compute")
+
+# -------------------------------------------------------- report schema
+
+SCHEMA_VERSION = 11
+
+REPORT_KINDS: Tuple[str, ...] = ("cli", "exec", "job")
+
+OVERLAP_MODES: Tuple[str, ...] = ("auto", "paf")
+
+# key -> the schema version it first appeared in (the JAX package's)
+TOP_KEYS: Dict[str, int] = {
+    "schema_version": 1, "kind": 1, "argv": 1, "started_unix": 1,
+    "wall_s": 1, "phases": 1, "dispatch_fetch": 1, "pack": 1,
+    "retrace": 1, "queue": 1, "swallowed": 1, "metrics": 1,
+    "peak_rss_bytes": 1, "shards": 1,
+    "faults": 2,
+    "devices": 3,
+    "recovery": 5,
+    "compiles": 7,
+    "dataflow": 8,
+    "overlap": 9,
+    "fleet": 11,
+}
+
+SECTION_KEYS: Dict[str, Dict[str, int]] = {
+    "dispatch_fetch": {
+        "align_dispatch_s": 1, "align_fetch_s": 1,
+        "consensus_pack_s": 1, "consensus_dispatch_s": 1,
+        "consensus_fetch_s": 1,
+        "compile_s": 4,
+    },
+    "queue": {"depth": 1, "producer_wait_s": 1, "consumer_wait_s": 1,
+              "stall_s": 1},
+    "pack": {
+        "pack_efficiency": 1, "pad_fraction": 1, "windows_per_group": 1,
+        "groups": 1,
+        "align_pack_efficiency": 6, "align_pad_fraction": 6,
+        "align_chunks": 6, "align_steps_wasted": 6,
+    },
+    "recovery": {
+        "recovered_jobs": 5, "requeued_jobs": 5, "served_from_spool": 5,
+        "spool_corrupt": 5, "journal_replayed": 5, "journal_records": 5,
+        "journal_compactions": 5, "slot_restarts": 5,
+        "slot_quarantined": 5,
+    },
+    "compiles": {"total_s": 7, "count": 7, "post_warm": 7, "sealed": 7,
+                 "by_function": 7, "events": 7},
+    "dataflow": {
+        "resident": 8, "bytes_fetched": 8, "bytes_avoided": 8,
+        "fallback_pairs": 8, "resident_bailouts": 8,
+        "lanes_device_groups": 8, "ins_overflow_windows": 8,
+    },
+    "overlap": {
+        "mode": 9, "minimizers": 9, "candidate_pairs": 9,
+        "freq_capped_buckets": 9, "chains_kept": 9, "chains_dropped": 9,
+        "seed_dispatch_s": 9, "seed_fetch_s": 9, "chain_dispatch_s": 9,
+        "chain_fetch_s": 9,
+        "lanes_occupied": 10, "lanes_total": 10, "chunks": 10,
+        "join_bailouts": 10, "cache_hits": 10, "cache_misses": 10,
+        "join_dispatch_s": 10, "join_fetch_s": 10,
+    },
+    "fleet": {
+        "jobs_accepted": 11, "jobs_rejected": 11, "jobs_placed": 11,
+        "jobs_migrated": 11, "jobs_preempted": 11,
+        "hosts_alive": 11, "hosts_dead": 11,
+        "cost_cache_hits": 11, "cost_cache_misses": 11,
+    },
+}
+
+
+def schema_keys() -> Dict[str, FrozenSet[str]]:
+    """Per-section key sets (``"top"`` is the report's top level)."""
+    out = {"top": frozenset(TOP_KEYS)}
+    for section, keys in SECTION_KEYS.items():
+        out[section] = frozenset(keys)
+    return out

@@ -16,9 +16,13 @@ producer thread assembles the layers and hands window ranges through a
 bounded queue to the consensus engine's streaming session, so groups are
 dispatched while later windows are still being built.
 
-Left out of this slice (the JAX package keeps them): the exec/serve/fleet
-runners, observability, fault injection, the sanitizer and the queue
-watchdog, and the resident dataflow.
+Every phase is a span of the JAX package's name (``parse.*``,
+``overlap.filter``, ``transmute``, ``align``, ``bp.decode``, ``build.*``,
+``queue.put``/``queue.get``, ``consensus*``, ``stitch``), the queue
+publishes its depth and wait times, and under the sanitizer a watchdog
+watches the queue. Left out (the JAX package keeps them): the
+exec/serve/fleet runners with their stall escalation, and the resident
+dataflow.
 
 ``--overlaps auto`` (the literal ``auto`` in place of an overlaps file)
 runs the first-party overlapper (``ops/overlap_seed.py``, ``ops/chain.py``)
@@ -41,8 +45,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import obs, sanitize
 from ..device import resolve
 from ..io import parsers
+from ..obs import metrics
 from ..utils.logger import Logger
 from .backends import make_aligner, make_consensus
 from .layers import LayerStore
@@ -141,7 +147,8 @@ class Polisher:
         overlaps = self._initialize_core()
         self.logger.log()
         t0 = time.perf_counter()
-        self._assemble_layers(overlaps)
+        with obs.span("build.windows"):
+            self._assemble_layers(overlaps)
         self.timings["build_windows_s"] = (
             self._backbone_s + time.perf_counter() - t0)
         self.logger.log("[racon_tpu::Polisher::initialize] "
@@ -161,7 +168,8 @@ class Polisher:
             self.timings["parse_s"] = time.perf_counter() - t0
             self.find_overlap_breaking_points(overlaps)
         t0 = time.perf_counter()
-        self._build_backbone_windows()
+        with obs.span("build.backbone"):
+            self._build_backbone_windows()
         self._backbone_s = time.perf_counter() - t0
         return overlaps
 
@@ -177,9 +185,10 @@ class Polisher:
         transmute."""
         log = self.logger
         t0 = time.perf_counter()
-        tparse = parsers.sequence_parser_for(self.target_path)
-        self.sequences = [Sequence(r.name, r.data, r.quality)
-                          for r in tparse(self.target_path)]
+        with obs.span("parse.targets"):
+            tparse = parsers.sequence_parser_for(self.target_path)
+            self.sequences = [Sequence(r.name, r.data, r.quality)
+                              for r in tparse(self.target_path)]
         self.targets_size = len(self.sequences)
         if self.targets_size == 0:
             raise ValueError("empty target sequences set")
@@ -197,31 +206,32 @@ class Polisher:
         t1 = time.perf_counter()
         self.timings["load_targets_s"] = t1 - t0
 
-        sparse = parsers.sequence_parser_for(self.sequences_path)
-        raw_index = 0
-        total_len = 0
-        for rec in sparse(self.sequences_path):
-            seq = Sequence(rec.name, rec.data, rec.quality)
-            total_len += len(seq.data)
-            tid = name_to_id.get(seq.name + b"t")
-            if tid is not None:
-                existing = self.sequences[tid]
-                if (len(seq.data) != len(existing.data) or
-                        len(seq.quality or b"")
-                        != len(existing.quality or b"")):
-                    raise ValueError(
-                        f"duplicate sequence {seq.name!r} with unequal data")
-                name_to_id[seq.name + b"q"] = tid
-                id_to_id[raw_index << 1 | 0] = tid
-            else:
-                self.sequences.append(seq)
-                pos = len(self.sequences) - 1
-                name_to_id[seq.name + b"q"] = pos
-                id_to_id[raw_index << 1 | 0] = pos
-                has_name.append(False)
-                has_data.append(False)
-                has_reverse.append(False)
-            raw_index += 1
+        with obs.span("parse.reads"):
+            sparse = parsers.sequence_parser_for(self.sequences_path)
+            raw_index = 0
+            total_len = 0
+            for rec in sparse(self.sequences_path):
+                seq = Sequence(rec.name, rec.data, rec.quality)
+                total_len += len(seq.data)
+                tid = name_to_id.get(seq.name + b"t")
+                if tid is not None:
+                    existing = self.sequences[tid]
+                    if (len(seq.data) != len(existing.data) or
+                            len(seq.quality or b"")
+                            != len(existing.quality or b"")):
+                        raise ValueError(f"duplicate sequence "
+                                         f"{seq.name!r} with unequal data")
+                    name_to_id[seq.name + b"q"] = tid
+                    id_to_id[raw_index << 1 | 0] = tid
+                else:
+                    self.sequences.append(seq)
+                    pos = len(self.sequences) - 1
+                    name_to_id[seq.name + b"q"] = pos
+                    id_to_id[raw_index << 1 | 0] = pos
+                    has_name.append(False)
+                    has_data.append(False)
+                    has_reverse.append(False)
+                raw_index += 1
         if raw_index == 0:
             raise ValueError("empty sequences set")
         self._window_type = (WindowType.NGS
@@ -239,16 +249,18 @@ class Polisher:
         sequences."""
         log = self.logger
         t2 = time.perf_counter()
-        oparse = parsers.overlap_parser_for(self.overlaps_path)
-        overlaps = []
-        for rec in oparse(self.overlaps_path):
-            o = Overlap.from_record(rec)
-            o.transmute(self.sequences, name_to_id, id_to_id)
-            if o.is_valid:
-                overlaps.append(o)
+        with obs.span("parse.overlaps"):
+            oparse = parsers.overlap_parser_for(self.overlaps_path)
+            overlaps = []
+            for rec in oparse(self.overlaps_path):
+                o = Overlap.from_record(rec)
+                o.transmute(self.sequences, name_to_id, id_to_id)
+                if o.is_valid:
+                    overlaps.append(o)
         t3 = time.perf_counter()
         self.timings["load_overlaps_s"] = t3 - t2
-        overlaps = self._filter_overlaps(overlaps)
+        with obs.span("overlap.filter"):
+            overlaps = self._filter_overlaps(overlaps)
         if not overlaps:
             raise ValueError("empty overlap set")
         for o in overlaps:
@@ -272,8 +284,9 @@ class Polisher:
         (``sequence.py``), which holds it, and the pool measured slower
         than one thread (PERF.md §6, PR 13). Each sequence is filled in
         place; no torch tensor is touched."""
-        for i, seq in enumerate(self.sequences):
-            seq.transmute(has_name[i], has_data[i], has_reverse[i])
+        with obs.span("transmute"):
+            for i, seq in enumerate(self.sequences):
+                seq.transmute(has_name[i], has_data[i], has_reverse[i])
 
     def _generate_overlaps_stream(self, raw_index, name_to_id, id_to_id,
                                   has_name, has_data, has_reverse,
@@ -289,6 +302,7 @@ class Polisher:
         order a phase barrier would give (the rows' first key is the
         query)."""
         from ..ops import chain
+        metrics.set_gauge("overlap.mode_auto", 1)
         read_pos = [id_to_id[i << 1] for i in range(raw_index)]
         read_seqs = [self.sequences[p].data for p in read_pos]
         target_seqs = [self.sequences[i].data
@@ -300,7 +314,8 @@ class Polisher:
 
         def flush_run(run: List[Overlap]) -> List[Overlap]:
             # one query's run: the filter's sweep over one group
-            kept = self._filter_overlaps(run)
+            with obs.span("overlap.filter"):
+                kept = self._filter_overlaps(run)
             for o in kept:
                 if o.strand:
                     has_reverse[o.q_id] = True
@@ -398,37 +413,40 @@ class Polisher:
             feed = None
         need = [o for o in overlaps
                 if not o.cigar and o.breaking_points is None]
-        if feed is not None:
-            self._align_feed(feed, overlaps, need, log, msg)
-        elif device:
-            self._align_device(need, log, msg)
-        else:
-            # host path: bounded slices keep transient span copies small
-            chunk = 1024
-            for begin in range(0, len(need), chunk):
-                part = need[begin:begin + chunk]
-                pairs = [(o.query_span_bytes(self.sequences),
-                          o.target_span_bytes(self.sequences))
-                         for o in part]
-                for o, cigar in zip(part, self.aligner.align_batch(pairs)):
-                    o.cigar = cigar
-                log.bar_to(msg, begin + len(part), len(need))
+        with obs.span("align", pairs=len(need)):
+            if feed is not None:
+                self._align_feed(feed, overlaps, need, log, msg)
+            elif device:
+                self._align_device(need, log, msg)
+            else:
+                # host path: bounded slices keep transient span copies small
+                chunk = 1024
+                for begin in range(0, len(need), chunk):
+                    part = need[begin:begin + chunk]
+                    pairs = [(o.query_span_bytes(self.sequences),
+                              o.target_span_bytes(self.sequences))
+                             for o in part]
+                    for o, cigar in zip(part,
+                                        self.aligner.align_batch(pairs)):
+                        o.cigar = cigar
+                    log.bar_to(msg, begin + len(part), len(need))
         self.timings["align_s"] = time.perf_counter() - t0
 
         # the host CIGARs only (host aligner, SAM input): the device path's
         # breaking points came off the card above
         t0 = time.perf_counter()
-        todo = [o for o in overlaps if o.breaking_points is None]
-        if todo:
-            arrs = decode_breaking_points_batch(
-                [o.cigar or "" for o in todo],
-                [o.q_length - o.q_end if o.strand else o.q_begin
-                 for o in todo],
-                [o.t_begin for o in todo], [o.t_end for o in todo],
-                self.window_length, self.num_threads)
-            for o, arr in zip(todo, arrs):
-                o.breaking_points = arr
-                o.cigar = None
+        with obs.span("bp.decode"):
+            todo = [o for o in overlaps if o.breaking_points is None]
+            if todo:
+                arrs = decode_breaking_points_batch(
+                    [o.cigar or "" for o in todo],
+                    [o.q_length - o.q_end if o.strand else o.q_begin
+                     for o in todo],
+                    [o.t_begin for o in todo], [o.t_end for o in todo],
+                    self.window_length, self.num_threads)
+                for o, arr in zip(todo, arrs):
+                    o.breaking_points = arr
+                    o.cigar = None
         self.timings["bp_decode_s"] = time.perf_counter() - t0
         log.log("[racon_tpu::Polisher::initialize] aligned overlaps")
 
@@ -627,10 +645,11 @@ class Polisher:
                     | (layer_end[kept] > backbone_len)).any():
                 raise ValueError("layer begin and end positions are invalid")
         order = kept[np.argsort(win_id[kept], kind="stable")]
-        store = LayerStore.build(
-            data_refs, qual_refs, pair_ov[order], q_first[order],
-            q_endx[order], win_id[order], layer_begin[order],
-            layer_end[order], n_win)
+        with obs.span("build.store", rows=int(order.size)):
+            store = LayerStore.build(
+                data_refs, qual_refs, pair_ov[order], q_first[order],
+                q_endx[order], win_id[order], layer_begin[order],
+                layer_end[order], n_win)
         bounds = store.row_bounds
         chunk_windows = chunk_windows or max(1, n_win)
         for w0 in range(0, n_win, chunk_windows):
@@ -651,11 +670,17 @@ class Polisher:
         log.log()
         msg = "[racon_tpu::Polisher::polish] generating consensus"
         t0 = time.perf_counter()
-        flags = self.consensus.run(self.windows, self.trim,
-                                   progress=lambda d, t: log.bar_to(msg, d, t))
+        # RACON_TPU_TORCH_PROFILE brackets the polish phase in one
+        # torch.profiler session (a no-op when unset)
+        with obs.span("consensus", windows=len(self.windows)), \
+                obs.profile():
+            flags = self.consensus.run(
+                self.windows, self.trim,
+                progress=lambda d, t: log.bar_to(msg, d, t))
         self.timings["consensus_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = self._stitch(flags, drop_unpolished_sequences)
+        with obs.span("stitch"):
+            out = self._stitch(flags, drop_unpolished_sequences)
         self.timings["stitch_s"] = time.perf_counter() - t0
         return out
 
@@ -694,13 +719,27 @@ class Polisher:
             getattr(self.consensus, "group_pairs_hint", 32768) / depth))
         ranges: Queue = Queue(maxsize=4)
         failure: List[BaseException] = []
+        # the sanitizer's stall monitor over the queue: it dumps every
+        # thread's stack when neither side moves for its timeout (None
+        # unless RACON_TPU_SANITIZE)
+        watchdog = sanitize.queue_watchdog("init->polish queue")
+
+        def emit_range(a, b):
+            if watchdog is not None:
+                watchdog.beat()
+            t_put = time.perf_counter()
+            with obs.span("queue.put"):
+                ranges.put((a, b))
+            metrics.add_time("queue.producer_wait_s",
+                             time.perf_counter() - t_put)
+            metrics.set_gauge("queue.depth", ranges.qsize())
 
         def produce():
             try:
                 t_cpu = time.thread_time()
-                self._assemble_layers(
-                    overlaps, emit=lambda a, b: ranges.put((a, b)),
-                    chunk_windows=chunk_windows)
+                with obs.span("build.windows"):
+                    self._assemble_layers(overlaps, emit=emit_range,
+                                          chunk_windows=chunk_windows)
                 # thread time: the wall stretches while this thread waits
                 # for the interpreter lock or on a full queue
                 self.timings["build_windows_s"] = (
@@ -720,38 +759,50 @@ class Polisher:
         queue_wait = feed_s = 0.0
         t_start = time.perf_counter()
         try:
-            while True:
-                t0 = time.perf_counter()
-                item = ranges.get()
-                queue_wait += time.perf_counter() - t0
-                if item is None:
-                    if failure:
-                        raise failure[0]
-                    break
-                a, b = item
-                if b > a:
+            with obs.span("consensus", windows=n_win), obs.profile():
+                while True:
                     t0 = time.perf_counter()
-                    if stream_f is not None and sess is None and not fed:
-                        band_hint = max(
-                            (len(w.backbone) for w in self.windows
-                             if w.layer_count >= 2), default=0)
-                        sess = stream_f(trim=self.trim, band_hint=band_hint)
-                    if sess is not None:
-                        sess.feed(self.windows[a:b])
-                    else:
-                        polished[a:b] = self.consensus.run(
-                            self.windows[a:b], self.trim)
-                    fed.append((a, b))
-                    feed_s += time.perf_counter() - t0
-                log.bar_to(msg, b, n_win)
-            t0 = time.perf_counter()
-            if sess is not None:
-                flags = sess.finish()
-                pos = 0
-                for a, b in fed:
-                    polished[a:b] = flags[pos:pos + b - a]
-                    pos += b - a
-            t_end = time.perf_counter()
+                    with obs.span("queue.get"):
+                        item = ranges.get()
+                    dt_get = time.perf_counter() - t0
+                    queue_wait += dt_get
+                    metrics.add_time("queue.consumer_wait_s", dt_get)
+                    metrics.set_gauge("queue.depth", ranges.qsize())
+                    if watchdog is not None:
+                        watchdog.beat()
+                    if item is None:
+                        if failure:
+                            raise failure[0]
+                        break
+                    a, b = item
+                    if b > a:
+                        t0 = time.perf_counter()
+                        if stream_f is not None and sess is None \
+                                and not fed:
+                            band_hint = max(
+                                (len(w.backbone) for w in self.windows
+                                 if w.layer_count >= 2), default=0)
+                            sess = stream_f(trim=self.trim,
+                                            band_hint=band_hint)
+                        if sess is not None:
+                            with obs.span("consensus.feed", windows=b - a):
+                                sess.feed(self.windows[a:b])
+                        else:
+                            with obs.span("consensus.run", windows=b - a):
+                                polished[a:b] = self.consensus.run(
+                                    self.windows[a:b], self.trim)
+                        fed.append((a, b))
+                        feed_s += time.perf_counter() - t0
+                    log.bar_to(msg, b, n_win)
+                t0 = time.perf_counter()
+                if sess is not None:
+                    with obs.span("consensus.finish"):
+                        flags = sess.finish()
+                    pos = 0
+                    for a, b in fed:
+                        polished[a:b] = flags[pos:pos + b - a]
+                        pos += b - a
+                t_end = time.perf_counter()
         except BaseException:
             # a consensus fault must not leave the producer blocked on the
             # bounded queue: drain it (without blocking: the sentinel may
@@ -766,6 +817,9 @@ class Polisher:
                     time.sleep(0.01)
             producer.join()
             raise
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
         producer.join()
         self.timings.update(
             consensus_s=t_end - t_start, consensus_feed_s=feed_s,
@@ -775,7 +829,8 @@ class Polisher:
         log.log("[racon_tpu::Polisher::initialize] "
                 "transformed data into windows")
         t0 = time.perf_counter()
-        out = self._stitch(polished, drop_unpolished_sequences)
+        with obs.span("stitch"):
+            out = self._stitch(polished, drop_unpolished_sequences)
         self.timings["stitch_s"] = time.perf_counter() - t0
         return out
 

@@ -1,0 +1,97 @@
+"""The port's registry of ``RACON_TPU_*`` environment flags (counterpart of
+``racon_tpu/flags.py``, trimmed to the flags the port reads).
+
+This module is the port's only reader of ``RACON_TPU_*`` variables: every
+flag is declared here with its type, default and one doc line, and call
+sites read it through :func:`get_bool` / :func:`get_int` /
+:func:`get_float` / :func:`get_str`. Reading an undeclared name raises.
+Names, types, defaults and boolean semantics are the JAX package's, with
+one rename: ``RACON_TPU_JAX_PROFILE`` is ``RACON_TPU_TORCH_PROFILE`` here.
+
+Boolean semantics: unset/empty/``0``/``false``/``no``/``off`` mean false,
+anything else true. Numbers: unset -> the default, set but empty -> 0.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Iterable
+
+_FALSE = ("", "0", "false", "no", "off")
+
+
+@dataclass(frozen=True)
+class Flag:
+    name: str
+    default: str
+    kind: str  # "bool" | "int" | "float" | "str" | "path"
+    help: str
+
+
+def _declare(flags: Iterable[Flag]) -> Dict[str, Flag]:
+    reg: Dict[str, Flag] = {}
+    for f in flags:
+        if not f.name.startswith("RACON_TPU_") or f.name in reg:
+            raise ValueError(f"bad or duplicate flag {f.name!r}")
+        reg[f.name] = f
+    return reg
+
+
+REGISTRY: Dict[str, Flag] = _declare([
+    Flag("RACON_TPU_TRACE", "", "path",
+         "Write a Chrome trace-event JSON of the run's spans to this file "
+         "(Perfetto / chrome://tracing); the CLI --trace flag."),
+    Flag("RACON_TPU_TORCH_PROFILE", "", "path",
+         "Bracket the polish phase in one torch.profiler session (CPU and "
+         "CUDA activities) and write its Chrome trace into this "
+         "directory; the spans show up as record_function ranges."),
+    Flag("RACON_TPU_RUN_REPORT", "", "path",
+         "Write the schema-versioned run_report.json to this file; the "
+         "CLI --run-report flag."),
+    Flag("RACON_TPU_SANITIZE", "0", "bool",
+         "Runtime sanitizer: K1 (int32) shadow of sampled K4 (int16x2) "
+         "aligner chunks and consensus groups, kernel-output canaries and "
+         "the pipelined polish's queue watchdog."),
+    Flag("RACON_TPU_SANITIZE_SAMPLE", "8", "int",
+         "Shadow every Nth packed chunk or group under the sanitizer (1 = "
+         "every one; the first of a run is always checked)."),
+    Flag("RACON_TPU_SANITIZE_WATCHDOG_S", "120", "float",
+         "Queue watchdog timeout in seconds: with the sanitizer on, a "
+         "producer/consumer stall longer than this dumps every thread's "
+         "stack to stderr."),
+    Flag("RACON_TPU_FAULTS", "", "str",
+         "Seeded site-addressed fault injection: 'site:kind[@N][*][%P],...' "
+         "with sites consensus.dispatch / align.dispatch / align.fetch and "
+         "kinds io, enospc, oom, err, stall, kill (see faults.py)."),
+    Flag("RACON_TPU_FAULTS_SEED", "0", "int",
+         "Seed of the probabilistic (%P) fault draws."),
+])
+
+
+def raw(name: str) -> str:
+    """The raw value of a declared flag (its default when unset)."""
+    try:
+        f = REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"environment flag {name!r} is not declared in "
+                       f"racon_tpu_torch/flags.py") from None
+    return os.environ.get(name, f.default)
+
+
+def get_bool(name: str) -> bool:
+    return raw(name).strip().lower() not in _FALSE
+
+
+def get_int(name: str) -> int:
+    v = raw(name).strip()
+    return int(v) if v else 0
+
+
+def get_float(name: str) -> float:
+    v = raw(name).strip()
+    return float(v) if v else 0.0
+
+
+def get_str(name: str) -> str:
+    return raw(name)

@@ -19,10 +19,12 @@ import os
 import pathlib
 import subprocess
 import threading
+import time
 
 import numpy as np
 
 from .._paths import build_root
+from ..obs import buildwatch
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _SOURCES = sorted(_DIR.glob("*.cpp"))
@@ -50,10 +52,12 @@ def build(force: bool = False) -> pathlib.Path:
     tmp = path.with_name(f".{path.name}.{os.getpid()}")
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
            "-pthread", *[str(s) for s in _SOURCES], "-o", str(tmp), "-lz"]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise NativeBuildError(f"native build failed:\n{proc.stderr[-4000:]}")
     os.replace(tmp, path)
+    buildwatch.record("native", time.perf_counter() - t0, "g++")
     return path
 
 

@@ -4,9 +4,11 @@ Each ``kernels/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, all sources
 in parallel (one ``nvcc`` process each), into ``build/cuda`` at the root of
-the checkout; a library is rebuilt when any kernel source is newer. Nothing
-here runs at import time: the CPU tests import every module of the package
-on a host without ``nvcc``.
+the checkout; a library is rebuilt when any kernel source is newer. The
+first library loaded builds every stale one, so a run builds before its
+first launch and never between launches (``obs.buildwatch`` records each
+build). Nothing here runs at import time: the CPU tests import every module
+of the package on a host without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import time
 from typing import Dict, Optional
 
 from .._paths import build_root
+from ..obs import buildwatch
 
 KERNEL_DIR = pathlib.Path(__file__).resolve().parent / "kernels"
 # library name -> source file (K1 and K4 share nw_fwd.cu)
@@ -124,8 +127,9 @@ def _build_locked(names, verbose_ptxas: bool) -> Dict[str, str]:
                             f"{text[-4000:]}")
             continue
         os.replace(tmp, _lib_path(name))
-        build_log[name] = {"seconds": time.perf_counter() - t0,
-                           "ptxas": text.strip()}
+        seconds = time.perf_counter() - t0
+        build_log[name] = {"seconds": seconds, "ptxas": text.strip()}
+        buildwatch.record(name, seconds, "nvcc")
     if failures:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failures))
     return {name: str(_lib_path(name)) for name in SOURCES}
@@ -141,7 +145,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         if _stale(name):
-            _build_locked([name], False)
+            _build_locked([n for n in SOURCES if _stale(n)], False)
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, (owner, argtypes) in SIGNATURES.items():
             if owner == name:

@@ -44,7 +44,12 @@ The parameters' defaults are the JAX package's flag defaults
 paths are the ones its default flags choose (``_DEVICE_JOIN``,
 ``_RAGGED`` and ``_CACHE`` all on), with no switch: the port reads no
 environment flag. ``STATS`` holds the counters the JAX package keeps
-under ``overlap.*``.
+under ``overlap.*``; each also goes to the metrics registry under that
+name (``overlap_seed.count``). The spans are the JAX package's: seeding
+``overlap.seed``, the join ``overlap.match`` with its device halves
+``overlap.join.dispatch``/``.fetch``, each chain launch and fetch
+``overlap.chain.dispatch``/``.fetch``, and the chain stream's final drain
+``overlap.chain``.
 """
 
 from __future__ import annotations
@@ -54,9 +59,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve
 from . import _build, cuda_nw, overlap_seed
-from .overlap_seed import STATS, reset_stats  # noqa: F401 (re-exported)
+from .overlap_seed import STATS, count, reset_stats  # noqa: F401
 
 CHAIN_LOOKBACK = 16       # predecessors each seed is scored against
 MAX_GAP = 10_000          # largest per-axis seed gap inside one chain
@@ -333,7 +339,7 @@ def join_seeds(read_table, target_table, read_self_t: np.ndarray,
     rh, th = read_table[0], target_table[0]
 
     def _bail():
-        STATS["join_bailouts"] += 1
+        count("join_bailouts")
         return match_seeds(read_table, target_table, read_self_t, qlens,
                            k=k, max_occ=max_occ)
 
@@ -343,23 +349,29 @@ def join_seeds(read_table, target_table, read_self_t: np.ndarray,
     if R2 + T2 > JOIN_TABLE_CELLS or R2 * max(1, max_occ) >= (1 << 31):
         return _bail()
     dev = resolve(device)
-    (rid, rpos, rstr, tid, tpos, tstr, lo, cnt, offs, total_d,
-     capped_d) = _join_sort(*_pad_table(read_table, R2, dev),
-                            *_pad_table(target_table, T2, dev), max_occ)
-    # the join's one host read before the expansion
-    total, capped = (int(x) for x in torch.stack([total_d, capped_d]).cpu())
+    with obs.span("overlap.join.dispatch", reads=int(rh.size),
+                  targets=int(th.size)):
+        (rid, rpos, rstr, tid, tpos, tstr, lo, cnt, offs, total_d,
+         capped_d) = _join_sort(*_pad_table(read_table, R2, dev),
+                                *_pad_table(target_table, T2, dev), max_occ)
+    with obs.span("overlap.join.fetch"):
+        # the join's one host read before the expansion
+        total, capped = (int(x) for x in
+                         torch.stack([total_d, capped_d]).cpu())
     if total > JOIN_MAX_HITS:
         return _bail()
     if total == 0:
         return _empty_hits(), capped
-    cols = _join_expand(
-        rid, rpos, rstr, tid, tpos, tstr, lo, cnt, offs, total,
-        torch.from_numpy(np.asarray(read_self_t, np.int64)).to(dev),
-        torch.from_numpy(np.asarray(qlens, np.int64)).to(dev),
-        E=_hits_pad(total), k=k)
-    n = int(cols[5])
-    hits = {key: col[:n].cpu().numpy()
-            for key, col in zip(("q", "t", "rel", "tp", "qc"), cols)}
+    with obs.span("overlap.join.dispatch", hits=total):
+        cols = _join_expand(
+            rid, rpos, rstr, tid, tpos, tstr, lo, cnt, offs, total,
+            torch.from_numpy(np.asarray(read_self_t, np.int64)).to(dev),
+            torch.from_numpy(np.asarray(qlens, np.int64)).to(dev),
+            E=_hits_pad(total), k=k)
+    with obs.span("overlap.join.fetch"):
+        n = int(cols[5])
+        hits = {key: col[:n].cpu().numpy()
+                for key, col in zip(("q", "t", "rel", "tp", "qc"), cols)}
     return hits, capped
 
 
@@ -551,17 +563,18 @@ class _ChainStream:
         for lane, (c, _, s0) in enumerate(chunk):
             starts[lane] = s0
             counts[lane] = c
-        # pack the arena on the host, upload it and launch (asynchronous
-        # on a card)
-        ts, qs = _pack_lanes(self.tp, self.qc, starts, counts, S, B)
-        STATS["lanes_total"] += B * S
-        STATS["lanes_occupied"] += int(counts.sum())
-        STATS["chunks"] += 1
+        with obs.span("overlap.chain.dispatch", pairs=len(chunk)):
+            # pack the arena on the host, upload it and launch
+            # (asynchronous on a card)
+            ts, qs = _pack_lanes(self.tp, self.qc, starts, counts, S, B)
+            out = chain_dp(torch.from_numpy(ts).to(self.device),
+                           torch.from_numpy(qs).to(self.device),
+                           torch.from_numpy(counts.astype(np.int32))
+                           .to(self.device), k=self.k)
+        count("lanes_total", B * S)
+        count("lanes_occupied", int(counts.sum()))
+        count("chunks")
         STATS["chunk_shapes"].append((S, B))
-        out = chain_dp(torch.from_numpy(ts).to(self.device),
-                       torch.from_numpy(qs).to(self.device),
-                       torch.from_numpy(counts.astype(np.int32))
-                       .to(self.device), k=self.k)
         self.inflight.append((chunk, out, B * S))
         self.inflight_cells += B * S
         while (len(self.inflight) > CHAIN_INFLIGHT
@@ -571,7 +584,8 @@ class _ChainStream:
     def _fetch_oldest(self) -> None:
         chunk, out, cells = self.inflight.pop(0)
         self.inflight_cells -= cells
-        out_np = out.cpu().numpy()
+        with obs.span("overlap.chain.fetch", pairs=len(chunk)):
+            out_np = out.cpu().numpy()
         for lane, (_, pid, _) in enumerate(chunk):
             row = out_np[lane].astype(np.int64)
             self.rows[pid] = row
@@ -607,12 +621,16 @@ def _clip_kw(k: int, w: int) -> Tuple[int, int]:
 def _seed_and_join(read_seqs, target_seqs, read_self_t, qlens, *,
                    k, w, max_occ, device):
     """Seed both pools (the targets through the table cache) and join."""
-    rt = overlap_seed.build_seed_table(read_seqs, k=k, w=w, device=device)
-    tt = overlap_seed.build_seed_table(target_seqs, k=k, w=w, cache=True,
-                                       device=device)
-    hits, capped = join_seeds(rt, tt, read_self_t, qlens, k=k,
-                              max_occ=max_occ, device=device)
-    STATS["freq_capped_buckets"] += capped
+    with obs.span("overlap.seed", reads=len(read_seqs),
+                  targets=len(target_seqs)):
+        rt = overlap_seed.build_seed_table(read_seqs, k=k, w=w,
+                                           device=device)
+        tt = overlap_seed.build_seed_table(target_seqs, k=k, w=w,
+                                           cache=True, device=device)
+    with obs.span("overlap.match"):
+        hits, capped = join_seeds(rt, tt, read_self_t, qlens, k=k,
+                                  max_occ=max_occ, device=device)
+        count("freq_capped_buckets", capped)
     return hits
 
 
@@ -650,7 +668,7 @@ def iter_overlap_groups(read_seqs: List[bytes], target_seqs: List[bytes],
     hits = _seed_and_join(read_seqs, target_seqs, read_self_t, qlens, k=k,
                           w=w, max_occ=max_occ, device=device)
     starts, _, counts = _pair_runs(hits)
-    STATS["candidate_pairs"] += int(starts.size)
+    count("candidate_pairs", int(starts.size))
     if starts.size == 0:
         return
     q_of = hits["q"][starts]
@@ -703,15 +721,16 @@ def iter_overlap_groups(read_seqs: List[bytes], target_seqs: List[bytes],
             emit_at += 1
             if rows is not None:
                 yield rows
-    stream.finish()
+    with obs.span("overlap.chain"):
+        stream.finish()
     while emit_at < ngroups:
         rows = emit(emit_at)
         emit_at += 1
         if rows is not None:
             yield rows
-    STATS["stream_groups"] += ngroups
-    STATS["chains_kept"] += kept_total
-    STATS["chains_dropped"] += dropped_total
+    count("stream_groups", ngroups)
+    count("chains_kept", kept_total)
+    count("chains_dropped", dropped_total)
 
 
 def find_overlaps(read_seqs: List[bytes], target_seqs: List[bytes],

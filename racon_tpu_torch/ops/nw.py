@@ -22,6 +22,12 @@ gives the same bytes.
 :class:`_AlignStream` (greedy chunk fill by each chunk's own head, a
 cold-start probe, chunks in flight while the host packs the next);
 ``use_ragged=False`` takes the bucketed wave driver.
+
+Every chunk launch is the span ``align.dispatch`` and the fault site of the
+same name, every fetch ``align.fetch``; the launch publishes the ``align.*``
+occupancy counters. Under the sanitizer a sampled chunk whose forward pass
+took K4 runs again through K1 and the same walk (``_shadow_chunk``), and
+every fetched chunk passes the aligner canaries.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 
 from . import cuda_nw
 from .swar import use_packed16
+from .. import faults, obs, sanitize
 from ..device import resolve
+from ..obs import metrics
 from ..params import PARAMS
 
 BUCKETS: Tuple[Tuple[int, int], ...] = PARAMS.buckets
@@ -252,6 +260,8 @@ class CudaAligner:
                       "steps_wasted": 0, "wavefront_work": 0,
                       "ladder_narrow": 0, "fetched_bytes": 0,
                       "chunk_shapes": []}
+        # the sanitizer's pick of the K4 chunks it shadows with K1
+        self._shadow = sanitize.ShadowSampler()
 
     # ----------------------------------------------------------- geometry
 
@@ -515,6 +525,16 @@ class CudaAligner:
 
     def _launch_chunk(self, pairs, chunk, max_len: int, band: int,
                       bp_meta=None):
+        """:meth:`_launch_chunk_impl` as the fault site and span
+        ``align.dispatch`` (host packing and the asynchronous launches)."""
+        faults.check("align.dispatch")
+        with obs.span("align.dispatch", pairs=len(chunk), max_len=max_len,
+                      band=band):
+            return self._launch_chunk_impl(pairs, chunk, max_len, band,
+                                           bp_meta)
+
+    def _launch_chunk_impl(self, pairs, chunk, max_len: int, band: int,
+                           bp_meta=None):
         """Pack a chunk and launch its kernels: the forward pass, the walk
         and, in breaking-points mode, :func:`breaking_points`. Returns the
         in-flight handle ``_finish_chunk`` takes; its outputs are device
@@ -539,6 +559,11 @@ class CudaAligner:
         st["steps_wasted"] += total - occ
         st["wavefront_work"] += total * band
         st["chunk_shapes"].append((max_len, band, C, B, steps))
+        metrics.inc("align.chunks")
+        metrics.inc("align.lanes_occupied", occ)
+        metrics.inc("align.lanes_total", total)
+        metrics.inc("align.steps_wasted", total - occ)
+        metrics.inc("align.wavefront_work", total * band)
         nd, md = self._upload(n), self._upload(m)
         qcat = self._upload(_dense_block(qs, n[:C], B, max_len))
         tcat = self._upload(_dense_block(ts, m[:C], B, max_len))
@@ -546,12 +571,17 @@ class CudaAligner:
         del qcat, tcat
         packed16 = use_packed16(max_len, band)
         st["swar_chunks"] += int(packed16)
+        metrics.inc("aligner.swar_chunks", int(packed16))
+        shadow = packed16 and self._shadow.should_shadow()
         dirs, score = cuda_nw.nw_fwd(qrp, tp, nd, md, max_len=max_len,
                                      band=band, steps=steps,
                                      packed16=packed16)
-        del qrp, tp
         ops, fi, fj = cuda_nw.walk_ops(dirs, nd, md, band=band)
         del dirs
+        if shadow:
+            self._shadow_chunk(qrp, tp, nd, md, (ops, score, fi, fj),
+                               max_len=max_len, band=band, steps=steps)
+        del qrp, tp
         if bp_meta is None:
             return chunk, pairs, n, m, (ops, score, fi, fj)
         w, metas = bp_meta
@@ -562,6 +592,24 @@ class CudaAligner:
             NW=max_len // max(w, 1) + 2)
         return chunk, pairs, n, m, (bp_first, bp_last, score, fi, fj)
 
+    def _shadow_chunk(self, qrp, tp, n, m, packed_out, *, max_len: int,
+                      band: int, steps: int) -> None:
+        """The sanitizer's K1 shadow of a K4 chunk: the same rows through
+        the int32 forward pass and the same walk; ``ops_packed``,
+        ``score``, ``fi`` and ``fj`` must equal bit for bit. The K4 pass's
+        direction rows are released before this runs, so the two passes
+        never hold two chunks' rows at once."""
+        dirs, score = cuda_nw.nw_fwd(qrp, tp, n, m, max_len=max_len,
+                                     band=band, steps=steps, packed16=False)
+        ops, fi, fj = cuda_nw.walk_ops(dirs, n, m, band=band)
+        del dirs
+        metrics.inc("align.shadow_chunks")
+        sanitize.shadow_compare(
+            packed_out, (ops, score, fi, fj),
+            ("ops_packed", "score", "fi", "fj"),
+            f"aligner K4 chunk (max_len={max_len}, band={band}, "
+            f"steps={steps})")
+
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """A device tensor on the host, counted in ``fetched_bytes``."""
         out = t.cpu().numpy()
@@ -570,6 +618,15 @@ class CudaAligner:
 
     def _finish_chunk(self, launched, band, results, reject,
                       bp_meta=None) -> None:
+        """:meth:`_finish_chunk_impl` as the fault site and span
+        ``align.fetch`` (it waits for the device)."""
+        faults.check("align.fetch")
+        with obs.span("align.fetch", pairs=len(launched[0]), band=band):
+            self._finish_chunk_impl(launched, band, results, reject,
+                                    bp_meta)
+
+    def _finish_chunk_impl(self, launched, band, results, reject,
+                           bp_meta=None) -> None:
         """Fetch a launched chunk and resolve its pairs into ``results``
         (CIGARs, or breaking-point rows with ``bp_meta``); the pairs that
         fail the accept gate go to ``reject``."""
@@ -581,6 +638,10 @@ class CudaAligner:
         ops_packed = self._fetch(ops_d[:C])
         score, fi, fj = self._fetch(torch.stack([score_d[:C], fi_d[:C],
                                                  fj_d[:C]]))
+        if sanitize.enabled():
+            sanitize.check_aligner_canaries(
+                score, fi, fj, big=1 << 28,
+                context=f"aligner chunk (band={band})")
         shifts = np.array([0, 2, 4, 6], dtype=np.uint8)
         ops = ((ops_packed[:, :, None] >> shifts) & 3).reshape(C, -1)
         obs_scores: List[int] = []
@@ -616,6 +677,10 @@ class CudaAligner:
         host = self._fetch(torch.cat(
             [bp_first[:C], bp_last[:C],
              torch.stack([score[:C], fi[:C], fj[:C]], 1)], 1))
+        if sanitize.enabled():
+            sanitize.check_aligner_canaries(
+                host[:, 2 * NW], host[:, 2 * NW + 1], host[:, 2 * NW + 2],
+                big=1 << 28, context=f"aligner bp chunk (band={band})")
         n_h = n[:C].astype(np.int64)
         m_h = m[:C].astype(np.int64)
         score_h = host[:, 2 * NW].astype(np.int64)

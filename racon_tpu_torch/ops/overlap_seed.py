@@ -25,6 +25,11 @@ Long sequences (contigs) are cut into spans of :data:`SEED_SLICE` window
 starts that overlap by ``k + w - 2`` bases; each window belongs to one
 span, and positions picked on both sides of a cut are deduplicated, so
 the table equals the whole-sequence scan of :func:`minimizers_np`.
+
+A batch's scan is the span ``overlap.seed.dispatch``, its copy to the host
+``overlap.seed.fetch``; the ``overlap.*`` counters go to the metrics
+registry, and those the JAX package's tests hold also to ``STATS``
+(:func:`count`).
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve
+from ..obs import metrics
 
 # k = 15, w = 5: ONT read-vs-draft seeding (about a third of the positions
 # carry a minimizer); the JAX package's RACON_TPU_OVERLAP_K/W defaults
@@ -57,10 +64,10 @@ for _i, _b in enumerate(b"ACGT"):
 for _i, _b in enumerate(b"acgt"):
     _BASE_LUT[_b] = _i
 
-# The overlapper's counters (``racon_tpu`` keeps them in ``metrics`` under
-# ``overlap.*``). ``chain.STATS`` is this dict; this module counts
-# ``cache_hits``, ``chain`` the rest. ``chunk_shapes`` lists the (S, B) of
-# every chain launch.
+# The overlapper's counters, as the JAX package's tests read them; each is
+# also the metric ``overlap.<key>`` (:func:`count`). ``chain.STATS`` is
+# this dict; this module counts ``cache_hits``, ``chain`` the rest.
+# ``chunk_shapes`` lists the (S, B) of every chain launch.
 STATS: dict = {}
 
 
@@ -73,6 +80,12 @@ def reset_stats() -> None:
 
 
 reset_stats()
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``STATS[key]`` and to the metric ``overlap.<key>``."""
+    STATS[key] += n
+    metrics.inc(f"overlap.{key}", n)
 
 
 # -------------------------------------------------------------- geometry
@@ -236,8 +249,10 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
             if hit is not None:
                 _TABLE_CACHE.move_to_end(ckey)
         if hit is not None:
-            STATS["cache_hits"] += 1
+            count("cache_hits")
+            metrics.inc("overlap.minimizers", int(hit[0].size))
             return hit
+        metrics.inc("overlap.cache_misses")
     dev = resolve(device)
     by_bucket: dict = {}
     for chunk in _iter_chunks(seqs, k, w):
@@ -261,16 +276,19 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
                 codes[i, :arr.size] = arr
                 lens[i] = arr.size
                 nwin[i] = n_here
-            h, strand, sel = minimizer_scan(
-                torch.from_numpy(codes).to(dev),
-                torch.from_numpy(lens).to(dev),
-                torch.from_numpy(nwin).to(dev), k=k, w=w)
-            # the hashes cross as int32 words (the same 32 bits), read
-            # back as uint32
-            h32 = torch.where(h >= 1 << 31, h - (1 << 32), h)
-            h_full = h32.to(torch.int32).cpu().numpy().view(np.uint32)
-            sel_np = sel.cpu().numpy()
-            s_full = strand.cpu().numpy()
+            with obs.span("overlap.seed.dispatch", rows=len(part)):
+                h, strand, sel = minimizer_scan(
+                    torch.from_numpy(codes).to(dev),
+                    torch.from_numpy(lens).to(dev),
+                    torch.from_numpy(nwin).to(dev), k=k, w=w)
+                # the hashes cross as int32 words (the same 32 bits),
+                # read back as uint32
+                h32 = torch.where(h >= 1 << 31, h - (1 << 32),
+                                  h).to(torch.int32)
+            with obs.span("overlap.seed.fetch", rows=len(part)):
+                h_full = h32.cpu().numpy().view(np.uint32)
+                sel_np = sel.cpu().numpy()
+                s_full = strand.cpu().numpy()
             rows, cols = np.nonzero(sel_np)
             h_np = h_full[rows, cols]
             s_np = s_full[rows, cols]
@@ -284,6 +302,8 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
             ids.append(chunk_ids[rows])
             ps.append(chunk_off[rows] + cols.astype(np.int32))
             ss.append(s_np[keep])
+            metrics.inc("overlap.seed_lanes_total", B * L)
+            metrics.inc("overlap.seed_lanes_occupied", int(lens.sum()))
     if not hs:
         z = np.zeros(0, np.int32)
         table = (np.zeros(0, np.uint32), z, z, np.zeros(0, bool))
@@ -300,6 +320,7 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
         uniq = np.ones(h_all.size, bool)
         uniq[1:] = (id_all[1:] != id_all[:-1]) | (p_all[1:] != p_all[:-1])
         table = (h_all[uniq], id_all[uniq], p_all[uniq], s_all[uniq])
+        metrics.inc("overlap.minimizers", int(table[0].size))
     if ckey is not None:
         _table_cache_put(ckey, table)
     return table

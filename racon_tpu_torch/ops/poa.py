@@ -25,6 +25,16 @@ What the JAX package does for the TPU and the port does not copy: the
 one-hot/int8-limb matmul vote reduction and its compaction routing (an
 integer ``index_add_`` into int64 is exact in any order here), the mesh
 split, the resident lane ingest and the OOM backpressure (later slices).
+Nor does it copy the Pallas probe, the int32 retry or the refetch on a
+fault: a kernel fault raises.
+
+A group's packing is the span ``poa.pack``, its enqueued rounds
+``poa.dispatch`` (and the fault site ``consensus.dispatch``), its fetch
+``poa.fetch``, the stage-B repack ``poa.stage_b``; the ``consensus.*``
+counters mirror ``stats``. Under the sanitizer a sampled group whose
+forward passes take K4 runs its whole refine loop again from the same
+state with K1, and the ten state arrays must be equal; every fetched group
+passes the consensus canaries.
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ import torch
 
 from . import cuda_nw
 from .swar import use_packed16
+from .. import faults, obs, sanitize
 from ..core.window import WindowType
 from ..device import resolve
+from ..obs import metrics
 from ..params import (DEFAULT_GAP, DEFAULT_MATCH, DEFAULT_MISMATCH, PARAMS,
                       STATE_NAMES, refine_state_to_torch)
 from ..utils.logger import warn
@@ -355,6 +367,7 @@ class _Work:
         over = total - max_depth
         if over > 0:
             stats["dropped_layers"] += over
+            metrics.inc("consensus.dropped_layers", over)
         depth = min(total, max_depth)
         self.n_seqs = total + 1
         self.n_layers = depth
@@ -772,6 +785,8 @@ class CudaPoaConsensus:
                       "wavefront_steps": 0, "lanes_occupied": 0,
                       "lanes_total": 0, "groups": 0, "group_windows": 0,
                       "rounds_after_converged": 0, "group_shapes": []}
+        # the sanitizer's pick of the K4 groups it shadows with K1
+        self._shadow = sanitize.ShadowSampler()
 
     @property
     def group_pairs_cap(self) -> int:
@@ -841,6 +856,7 @@ class CudaPoaConsensus:
         if not cpu_idx:
             return
         self.stats["fallback_windows"] += len(cpu_idx)
+        metrics.inc("consensus.fallback_windows", len(cpu_idx))
         if self.fallback is None:
             raise RuntimeError(
                 f"{len(cpu_idx)} windows rejected, no host fallback")
@@ -915,15 +931,25 @@ class CudaPoaConsensus:
         return la
 
     def _launch_group(self, items, Lq: int, Lb: int, overrides=None):
+        """:meth:`_launch_group_impl` as the span ``poa.pack``."""
+        with obs.span("poa.pack", windows=len(items)):
+            return self._launch_group_impl(items, Lq, Lb, overrides)
+
+    def _launch_group_impl(self, items, Lq: int, Lb: int, overrides=None):
         """Pack one group (:func:`pack_group`) and upload it, through
         pinned memory to a card; records the occupancy counters. Returns
         the launch handle: its device state, the works and the sizes."""
         state_np, B, nWp = pack_group(items, Lq, Lb, overrides)
         real = state_np["real"]
-        self.stats["lanes_occupied"] += int(state_np["n"][real].sum())
+        occupied = int(state_np["n"][real].sum())
+        self.stats["lanes_occupied"] += occupied
         self.stats["lanes_total"] += B * Lq
         self.stats["groups"] += 1
         self.stats["group_windows"] += len(items)
+        metrics.inc("consensus.lanes_occupied", occupied)
+        metrics.inc("consensus.lanes_total", B * Lq)
+        metrics.inc("consensus.groups")
+        metrics.inc("consensus.group_windows", len(items))
         st = refine_state_to_torch(state_np, self.device)
         return {"items": items, "B": B, "nWp": nWp,
                 "pairs": int(real.sum()),
@@ -933,19 +959,39 @@ class CudaPoaConsensus:
                                     device=self.device)}
 
     def _rounds(self, launch) -> None:
+        """:meth:`_rounds_impl` as the fault site ``consensus.dispatch``
+        and the span ``poa.dispatch``."""
+        faults.check("consensus.dispatch")
+        with obs.span("poa.dispatch", pairs=launch["B"]):
+            self._rounds_impl(launch)
+
+    def _refine(self, launch, state, packed16: bool, idle):
+        Lq, Lb, steps, Lq2 = launch["geom"]
+        return refine_loop(
+            *launch["static"], *state, self.ins_theta, self.del_beta,
+            rounds=launch["rounds"], early_exit=self.device.type != "cuda",
+            idle=idle, n_windows=launch["nWp"], max_len=Lq,
+            band=launch["band"], Lb=Lb, K=K_INS, steps=steps,
+            packed16=packed16, Lq2=Lq2, scores=self.scores)
+
+    def _rounds_impl(self, launch) -> None:
         """Enqueue the launch's ``rounds`` from its current state, then
         its fetch arrays (:func:`fetch_pack`). On a card nothing is read
         back; on the CPU the loop stops at convergence (the check costs
-        nothing there and skips the plain kernels' no-op rounds)."""
-        Lq, Lb, steps, Lq2 = launch["geom"]
+        nothing there and skips the plain kernels' no-op rounds). A K4
+        group the sanitizer samples runs the rounds again from the same
+        state with K1, and the ten state arrays must be equal."""
+        Lq, _, steps, _ = launch["geom"]
         band = launch["band"]
-        out = refine_loop(
-            *launch["static"], *launch["state"], self.ins_theta,
-            self.del_beta, rounds=launch["rounds"],
-            early_exit=self.device.type != "cuda", idle=launch["idle"],
-            n_windows=launch["nWp"], max_len=Lq, band=band, Lb=Lb, K=K_INS,
-            steps=steps, packed16=use_packed16(Lq, band), Lq2=Lq2,
-            scores=self.scores)
+        packed16 = use_packed16(Lq, band)
+        out = self._refine(launch, launch["state"], packed16, launch["idle"])
+        if packed16 and self._shadow.should_shadow():
+            shadow = self._refine(launch, launch["state"], False, None)
+            metrics.inc("consensus.shadow_groups")
+            sanitize.shadow_compare(
+                out, shadow, STATE_NAMES[4:],
+                f"consensus K4 group (Lq={Lq}, band={band}, "
+                f"steps={steps})")
         launch["state"] = list(out)
         bg, ed, bcodes, _, blen, covs, ever, frozen, conv, dropped = out
         launch["fetch"] = fetch_pack(bcodes, blen, covs, ever, frozen,
@@ -956,6 +1002,13 @@ class CudaPoaConsensus:
 
     def _finish_group(self, launch, trim: bool, results,
                       collect=None) -> None:
+        """:meth:`_finish_group_impl` as the span ``poa.fetch`` (a group
+        that continues in place nests its rounds and fetch under it)."""
+        with obs.span("poa.fetch", windows=launch["nWp"]):
+            self._finish_group_impl(launch, trim, results, collect)
+
+    def _finish_group_impl(self, launch, trim: bool, results,
+                           collect=None) -> None:
         """Fetch a group (two copies) and decode its consensus bytes. With
         ``collect`` (a stage-A group) its unconverged windows are appended
         there for stage B and stay pending, unless more than
@@ -967,6 +1020,10 @@ class CudaPoaConsensus:
         covs = mat >> 3
         blen, ever, frozen, conv, dropped, bg, ed, idle = np.split(
             meta, np.cumsum([nWp, nWp, nWp, nWp, 4 + nWp, B, B]))
+        if sanitize.enabled():
+            sanitize.check_consensus_canaries(
+                bcodes, blen, covs, Lb=launch["geom"][1],
+                context=f"consensus group (nWp={nWp})")
         unconverged = (conv[:len(items)] == 0) & (frozen[:len(items)] == 0)
         if (collect is not None and unconverged.sum()
                 > STAGE_B_MAX_SURVIVOR_FRAC * len(items)):
@@ -979,6 +1036,10 @@ class CudaPoaConsensus:
         self.stats["sweep_truncated"] += int(dropped[1])
         self.stats["wavefront_steps"] += int(dropped[3])
         self.stats["rounds_after_converged"] += int(idle[0])
+        metrics.inc("consensus.dropped_layers", int(dropped[0]))
+        metrics.inc("consensus.sweep_truncated", int(dropped[1]))
+        metrics.inc("consensus.ins_overflow", int(dropped[2]))
+        metrics.inc("consensus.wavefront_steps", int(dropped[3]))
         off = 0
         for row, (i, w) in enumerate(items):
             kw = w.n_layers
@@ -1007,6 +1068,12 @@ class CudaPoaConsensus:
             self.stats["device_windows"] += 1
 
     def _run_stage_b(self, survivors, trim, results, geom, band) -> None:
+        """:meth:`_run_stage_b_impl` as the span ``poa.stage_b``."""
+        with obs.span("poa.stage_b", windows=len(survivors)):
+            self._run_stage_b_impl(survivors, trim, results, geom, band)
+
+    def _run_stage_b_impl(self, survivors, trim, results, geom,
+                          band) -> None:
         """The remaining rounds for the stage-A stragglers of one bucket
         (``[(result index, work, fetched state), ...]`` from every stage-A
         group), repacked from their fetched state into groups of at most

@@ -3,7 +3,8 @@
 
 Stage wall-times via paired ``log()`` calls, the 20-bin progress bar via
 ``bar()``/``bar_to()``, and a ``total()`` summary — the observable
-behaviour of the reference's vendored ``logger`` library.
+behaviour of the reference's vendored ``logger`` library. :func:`warn`
+and :func:`log_swallowed` are the sinks of non-fatal faults.
 """
 
 from __future__ import annotations
@@ -11,10 +12,27 @@ from __future__ import annotations
 import sys
 import time
 
+from ..obs import metrics
+
+_seen_swallowed: set = set()
+
 
 def warn(message: str) -> None:
     """Process-wide warning line on stderr (stdout carries the FASTA)."""
     print(f"[racon_tpu] warning: {message}", file=sys.stderr)
+
+
+def log_swallowed(context: str, exc: BaseException) -> None:
+    """Report an exception a handler deliberately continues past: one
+    warning per (context, exception type), and every occurrence counted
+    in ``swallowed.<context>|<type>`` (the run report's ``swallowed``
+    section)."""
+    key = (context, type(exc).__name__)
+    metrics.inc(f"swallowed.{context}|{type(exc).__name__}")
+    if key in _seen_swallowed:
+        return
+    _seen_swallowed.add(key)
+    warn(f"{context}: swallowed {type(exc).__name__}: {exc}")
 
 
 class Logger:
