@@ -30,8 +30,7 @@ line each:
              windows, lanes, the band, the rounds run after all of a
              group's windows had converged) and the pipeline's
              ``consensus_feed_s``/``consensus_finish_s``/
-             ``pipeline_overlap_saved_s``, the draft's and the polished
-             contig's edit distance to the truth, peak device memory, and
+             ``pipeline_overlap_saved_s``, peak device memory, and
              the files the native parser read (``native_parse_calls``:
              the draft and the reads, then the overlaps; the polisher
              parses nothing another way);
@@ -43,8 +42,8 @@ line each:
              stage times with ``overlap_feed_s``, the overlapper's counters
              (``chain.STATS``), the overlaps kept against the PAF path's,
              the launches of ``chain_dp``, K4, K2 and K3 (counted from zero
-             just before the run; each must be > 0), the edit distance with
-             the main phase's gate, peak device memory; it fails on a join
+             just before the run; each must be > 0), peak device memory;
+             it fails on a join
              bail-out (the 1 Mbp tables fit the device join) and unless the
              native parser read exactly the two sequence files;
    obs     — the PAF main path once more through the port's CLI
@@ -63,6 +62,32 @@ line each:
              ``RACON_TPU_FAULTS=align.dispatch:oom`` on a 0.02 Mbp genome:
              the polish must raise and ``faults.classify`` must say
              ``device-oom``;
+   shards  — the shard runner (``racon_tpu_torch.exec``) on the card: the
+             1 Mbp genome (seed 23) cut into 4 contigs of 250 kbp, polished
+             single-shot (``create_polisher``, both device engines) and by
+             ``ShardRunner(n_shards=4, device="cuda")`` with its work dir
+             kept: the two SHA-256 must be equal; each shard's row
+             (``wall_s``, ``extract_s``, ``timings``, ``engine``), the two
+             walls, the ``exec.index``/``plan``/``extract``/``merge``
+             seconds, peak RSS and device bytes, and the K4, K2 and K3
+             launches of the sharded run (counted from zero; each > 0);
+             the run resumed (every shard skipped: no part touched, no
+             engine built, no launch); the run again with
+             ``RACON_TPU_FAULTS=exec.polish:oom@1`` (shard 0 records one
+             ``device-oom`` attempt, action ``reduce-capacity``; every
+             shard ends ``primary``; both engines at ``capacity_scale`` 2;
+             the same bytes; the halved launches' shapes); and the main
+             phase's input through ``cli.main`` with ``--shards 1`` (the
+             main phase's SHA-256, its one shard ``primary`` with no
+             attempt, its K4, K2 and K3 launches > 0). Before that,
+             ``RACON_TPU_FAULTS=exec.polish:err@1*`` through ``cli.main
+             --shards 4`` on the 4 contigs: every shard quarantined after
+             one attempt on the card (no CPU rung, no host engine built,
+             no launch), and the CLI exits 1. It fails on a quarantined
+             shard or one on ``cpu-retry`` in a run without an injected
+             fault, and
+             every launch shape of the phase joins the kernels phase's
+             ``unheld`` check;
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -74,14 +99,16 @@ line each:
              seconds, and whether ``g++`` finds ``zlib.h`` (checked before
              any build); then the main path's ``Polisher._load`` twice
              with its split (targets, reads, overlaps, filter, transmute);
-8. kernels — each kernel at every shape the main path or the main_auto
-             path launched it at (every consensus (Lq, band) of either at
+8. kernels — each kernel at every shape the main path, the main_auto
+             path or the shards phase launched it at (every consensus
+             (Lq, band) of any at
              its largest and smallest group, K4 and K3 at each, stage-B
              groups included, and the
              stream's 256 bp bucket, ``CONSENSUS_TAIL``, off the main path
              where the run did not launch it; each aligner (max_len,
              band) at the main path's largest chunk, and at main_auto's
-             where that is larger or the bucket is main_auto's alone,
+             where that is larger or the bucket is main_auto's alone, then
+             at the shards phase's on the same rule,
              band-ladder rungs included, on pairs drawn like the
              simulator's that the aligner seeds there), held
              bit-exact against its plain PyTorch version on the same card
@@ -117,7 +144,7 @@ line each:
              geometry; ``chain_dp`` at every (S, B) the main_auto run
              launched it at, on the lanes that run gave it, bit-exact
              against ``chain.chain_dp_plain`` on the same card tensors.
-             It fails when a launch of either path falls on a geometry
+             It fails when a launch of any of them falls on a geometry
              not held at a batch at least as large (``unheld``);
 9. bp      — at every aligner (max_len, band) of the main path, then at
              main_auto's own buckets, on its
@@ -133,7 +160,11 @@ line each:
              the CPU: the three FASTA must be byte-identical;
 11. profile — the main path once more under ``torch.profiler``: device
              time by kernel and of the ``breaking_points`` range, and the
-             device's idle share.
+             device's idle share;
+12. accuracy — the draft's and the main and main_auto polishes' edit
+             distances to the truth, three native distances side by side
+             after every timed phase; each polish must cut the draft's
+             distance to under a quarter.
 
 Then the ``{"kernels": [...]}`` line (``on_main_path`` false for a kernel
 the engines give none of the main path's launches: K1 since K4's wide
@@ -162,12 +193,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+import racon_tpu_torch.exec as exec_pkg
 from racon_tpu_torch import cli, contracts, faults, native, obs
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
+from racon_tpu_torch.obs import metrics
 from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
                                     sweep_bound, window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
@@ -742,14 +775,14 @@ def unheld_shapes(path, held) -> list:
     return [sh for sh in shapes if held.get(sh[:3], 0) < sh[3]]
 
 
-def phase_kernels(dev, main, auto):
+def phase_kernels(dev, main, auto, shards):
     """Both forward kernels and the walk that follows at every shape the
-    main path (``main``) and the ``--overlaps auto`` path (``auto``)
-    launched: every consensus (Lq, band) of either at its largest and
-    smallest group (K3 at each; K2 at the largest group's geometry, off
-    the main path), and each aligner bucket at the main path's largest
-    chunk there, and again at the auto path's where that is larger or the
-    bucket is the auto path's alone;
+    main path (``main``), the ``--overlaps auto`` path (``auto``) and the
+    shards phase (``shards``) launched: every consensus (Lq, band) of any
+    at its largest and smallest group (K3 at each; K2 at the largest
+    group's geometry, off the main path), and each aligner bucket at the
+    main path's largest chunk there, and again at the auto path's, then
+    the shards phase's, where that is larger or the bucket is new;
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
@@ -763,7 +796,8 @@ def phase_kernels(dev, main, auto):
     auto path's at its own buckets), and the largest batch held at each
     on-path geometry (``("aligner" | "consensus", dims...) -> B``)."""
     consensus = consensus_shapes(main["consensus_group_shapes"]
-                                 + auto["consensus_group_shapes"])
+                                 + auto["consensus_group_shapes"]
+                                 + shards["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -773,14 +807,18 @@ def phase_kernels(dev, main, auto):
                                        if b[:2] == c[:2])
             for c in consensus}
     # the aligner's pairs are drawn with seeds 204, 205, ... in the main
-    # path's bucket order, then the auto path's, each with its own path's
-    # divergence observations
+    # path's bucket order, then the auto path's, then the shards phase's,
+    # each with its own path's divergence observations
     aligner = [((k, v[0], main["aligner_div_obs"], ""), 204 + i)
                for i, (k, v) in enumerate(sorted(chunks.items()))]
-    for k, (Bc, _) in sorted(aligner_buckets(auto).items()):
-        if Bc > chunks.get(k, (0, 0))[0]:
-            aligner.append(((k, Bc, auto["aligner_div_obs"], " (auto path)"),
-                            204 + len(aligner)))
+    largest = {k: v[0] for k, v in chunks.items()}
+    for path, label in ((auto, " (auto path)"),
+                        (shards, " (shards phase)")):
+        for k, (Bc, _) in sorted(aligner_buckets(path).items()):
+            if Bc > largest.get(k, 0):
+                aligner.append(((k, Bc, path["aligner_div_obs"], label),
+                                204 + len(aligner)))
+                largest[k] = Bc
     for (k, Bc, _, _), _ in aligner:
         held[("aligner", *k)] = max(held.get(("aligner", *k), 0), Bc)
     shapes = ([("consensus", c, None) for c in consensus]
@@ -1002,15 +1040,6 @@ def phase_main(dev, mbp=1.0):
     stages = dict(polisher.timings)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
 
-    truth = fasta_seq(paths["truth"])
-    draft = fasta_seq(paths["draft"])
-    t0 = time.perf_counter()
-    # the two O(n^2 / 64) distances run side by side (ctypes drops the GIL)
-    with ThreadPoolExecutor(2) as pool:
-        ed_draft, ed_polished = pool.map(
-            lambda seq: native.edit_distance(seq, truth),
-            [draft, polished[0].data])
-    ed_s = time.perf_counter() - t0
     fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
                      for s in polished)
     out = dict(phase="main", simulate_s=sim_s, wall_s=wall_s,
@@ -1020,9 +1049,7 @@ def phase_main(dev, mbp=1.0):
                overlaps=sum(polisher.targets_coverages),
                native_parse_calls=parse_calls,
                n_contigs=len(polished), polished_len=len(polished[0].data),
-               truth_len=len(truth), ed_draft=ed_draft,
                fwd_body_launches=body_launches,
-               ed_polished=ed_polished, edit_distance_s=ed_s,
                peak_device_bytes=peak,
                aligner_pairs_device=aligner["device"],
                aligner_pairs_host=(aligner["fallback_length"]
@@ -1060,10 +1087,7 @@ def phase_main(dev, mbp=1.0):
         raise RuntimeError("expected one polished contig")
     if set(polished[0].data) - set(b"ACGTN"):
         raise RuntimeError("polished contig holds non-base bytes")
-    if not ed_polished * 4 < ed_draft:
-        raise RuntimeError(f"polishing did not cut the edit distance: "
-                           f"{ed_draft} -> {ed_polished}")
-    return out, paths
+    return out, paths, polished[0].data
 
 
 def fasta_seq(path):
@@ -1106,18 +1130,12 @@ def phase_main_auto(dev, paths, main):
     stats = dict(chain.STATS)
     peak = torch.cuda.max_memory_allocated(dev)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
-    t0 = time.perf_counter()
-    ed_polished = native.edit_distance(polished[0].data,
-                                       fasta_seq(paths["truth"]))
     out = dict(phase="main_auto", wall_s=wall_s, card=gpu_line(),
                stages_s=dict(polisher.timings), launches=launches,
                overlapper=stats, overlaps=sum(polisher.targets_coverages),
                overlaps_paf_path=main["overlaps"],
                native_parse_calls=parse_calls, n_contigs=len(polished),
-               polished_len=len(polished[0].data), ed_draft=main["ed_draft"],
-               ed_polished=ed_polished,
-               ed_polished_paf_path=main["ed_polished"],
-               edit_distance_s=time.perf_counter() - t0,
+               polished_len=len(polished[0].data),
                peak_device_bytes=peak,
                aligner_pairs_device=aligner["device"],
                aligner_div_obs=polisher.aligner._div_obs,
@@ -1133,10 +1151,32 @@ def phase_main_auto(dev, paths, main):
                            f"sequence files natively: {parse_calls}")
     if len(polished) != 1 or set(polished[0].data) - set(b"ACGTN"):
         raise RuntimeError("expected one polished contig of bases")
-    if not ed_polished * 4 < main["ed_draft"]:
-        raise RuntimeError(f"auto polishing did not cut the edit distance: "
-                           f"{main['ed_draft']} -> {ed_polished}")
-    return out, launched
+    return out, launched, polished[0].data
+
+
+def phase_accuracy(record, paths, main_seq, auto_seq) -> dict:
+    """The main and main_auto paths' edit distances to the truth, and the
+    draft's: three O(n^2 / 64) native distances side by side (ctypes drops
+    the GIL), after every timed phase. Each polish must cut the draft's
+    distance to under a quarter."""
+    truth = fasta_seq(paths["truth"])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        ed_draft, ed_main, ed_auto = pool.map(
+            lambda seq: native.edit_distance(seq, truth),
+            [fasta_seq(paths["draft"]), main_seq, auto_seq])
+    out = dict(phase="accuracy", truth_len=len(truth), ed_draft=ed_draft,
+               ed_polished=ed_main, ed_polished_auto=ed_auto,
+               edit_distance_s=time.perf_counter() - t0)
+    record["main"].update(ed_draft=ed_draft, ed_polished=ed_main)
+    record["main_auto"].update(ed_draft=ed_draft, ed_polished=ed_auto,
+                               ed_polished_paf_path=ed_main)
+    emit(out)
+    for name, ed in (("main", ed_main), ("main_auto", ed_auto)):
+        if not ed * 4 < ed_draft:
+            raise RuntimeError(f"the {name} polish did not cut the edit "
+                               f"distance: {ed_draft} -> {ed}")
+    return out
 
 
 # the spans the obs phase prints the timers of (the report's dispatch/fetch
@@ -1258,6 +1298,209 @@ def phase_obs_fault(dev) -> dict:
         faults.reset()
     raise RuntimeError(f"align.dispatch:oom did not raise: "
                        f"{len(polished)} sequences polished")
+
+
+# the runner's own spans, printed beside the polish
+EXEC_SPANS = ("exec.index", "exec.plan", "exec.extract", "exec.merge")
+
+
+@contextlib.contextmanager
+def _runners_made():
+    """Every ``ShardRunner`` built inside (``cli._run_sharded`` included,
+    which imports it from ``racon_tpu_torch.exec`` at the call), so their
+    engines' launch shapes can be read after."""
+    made = []
+    base = exec_pkg.ShardRunner
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    exec_pkg.ShardRunner = Recording
+    try:
+        yield made
+    finally:
+        exec_pkg.ShardRunner = base
+
+
+def _engine_shapes(engine_pairs) -> dict:
+    """The launch shapes of the given (aligner, consensus) pairs."""
+    return dict(
+        aligner_chunk_shapes=[s for a, _ in engine_pairs
+                              for s in a.stats["chunk_shapes"]],
+        consensus_group_shapes=[s for _, c in engine_pairs
+                                for s in c.stats["group_shapes"]])
+
+
+def _shard_rows(summary) -> list:
+    return [{k: e.get(k) for k in ("id", "contigs", "engine", "wall_s",
+                                   "extract_s", "attempts", "timings")}
+            for e in summary["shards"]]
+
+
+def phase_shards(dev, main, paths):
+    """The shard runner on the card (see the module docstring)."""
+    data = ROOT / "build" / "smoke_shards"
+    work = ROOT / "build" / "shards_work"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    sim = write_inputs(1.0, str(data), seed=23, coverage=30, n_contigs=4)
+    triple = (sim["reads"], sim["overlaps"], sim["draft"])
+    faults.reset()
+    # single shot
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = create_polisher(*triple, num_threads=8, aligner="cuda",
+                             consensus="cuda", device=dev)
+    single_fa = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                         for s in single.run())
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    pairs = [(single.aligner, single.consensus)]
+
+    def sharded(name, **kw):
+        runner = exec_pkg.ShardRunner(
+            *triple, num_threads=8, aligner="cuda", consensus="cuda",
+            n_shards=4, device=dev, work_dir=str(work / name),
+            keep_work_dir=True, **kw)
+        buf = io.BytesIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = runner.run(buf)
+        torch.cuda.synchronize()
+        return runner, summary, buf.getvalue(), time.perf_counter() - t0
+
+    # the sharded run, its launches counted from zero
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    runner, summary, fa, wall = sharded("run")
+    launches = dict(cuda_nw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    spans = {k: metrics.timer_s(k) for k in EXEC_SPANS}
+    pairs.append(runner.engines)
+    # resume: every shard skipped, no part touched, no engine built
+    parts = sorted((work / "run").glob("part_*.fasta"))
+    mtimes = [p.stat().st_mtime_ns for p in parts]
+    cuda_nw.reset_launches()
+    resumed, r_summary, r_fa, r_wall = sharded("run", resume=True)
+    resume = dict(wall_s=r_wall, sha256=hashlib.sha256(r_fa).hexdigest(),
+                  engines_built=resumed.engines is not None,
+                  launches=sum(cuda_nw.LAUNCHES.values()),
+                  parts_touched=[p.stat().st_mtime_ns for p in parts]
+                  != mtimes, n_parts=len(parts),
+                  skipped=len(resumed._initially_done))
+    # device-OOM backpressure at the first shard's first attempt
+    with _env(RACON_TPU_FAULTS="exec.polish:oom@1"):
+        faults.reset()
+        oom, o_summary, o_fa, o_wall = sharded("oom")
+    faults.reset()
+    pairs.append(oom.engines)
+    oom_out = dict(
+        wall_s=o_wall, sha256=hashlib.sha256(o_fa).hexdigest(),
+        attempts=o_summary["shards"][0].get("attempts"),
+        engines=[e["engine"] for e in o_summary["shards"]],
+        capacity_scale=[eng.capacity_scale for eng in oom.engines],
+        halved_shapes=_engine_shapes([oom.engines]),
+        halvings=o_summary["faults"].get("backpressure_halvings"))
+    # a fault on the card's engines quarantines its shard (no CPU rung)
+    # and fails the CLI's run; the fault fires before any launch
+    q_argv = ["-t", "8", "-c", "1", "--cudaaligner-batches", "1",
+              "--shards", "4", "--shard-dir", str(work / "quarantine"),
+              *triple]
+    with _env(RACON_TPU_FAULTS="exec.polish:err@1*"), \
+            _runners_made() as q_made, \
+            contextlib.redirect_stdout(io.TextIOWrapper(io.BytesIO())):
+        faults.reset()
+        cuda_nw.reset_launches()
+        q_rc = cli.main(q_argv)
+    faults.reset()
+    q_shards = [e for r in q_made for e in r.summary.get("shards", [])]
+    quarantine = dict(
+        rc=q_rc, runners=len(q_made),
+        status=[e["status"] for e in q_shards],
+        attempts=[[(a["engine"], a["class"], a["action"])
+                   for a in e.get("attempts", [])] for e in q_shards],
+        cpu_engines_built=any(r.cpu_engines is not None for r in q_made),
+        launches=sum(cuda_nw.LAUNCHES.values()))
+    # --shards 1 through the CLI on the main phase's input, its launches
+    # counted from zero
+    argv = ["-t", "8", "-c", "1", "--cudaaligner-batches", "1",
+            "--shards", "1", "--shard-dir", str(work / "cli"),
+            paths["reads"], paths["overlaps"], paths["draft"]]
+    stdout = io.TextIOWrapper(io.BytesIO())
+    cuda_nw.reset_launches()
+    with _runners_made() as made, contextlib.redirect_stdout(stdout):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t0
+    cli_launches = dict(cuda_nw.LAUNCHES)
+    pairs += [r.engines for r in made if r.engines is not None]
+    cli_sha = hashlib.sha256(stdout.buffer.getvalue()).hexdigest()
+    cli_summary = {"shards": [e for r in made
+                              for e in r.summary.get("shards", [])]}
+    # later phases time the main path with spans off
+    obs.trace.deactivate()
+    out = dict(phase="shards", card=gpu_line(), mbp=1.0, n_contigs=4,
+               single_wall_s=single_wall, wall_s=wall,
+               single_sha256=hashlib.sha256(single_fa).hexdigest(),
+               sha256=hashlib.sha256(fa).hexdigest(),
+               shards=_shard_rows(summary), spans_s=spans,
+               peak_rss_bytes=summary["peak_rss_bytes"],
+               peak_device_bytes=peak, launches=launches,
+               resume=resume, oom=oom_out,
+               cli=dict(rc=rc, wall_s=cli_wall, sha256=cli_sha,
+                        main_sha256=main["fasta_sha256"],
+                        launches=cli_launches,
+                        shards=_shard_rows(cli_summary)),
+               quarantine=quarantine,
+               aligner_div_obs=runner.engines[0]._div_obs,
+               **_engine_shapes(pairs))
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")})
+    if out["sha256"] != out["single_sha256"]:
+        raise RuntimeError("the sharded run did not polish the single "
+                           "shot's bytes")
+    clean = [summary, r_summary, cli_summary]
+    if len(cli_summary["shards"]) != 1 or any(
+            e["status"] != "done" or e.get("engine") != "primary"
+            or e.get("attempts") for s in clean for e in s["shards"]):
+        raise RuntimeError("a shard of a run without faults was "
+                           "quarantined, retried or moved to the CPU")
+    for name, counts in (("the sharded run", launches),
+                         ("--shards 1 through the CLI", cli_launches)):
+        if min(counts[k] for k in ("nw_fwd_i16x2", "walk_ops",
+                                   "walk_vote")) <= 0:
+            raise RuntimeError(f"{name} missed a kernel: {counts}")
+    if (quarantine["rc"] != 1 or quarantine["runners"] != 1
+            or quarantine["status"] != ["quarantined"] * 4
+            or quarantine["attempts"] != [[("primary",
+                                            "deterministic-compute",
+                                            "quarantine")]] * 4
+            or quarantine["cpu_engines_built"] or quarantine["launches"]):
+        raise RuntimeError(f"a fault on the card's engines did not "
+                           f"quarantine its shard and fail the run: "
+                           f"{quarantine}")
+    if (resume["sha256"] != out["sha256"] or resume["engines_built"]
+            or resume["launches"] or resume["parts_touched"]
+            or resume["skipped"] != 4):
+        raise RuntimeError(f"the resume did not skip every shard: "
+                           f"{resume}")
+    att = oom_out["attempts"] or []
+    if (oom_out["sha256"] != out["sha256"] or len(att) != 1
+            or (att[0]["class"], att[0]["action"])
+            != ("device-oom", "reduce-capacity")
+            or oom_out["engines"] != ["primary"] * 4
+            or oom_out["capacity_scale"] != [2, 2]
+            or any(e.get("attempts") for e in o_summary["shards"][1:])):
+        raise RuntimeError(f"the injected OOM did not take the "
+                           f"reduce-capacity rung to the same bytes: "
+                           f"{oom_out}")
+    if rc != 0 or cli_sha != main["fasta_sha256"]:
+        raise RuntimeError(f"--shards 1 through the CLI (rc {rc}) did not "
+                           f"polish the main phase's bytes")
+    return out
 
 
 def overlap_split(dev, paths) -> dict:
@@ -1648,15 +1891,18 @@ def main() -> int:
     record["sass"] = phase_sass()
 
     t0 = time.perf_counter()
-    record["main"], paths = phase_main(dev)
+    record["main"], paths, main_seq = phase_main(dev)
     record["main"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    record["main_auto"], launched = phase_main_auto(dev, paths,
-                                                    record["main"])
+    record["main_auto"], launched, auto_seq = phase_main_auto(
+        dev, paths, record["main"])
     record["main_auto"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     record["obs"] = phase_obs(dev, paths, record["main"], line)
     record["obs"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["shards"] = phase_shards(dev, record["main"], paths)
+    record["shards"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
@@ -1666,7 +1912,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     entries, drawn, held = phase_kernels(dev, record["main"],
-                                         record["main_auto"])
+                                         record["main_auto"],
+                                         record["shards"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -1681,9 +1928,9 @@ def main() -> int:
     on_auto = main_path_kernels(record["main_auto"]) | {"chain_dp"}
     missing += [f"{k} (auto)" for k in on_auto
                 if record["main_auto"]["launches"][k] <= 0]
-    # every shape either path launched, held at a batch at least as large
+    # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
-              for p in ("main", "main_auto")}
+              for p in ("main", "main_auto", "shards")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -1693,6 +1940,8 @@ def main() -> int:
 
     record["agree"] = phase_agree(dev)
     record["profile"] = phase_profile(dev, paths)
+    record["accuracy"] = phase_accuracy(record, paths, main_seq, auto_seq)
+    del main_seq, auto_seq
 
     kernels = []
     for name, e in entries.items():
@@ -1703,6 +1952,8 @@ def main() -> int:
                             else "main"]["launches"][name],
             # the PAF main path with the sanitizer's K1 shadows
             launches_sanitized=record["obs"]["launches"][name],
+            # the 4-shard run of the shards phase
+            launches_shards=record["shards"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -17,6 +17,11 @@ only ``--trace`` is given), ``--profile DIR`` a ``torch.profiler`` trace of
 the run; ``RACON_TPU_TRACE`` and ``RACON_TPU_RUN_REPORT`` are the first
 two's environment equivalents. The trace and the report are written on the
 error paths too. None of them changes an output byte.
+
+The streaming shard runner (``racon_tpu_torch.exec``, one worker on one
+device): ``--shards N``, ``--max-ram SIZE``, ``--resume`` and ``--shard-dir
+DIR`` route the run through ``ShardRunner``, whose output bytes equal the
+one-shot run's; its run report is of kind ``exec`` with one row a shard.
 """
 
 from __future__ import annotations
@@ -93,6 +98,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="record the run in torch.profiler and write its "
                         "Chrome trace into DIR")
+    p.add_argument("--shards", type=int, default=0, metavar="N",
+                   help="polish through the streaming shard runner with "
+                        "N memory-bounded shards of target contigs")
+    p.add_argument("--max-ram", default=None, metavar="SIZE",
+                   help="shard the run to keep peak RSS under SIZE "
+                        "(plain number = MB; K/M/G/T suffixes accepted); "
+                        "implies the streaming shard runner")
+    p.add_argument("--resume", action="store_true",
+                   help="resume an interrupted shard run: completed "
+                        "shards are skipped via the checkpoint manifest, "
+                        "only the interrupted one re-runs")
+    p.add_argument("--shard-dir", default=None, metavar="DIR",
+                   help="work directory for shard inputs, part files and "
+                        "the checkpoint manifest (default: a directory "
+                        "derived from the input paths and parameters, "
+                        "removed after a fully successful run; an "
+                        "explicit DIR is kept)")
     return p
 
 
@@ -132,15 +154,60 @@ def _obs_paths(args):
 
 
 def _finish_obs(trace_path, report_path, argv, t_start, t0,
-                phases=None) -> None:
+                phases=None, kind="cli", shards=None) -> None:
     """Write the requested artifacts (on the error paths too). The trace
     goes first, so its ring-overflow gauge lands in the report."""
     if trace_path:
         obs.trace.export(trace_path)
     if report_path:
         obs.report.write_report(report_path, obs.report.build_report(
-            "cli", argv=argv, started_unix=t_start,
-            wall_s=time.perf_counter() - t0, phases=phases))
+            kind, argv=argv, started_unix=t_start,
+            wall_s=time.perf_counter() - t0, phases=phases,
+            shards=shards))
+
+
+def _run_sharded(args, argv, trace_path, report_path, t_start, t0) -> int:
+    """The run through the streaming shard runner (one worker)."""
+    from .exec import ShardRunner, parse_ram
+    try:
+        runner = ShardRunner(
+            args.sequences, args.overlaps, args.target_sequences,
+            type_=PolisherType.F if args.fragment_correction
+            else PolisherType.C,
+            window_length=args.window_length,
+            quality_threshold=args.quality_threshold,
+            error_threshold=args.error_threshold,
+            trim=not args.no_trimming,
+            match=args.match, mismatch=args.mismatch, gap=args.gap,
+            num_threads=args.threads,
+            aligner="cuda" if args.cudaaligner_batches > 0 else "native",
+            consensus="cuda" if args.cudapoa_batches > 0 else "native",
+            aligner_batches=max(1, args.cudaaligner_batches),
+            consensus_batches=max(1, args.cudapoa_batches),
+            banded=args.cuda_banded_alignment,
+            include_unpolished=args.include_unpolished,
+            n_shards=args.shards,
+            max_ram_bytes=parse_ram(args.max_ram) if args.max_ram else 0,
+            resume=args.resume, work_dir=args.shard_dir,
+            device=args.device)
+        with obs.profile(args.profile or ""):
+            runner.run(sys.stdout.buffer)
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"[racon::] error: {e}", file=sys.stderr)
+        _finish_obs(trace_path, report_path, argv, t_start, t0,
+                    kind="exec")
+        return 1
+    _finish_obs(trace_path, report_path, argv, t_start, t0, kind="exec",
+                shards=runner.summary.get("shards"))
+    if runner.summary.get("quarantined"):
+        # the output lacks these shards' contigs: not a finished polish
+        print(f"[racon::] error: shard(s) "
+              f"{runner.summary['quarantined']} quarantined; their "
+              f"contigs are missing from the output. The work dir "
+              f"{runner.work_dir} is kept: rerun with --resume to retry "
+              f"them.", file=sys.stderr)
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
@@ -151,6 +218,9 @@ def main(argv=None) -> int:
     obs.begin(trace_path, report_path)
     t_start = time.time()
     t0 = time.perf_counter()
+    if args.shards or args.max_ram or args.resume or args.shard_dir:
+        return _run_sharded(args, list(argv), trace_path, report_path,
+                            t_start, t0)
     try:
         polisher = create_polisher(
             args.sequences, args.overlaps, args.target_sequences,

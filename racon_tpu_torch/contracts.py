@@ -6,7 +6,7 @@ The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`)
 import their sets from here, and ``tests/test_torch_obs.py`` holds the
 registry to a traced run in both directions: every name a run emits is
 declared, and every declared span is opened by the PAF path, the auto
-path or the device engines. The report schema is the JAX package's
+path, the device engines or the shard runner. The report schema is the JAX package's
 (version 11, every section), so a port report passes the JAX validator
 and a JAX CLI report passes the port's. Stdlib only.
 """
@@ -30,6 +30,9 @@ METRICS: FrozenSet[str] = frozenset((
     "align.chunks", "align.lanes_occupied", "align.lanes_total",
     "align.steps_wasted", "align.wavefront_work", "align.shadow_chunks",
     "aligner.swar_chunks",
+    # device-OOM backpressure (reduce_capacity) in either engine
+    "aligner.capacity_scale", "consensus.capacity_scale",
+    "faults.backpressure_halvings",
     # kernel library builds (obs.buildwatch)
     "compile.build_s", "compile.builds",
     # consensus groups, and the sanitizer's K1 shadows of them
@@ -38,6 +41,10 @@ METRICS: FrozenSet[str] = frozenset((
     "consensus.lanes_occupied", "consensus.lanes_total",
     "consensus.shadow_groups", "consensus.sweep_truncated",
     "consensus.wavefront_steps",
+    # the shard runner's ladder, part verification and leases
+    "exec.backoff_s", "faults.part_corrupt", "faults.stall_escalations",
+    "lease.claimed", "lease.expired", "lease.lost", "lease.reclaimed",
+    "lease.stale_write_suppressed",
     # first-party overlapper
     "overlap.cache_hits", "overlap.cache_misses", "overlap.candidate_pairs",
     "overlap.chains_dropped", "overlap.chains_kept", "overlap.chunks",
@@ -54,6 +61,7 @@ METRICS: FrozenSet[str] = frozenset((
 # f"<prefix>{suffix}" families: the suffix is a runtime value
 DYNAMIC_METRIC_PREFIXES: Tuple[str, ...] = (
     "compile.",          # compile.<library> builds per library
+    "faults.",           # faults.<class> counts of the runner's ladder
     "faults.injected.",  # faults.injected.<site>
     "swallowed.",        # swallowed.<context>|<exception type>
 )
@@ -76,6 +84,8 @@ SPANS: FrozenSet[str] = frozenset((
     "bp.decode",
     "build.backbone", "build.store", "build.windows",
     "consensus", "consensus.feed", "consensus.finish", "consensus.run",
+    "exec.extract", "exec.index", "exec.merge", "exec.plan",
+    "exec.shard",
     "overlap.chain", "overlap.chain.dispatch", "overlap.chain.fetch",
     "overlap.filter", "overlap.join.dispatch", "overlap.join.fetch",
     "overlap.match", "overlap.seed", "overlap.seed.dispatch",
@@ -90,7 +100,9 @@ SPANS: FrozenSet[str] = frozenset((
 
 # the RACON_TPU_FAULTS injection points (faults.check call sites)
 FAULT_SITES: Tuple[str, ...] = ("consensus.dispatch", "align.dispatch",
-                                "align.fetch")
+                                "align.fetch", "part.write",
+                                "manifest.write", "worker.kill",
+                                "exec.polish")
 
 FAULT_KINDS: Tuple[str, ...] = ("io", "enospc", "oom", "err", "stall",
                                 "kill")

@@ -20,8 +20,9 @@ Every phase is a span of the JAX package's name (``parse.*``,
 ``overlap.filter``, ``transmute``, ``align``, ``bp.decode``, ``build.*``,
 ``queue.put``/``queue.get``, ``consensus*``, ``stitch``), the queue
 publishes its depth and wait times, and under the sanitizer a watchdog
-watches the queue. Left out (the JAX package keeps them): the
-exec/serve/fleet runners with their stall escalation, and the resident
+watches the queue; with ``stall_escalation`` (the shard runner's) a
+persistent stall fails the run with a ``stall``-class fault. Left out
+(the JAX package keeps them): the serve/fleet hooks and the resident
 dataflow.
 
 ``--overlaps auto`` (the literal ``auto`` in place of an overlaps file)
@@ -40,12 +41,12 @@ import enum
 import sys
 import threading
 import time
-from queue import Empty, Queue
+from queue import Empty, Full, Queue
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from .. import obs, sanitize
+from .. import faults, obs, sanitize
 from ..device import resolve
 from ..io import parsers
 from ..obs import metrics
@@ -73,11 +74,26 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     num_threads: int = 1, aligner="native",
                     consensus="native",
                     aligner_batches: int = 1, consensus_batches: int = 1,
-                    banded: bool = False, device="cuda") -> "Polisher":
+                    banded: bool = False, device="cuda", *,
+                    window_type=None, prefiltered_overlaps: bool = False,
+                    evict_reads: bool = False,
+                    stall_escalation: bool = False) -> "Polisher":
     """Factory with the reference's validation rules. ``aligner`` and
     ``consensus`` name a backend (``cuda`` or ``native``) or pass a
     prebuilt engine; ``device`` is where the ``cuda``
-    backends run (``cpu`` runs the kernels' plain PyTorch versions)."""
+    backends run (``cpu`` runs the kernels' plain PyTorch versions).
+
+    The keyword-only tail is the shard runner's (``racon_tpu_torch.exec``):
+    ``window_type`` pins the NGS/TGS heuristic to the whole input's
+    decision (a shard's read subset must not flip it);
+    ``prefiltered_overlaps`` marks an overlaps file as already globally
+    filtered (the runner's index replayed the per-query-group filter over
+    the whole file; running it again on a shard's lines could merge groups
+    the whole file keeps apart); ``evict_reads`` releases the read
+    payloads once the window layers hold their copies; and
+    ``stall_escalation`` lets the sanitizer's queue watchdog fail a
+    persistently stalled ``run()`` with :class:`faults.StallError`, which
+    the runner's ladder handles (a plain run only dumps the stacks)."""
     if not isinstance(type_, PolisherType):
         raise ValueError("invalid polisher type")
     if window_length <= 0:
@@ -104,13 +120,19 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
     return Polisher(sequences_path, overlaps_path, target_path, type_,
                     window_length, quality_threshold, error_threshold, trim,
                     num_threads, aligner, consensus,
-                    device=resolve(device) if auto else device)
+                    device=resolve(device) if auto else device,
+                    window_type=window_type,
+                    prefiltered_overlaps=prefiltered_overlaps,
+                    evict_reads=evict_reads,
+                    stall_escalation=stall_escalation)
 
 
 class Polisher:
     def __init__(self, sequences_path, overlaps_path, target_path, type_,
                  window_length, quality_threshold, error_threshold, trim,
-                 num_threads, aligner, consensus, device="cuda"):
+                 num_threads, aligner, consensus, device="cuda",
+                 window_type=None, prefiltered_overlaps=False,
+                 evict_reads=False, stall_escalation=False):
         self.sequences_path = sequences_path
         self.overlaps_path = overlaps_path
         self.target_path = target_path
@@ -124,6 +146,11 @@ class Polisher:
         self.consensus = consensus
         # where the overlapper runs (``--overlaps auto`` only)
         self.device = device
+        # the shard runner's hooks (see create_polisher)
+        self._window_type_override = window_type
+        self.prefiltered_overlaps = prefiltered_overlaps
+        self.evict_reads = evict_reads
+        self.stall_escalation = stall_escalation
         self.logger = Logger()
         self.sequences: List[Sequence] = []
         self.windows: List[Window] = []
@@ -237,6 +264,8 @@ class Polisher:
         self._window_type = (WindowType.NGS
                              if total_len / raw_index <= 1000
                              else WindowType.TGS)
+        if self._window_type_override is not None:
+            self._window_type = self._window_type_override
         log.log("[racon_tpu::Polisher::initialize] loaded sequences")
         log.log()
         self.timings["load_reads_s"] = time.perf_counter() - t1
@@ -260,7 +289,8 @@ class Polisher:
         t3 = time.perf_counter()
         self.timings["load_overlaps_s"] = t3 - t2
         with obs.span("overlap.filter"):
-            overlaps = self._filter_overlaps(overlaps)
+            if not self.prefiltered_overlaps:
+                overlaps = self._filter_overlaps(overlaps)
         if not overlaps:
             raise ValueError("empty overlap set")
         for o in overlaps:
@@ -626,6 +656,7 @@ class Polisher:
             (0 if o.breaking_points is None else len(o.breaking_points)
              for o in overlaps), np.int64, n_ov)
         if int(counts.sum()) == 0:
+            self._evict_reads()
             if emit is not None:
                 emit(0, n_win)
             return
@@ -662,6 +693,16 @@ class Polisher:
                 emit(w0, w1)
         for o in overlaps:
             o.breaking_points = None
+        self._evict_reads()
+
+    def _evict_reads(self) -> None:
+        """With ``evict_reads``: release every read's payload. The layer
+        store pooled its own copy of each read span a layer uses, and the
+        stitch reads only the targets, so the read bytes are dead from
+        here on."""
+        if self.evict_reads:
+            for seq in self.sequences[self.targets_size:]:
+                seq.release()
 
     # -------------------------------------------------------------- polish
 
@@ -719,10 +760,31 @@ class Polisher:
             getattr(self.consensus, "group_pairs_hint", 32768) / depth))
         ranges: Queue = Queue(maxsize=4)
         failure: List[BaseException] = []
+        stall_mark = object()
+
+        def escalate():
+            # the watchdog's second timeout (stall_escalation only): fail
+            # the attempt with a stall-class fault and unblock both sides
+            failure.append(faults.StallError(
+                "init->polish queue made no progress past the "
+                "escalation timeout — failing the attempt with a "
+                "stall-class fault"))
+            try:
+                ranges.get_nowait()
+            except Empty:  # graftlint: disable=swallowed-exception (best-effort unblock of a producer)
+                pass
+            try:
+                ranges.put_nowait(stall_mark)
+            except Full:  # graftlint: disable=swallowed-exception (best-effort unblock of a consumer)
+                pass
+
         # the sanitizer's stall monitor over the queue: it dumps every
-        # thread's stack when neither side moves for its timeout (None
-        # unless RACON_TPU_SANITIZE)
-        watchdog = sanitize.queue_watchdog("init->polish queue")
+        # thread's stack when neither side moves for its timeout, and with
+        # stall_escalation fails the run after a second one (None unless
+        # RACON_TPU_SANITIZE)
+        watchdog = sanitize.queue_watchdog(
+            "init->polish queue",
+            escalate_cb=escalate if self.stall_escalation else None)
 
         def emit_range(a, b):
             if watchdog is not None:
@@ -770,6 +832,8 @@ class Polisher:
                     metrics.set_gauge("queue.depth", ranges.qsize())
                     if watchdog is not None:
                         watchdog.beat()
+                    if item is stall_mark:
+                        raise failure[0]
                     if item is None:
                         if failure:
                             raise failure[0]
@@ -803,7 +867,13 @@ class Polisher:
                         polished[a:b] = flags[pos:pos + b - a]
                         pos += b - a
                 t_end = time.perf_counter()
-        except BaseException:
+        except BaseException as e:
+            # after a stall escalation the producer (or the queue) is
+            # wedged: draining would hang again, so the daemon thread is
+            # abandoned (it touches only this polisher) and the fault goes
+            # to the runner's ladder
+            if isinstance(e, faults.StallError):
+                raise
             # a consensus fault must not leave the producer blocked on the
             # bounded queue: drain it (without blocking: the sentinel may
             # be gone already) and join the thread before raising

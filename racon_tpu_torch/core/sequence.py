@@ -62,6 +62,15 @@ class Sequence:
         self._reverse_quality = (self.quality[::-1]
                                  if self.quality is not None else None)
 
+    def release(self) -> None:
+        """Drop every byte payload (data, quality, reverse complement),
+        keeping the name: the shard runner's eviction hook, once a read's
+        window layers hold their own copies of its spans."""
+        self.data = b""
+        self.quality = None
+        self._reverse_complement = None
+        self._reverse_quality = None
+
     def transmute(self, has_name: bool, has_data: bool, has_reverse_data: bool) -> None:
         if not has_name:
             self.name = b""

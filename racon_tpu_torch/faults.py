@@ -1,17 +1,21 @@
 """Fault classification and seeded fault injection (counterpart of
-``racon_tpu/faults.py`` at the port's three injection sites).
+``racon_tpu/faults.py`` at the port's seven injection sites).
 
 **Classification**: :func:`classify` puts any failure in one of four
 classes: ``transient-io`` (a retryable errno), ``device-oom`` (an
 allocation failure: :class:`DeviceOOMError`, or any exception whose text
 says out of memory — ``torch.cuda.OutOfMemoryError`` says "CUDA out of
 memory"), ``stall`` (:class:`StallError`) and ``deterministic-compute``
-(everything else). The port has no retry ladder yet: a fault raises.
+(everything else). The shard runner (``racon_tpu_torch.exec.runner``)
+walks a failed shard down its ladder by this class; a plain polish raises.
 
 **Injection**: ``RACON_TPU_FAULTS=site:kind[@N][*][%P],...``
 
 - *site*: ``align.dispatch``, ``align.fetch`` (the aligner's chunk launch
-  and fetch) or ``consensus.dispatch`` (a consensus group's rounds);
+  and fetch), ``consensus.dispatch`` (a consensus group's rounds), or the
+  shard runner's ``exec.polish`` (a shard attempt's polish),
+  ``part.write``, ``manifest.write`` and ``worker.kill`` (a shard's
+  start);
 - *kind*: ``io`` (EIO), ``enospc``, ``oom``, ``err``, ``stall``, ``kill``
   (SIGKILL of the process);
 - ``@N`` fires on the Nth hit of the site (1-based, default 1), ``*``
@@ -19,6 +23,10 @@ memory"), ``stall`` (:class:`StallError`) and ``deterministic-compute``
   from a per-site RNG seeded by ``RACON_TPU_FAULTS_SEED`` and the site
   name. The same spec and seed fire at the same calls as in the JAX
   package.
+
+``RACON_TPU_EXEC_FAULT_SHARD=N`` (``N*``: every attempt) is the legacy
+alias: it faults shard N's first attempt (every attempt) at
+``exec.polish`` with :data:`LEGACY_MESSAGE`.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ class DeviceOOMError(RuntimeError):
 
 
 class StallError(RuntimeError):
-    """A stalled pipeline (injected; the queue watchdog only reports)."""
+    """A stalled pipeline: injected, or the queue watchdog's escalation in
+    a shard runner's polish."""
 
 
 class TransientIOError(OSError):
@@ -92,6 +101,8 @@ def backoff_s(base: float, k: int, token: str) -> float:
 
 KNOWN_SITES = contracts.FAULT_SITES
 _KINDS = contracts.FAULT_KINDS
+
+LEGACY_MESSAGE = "injected device-engine fault (RACON_TPU_EXEC_FAULT_SHARD)"
 
 
 @dataclass
@@ -149,6 +160,7 @@ def parse_spec(raw: str) -> Dict[str, List[FaultSpec]]:
 _lock = threading.Lock()
 _cache_key: Optional[tuple] = None
 _specs: Dict[str, List[FaultSpec]] = {}
+_legacy: Optional[tuple] = None   # (shard id, every attempt)
 _hits: Dict[str, int] = {}
 _fired: set = set()
 _rngs: Dict[str, random.Random] = {}
@@ -165,16 +177,21 @@ def reset() -> None:
         _rngs.clear()
 
 
-def _refresh_locked(raw: str) -> None:
-    global _cache_key, _specs
-    key = (raw, flags.get_int("RACON_TPU_FAULTS_SEED"))
+def _refresh_locked(raw: str, legacy_raw: str) -> None:
+    global _cache_key, _specs, _legacy
+    key = (raw, legacy_raw, flags.get_int("RACON_TPU_FAULTS_SEED"))
     if key == _cache_key:
         return
     _cache_key = key
-    _specs = parse_spec(raw)
+    _specs = parse_spec(raw) if raw else {}
     _hits.clear()
     _fired.clear()
     _rngs.clear()
+    legacy_raw = legacy_raw.strip()
+    if legacy_raw.endswith("*"):
+        _legacy = (int(legacy_raw[:-1]), True)
+    else:
+        _legacy = (int(legacy_raw), False) if legacy_raw else None
 
 
 def _rng_locked(site: str) -> random.Random:
@@ -202,29 +219,39 @@ def _fire(site: str, kind: str) -> None:
     raise InjectedFault(f"injected deterministic fault at {site}")
 
 
-def check(site: str) -> None:
+def check(site: str, *, shard: Optional[int] = None,
+          attempt: int = 0) -> None:
     """An injection point: raises (or kills the process) when the active
-    spec fires at this hit of ``site``; with no spec set, one environment
-    lookup."""
+    spec fires at this hit of ``site``; with no spec set, two environment
+    lookups. ``shard`` and ``attempt`` feed the legacy alias at
+    ``exec.polish``."""
     raw = flags.get_str("RACON_TPU_FAULTS")
-    if not raw:
+    legacy_raw = flags.get_str("RACON_TPU_EXEC_FAULT_SHARD")
+    if not raw and not legacy_raw.strip():
         return
     kind = None
     with _lock:
-        _refresh_locked(raw)
-        n = _hits[site] = _hits.get(site, 0) + 1
-        for i, spec in enumerate(_specs.get(site, ())):
-            if spec.prob is not None:
-                if _rng_locked(site).random() < spec.prob:
+        _refresh_locked(raw, legacy_raw)
+        if site == "exec.polish" and _legacy is not None and \
+                shard == _legacy[0] and (_legacy[1] or attempt == 0):
+            kind = "legacy"
+        else:
+            n = _hits[site] = _hits.get(site, 0) + 1
+            for i, spec in enumerate(_specs.get(site, ())):
+                if spec.prob is not None:
+                    if _rng_locked(site).random() < spec.prob:
+                        kind = spec.kind
+                        break
+                elif spec.every:
+                    if n >= spec.at:
+                        kind = spec.kind
+                        break
+                elif n == spec.at and (site, i) not in _fired:
+                    _fired.add((site, i))
                     kind = spec.kind
                     break
-            elif spec.every:
-                if n >= spec.at:
-                    kind = spec.kind
-                    break
-            elif n == spec.at and (site, i) not in _fired:
-                _fired.add((site, i))
-                kind = spec.kind
-                break
+    if kind == "legacy":
+        metrics.inc("faults.injected.exec.polish")
+        raise InjectedFault(LEGACY_MESSAGE)
     if kind is not None:
         _fire(site, kind)

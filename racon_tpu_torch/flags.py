@@ -62,10 +62,38 @@ REGISTRY: Dict[str, Flag] = _declare([
          "stack to stderr."),
     Flag("RACON_TPU_FAULTS", "", "str",
          "Seeded site-addressed fault injection: 'site:kind[@N][*][%P],...' "
-         "with sites consensus.dispatch / align.dispatch / align.fetch and "
+         "with sites consensus.dispatch / align.dispatch / align.fetch / "
+         "part.write / manifest.write / worker.kill / exec.polish and "
          "kinds io, enospc, oom, err, stall, kill (see faults.py)."),
     Flag("RACON_TPU_FAULTS_SEED", "0", "int",
          "Seed of the probabilistic (%P) fault draws."),
+    # ------------------------------------------------ the shard runner
+    Flag("RACON_TPU_HEARTBEAT_S", "30", "float",
+         "Shard runner progress line interval in seconds (0 disables the "
+         "periodic line; a line at every shard's end always prints)."),
+    Flag("RACON_TPU_EXEC_FAULT_SHARD", "", "str",
+         "Test hook: fault the named shard's polish ('2' its first "
+         "attempt, exercising the CPU retry of host engines or the "
+         "quarantine of card engines; '2*' every attempt, exercising "
+         "quarantine)."),
+    Flag("RACON_TPU_EXEC_SLEEP_S", "0", "float",
+         "Test hook: sleep this many seconds before polishing every shard "
+         "after the first (widens the window of kill/resume tests)."),
+    Flag("RACON_TPU_WORKER", "", "str",
+         "Worker identity in shard leases, manifest entries and progress "
+         "lines (default hostname:pid)."),
+    Flag("RACON_TPU_EXEC_LEASE_TTL_S", "30", "float",
+         "Shard lease time-to-live in seconds: a lease whose mtime is "
+         "older marks a dead worker, and its shard may be reclaimed."),
+    Flag("RACON_TPU_EXEC_POLL_S", "1", "float",
+         "Idle wait between shard-claim passes while every remaining "
+         "shard is leased by another worker."),
+    Flag("RACON_TPU_EXEC_RETRIES", "3", "int",
+         "Transient-io retries of a shard, with exponential backoff on the "
+         "same engines, before it moves down the ladder."),
+    Flag("RACON_TPU_EXEC_BACKOFF_S", "0.5", "float",
+         "Base of the transient-fault backoff (doubled each retry, with a "
+         "deterministic jitter)."),
 ])
 
 

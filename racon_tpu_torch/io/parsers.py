@@ -8,6 +8,12 @@ native build raises ``native.NativeBuildError``. The Python loops
 ``_parse_*_py`` are the behavioural oracle the tests hold the native
 records equal to, field for field, and are called only by name.
 
+The span scanners (``scan_sequence_spans``, ``scan_line_spans``) and the
+byte-range copies (``iter_byte_ranges``, ``copy_byte_ranges``) serve the
+shard runner (``racon_tpu_torch.exec``): one metadata pass records where
+each record lies, and a shard later copies just its records verbatim.
+They are plain Python, like the JAX package's.
+
 Matches bioparser's observable behaviour, as the reference package does:
 names are truncated at the first whitespace character, FASTA/FASTQ records
 may span multiple lines, gzip is detected by magic bytes, and the
@@ -47,13 +53,21 @@ def overlaps_mode(path: str) -> str:
 
 
 class ParseError(ValueError):
-    """A malformed input record, with its file and 1-based line."""
+    """A malformed input record, with its file and its 1-based line (the
+    Python parsers) or its byte offset in the decompressed stream (the
+    span scanners)."""
 
-    def __init__(self, path: str, msg: str, line: Optional[int] = None):
+    def __init__(self, path: str, msg: str, line: Optional[int] = None,
+                 offset: Optional[int] = None):
         self.path = path
         self.line = line
+        self.offset = offset
         self.msg = msg
-        loc = path if line is None else f"{path}:{line}"
+        loc = path
+        if line is not None:
+            loc += f":{line}"
+        if offset is not None:
+            loc += f" (byte {offset})"
         super().__init__(f"{loc}: {msg}")
 
 
@@ -303,3 +317,159 @@ def overlap_parser_for(path: str):
     if _has_suffix(path, (".sam", ".sam.gz")):
         return parse_sam
     return None
+
+
+# --------------------------------------------------- indexed byte-range IO
+#
+# Offsets are decompressed-stream offsets, so the same coordinates serve
+# plain and gzipped files: a plain file seeks, a gzipped one takes one
+# forward inflate pass per call. Spans are copied verbatim, so multi-line
+# records and exact quality bytes round-trip bit for bit.
+
+@dataclass
+class RecordSpan:
+    """One sequence record's ``[start, end)`` span in the decompressed
+    stream, its name as the parsers truncate it, its base count and
+    whether it carries qualities."""
+    name: bytes
+    start: int
+    end: int
+    bases: int
+    has_quality: bool = False
+
+
+def _scan_fasta_spans(path: str) -> Iterator[RecordSpan]:
+    pos = 0
+    name = None
+    start = 0
+    bases = 0
+    with open_maybe_gzip(path) as f:
+        for raw in f:
+            line_start = pos
+            pos += len(raw)
+            line = raw.rstrip()
+            if not line:
+                continue
+            if line.startswith(b">"):
+                if name is not None:
+                    yield RecordSpan(name, start, line_start, bases)
+                name = _first_token(line[1:])
+                if not name:
+                    raise ParseError(path, "FASTA header with an empty "
+                                           "sequence name",
+                                     offset=line_start)
+                start = line_start
+                bases = 0
+            elif name is None:
+                raise ParseError(
+                    path, f"sequence data before the first FASTA "
+                          f"header: {line[:40]!r}", offset=line_start)
+            else:
+                bases += len(line)
+        if name is not None:
+            yield RecordSpan(name, start, pos, bases)
+
+
+def _scan_fastq_spans(path: str) -> Iterator[RecordSpan]:
+    with open_maybe_gzip(path) as f:
+        pos = 0
+        it = iter(f)
+        for raw in it:
+            start = pos
+            pos += len(raw)
+            header = raw.rstrip()
+            if not header:
+                continue
+            if not header.startswith(b"@"):
+                raise ParseError(
+                    path, f"malformed FASTQ header: {header[:40]!r}",
+                    offset=start)
+            name = _first_token(header[1:])
+            bases = 0
+            for raw in it:
+                pos += len(raw)
+                line = raw.rstrip()
+                if line.startswith(b"+"):
+                    break
+                bases += len(line)
+            qlen = 0
+            while qlen < bases:
+                try:
+                    raw = next(it)
+                except StopIteration:
+                    raise ParseError(
+                        path, f"truncated FASTQ record for {name!r}",
+                        offset=start) from None
+                pos += len(raw)
+                qlen += len(raw.rstrip())
+            yield RecordSpan(name, start, pos, bases, True)
+
+
+def scan_sequence_spans(path: str):
+    """The record spans of a FASTA/FASTQ file (the parsers' extension
+    dispatch, name truncation and multi-line tolerance; adjacent records'
+    spans tile the file): an iterator of :class:`RecordSpan`, or None for
+    an unsupported extension."""
+    if _has_suffix(path, FASTQ_EXTENSIONS):
+        return _scan_fastq_spans(path)
+    if _has_suffix(path, SEQUENCE_EXTENSIONS):
+        return _scan_fasta_spans(path)
+    return None
+
+
+def scan_line_spans(path: str) -> Iterator[tuple]:
+    """``(start, end, stripped_line)`` for every raw line of a (possibly
+    gzipped) text file."""
+    pos = 0
+    with open_maybe_gzip(path) as f:
+        for raw in f:
+            start = pos
+            pos += len(raw)
+            yield start, pos, raw.rstrip()
+
+
+def iter_byte_ranges(path: str, ranges) -> Iterator[bytes]:
+    """The decompressed bytes of each sorted, non-overlapping ``(start,
+    end)`` range: a plain file seeks to each range, a gzipped file takes
+    one forward pass (inflate cannot seek)."""
+    f = open(path, "rb")
+    try:
+        if f.peek(2)[:2] == b"\x1f\x8b":
+            with io.BufferedReader(gzip.open(f)) as g:  # type: ignore[arg-type]
+                pos = 0
+                for start, end in ranges:
+                    if start < pos:
+                        raise ValueError("ranges must be sorted and "
+                                         "non-overlapping")
+                    while pos < start:
+                        skipped = len(g.read(min(1 << 20, start - pos)))
+                        if not skipped:
+                            raise ValueError(f"range past EOF in {path}")
+                        pos += skipped
+                    parts = []
+                    while pos < end:
+                        chunk = g.read(min(1 << 20, end - pos))
+                        if not chunk:
+                            raise ValueError(f"range past EOF in {path}")
+                        parts.append(chunk)
+                        pos += len(chunk)
+                    yield b"".join(parts)
+        else:
+            for start, end in ranges:
+                f.seek(start)
+                data = f.read(end - start)
+                if len(data) != end - start:
+                    raise ValueError(f"range past EOF in {path}")
+                yield data
+    finally:
+        f.close()
+
+
+def copy_byte_ranges(path: str, ranges, out) -> int:
+    """Append each range's bytes to the binary stream ``out``; returns
+    the number of bytes copied."""
+    total = 0
+    for blob in iter_byte_ranges(path, ranges):
+        out.write(blob)
+        total += len(blob)
+    return total

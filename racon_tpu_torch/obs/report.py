@@ -1,11 +1,14 @@
-"""Run reports: one schema-versioned ``run_report.json`` per CLI run
-(counterpart of ``racon_tpu/obs/report.py`` for kind ``cli``).
+"""Run reports: one schema-versioned ``run_report.json`` per CLI run or
+shard run (counterpart of ``racon_tpu/obs/report.py`` for the kinds
+``cli`` and ``exec``).
 
 The report is built from the metrics registry and the polisher's
 ``timings`` at the end of the run: per-phase wall clock, the
 dispatch/fetch split from the span timers, lane occupancy, queue stalls,
-swallowed faults, injected faults, kernel-library builds, the overlapper's
-counters, peak RSS and the registry's snapshot. The schema is the JAX
+swallowed faults, injected faults and the ladder's fault classes, lease
+counters, kernel-library builds, the overlapper's counters, peak RSS, the
+registry's snapshot and, for a shard run, one row per shard
+(:func:`shard_row`). The schema is the JAX
 package's version 11 with every section present (sections the port has no
 subsystem for read zeros or ``{}``); :func:`validate_report` checks it,
 ``python -m racon_tpu_torch.obs check FILE`` from the shell.
@@ -62,6 +65,25 @@ _COMPILES_NUM_KEYS = tuple(sorted(
 _OVERLAP_NUM_KEYS = tuple(sorted(_SCHEMA_KEYS["overlap"] - {"mode"}))
 _COMPILE_EVENT_STR_KEYS = ("fn", "signature", "phase")
 
+# a shard row's key -> (accepted types, required)
+_SHARD_ROW = {
+    "id": (int, True),
+    "status": (str, True),
+    "engine": (str, False),
+    "worker": (str, False),             # the lease owner that finished it
+    "mbp": (_NUM, False),
+    "wall_s": (_NUM, False),
+    "extract_s": (_NUM, False),
+    "timings": (dict, False),
+    "retrace": (dict, False),
+    "peak_rss_mb": (int, False),
+    "reason": (str, False),
+    "attempts": (list, False),          # the degradation ladder's record
+    "crc32": (int, False),              # the part's checksum
+    "reclaimed": (int, False),          # stale-lease takeovers
+    "device": (int, False),             # chip ordinal (multi-chip plans)
+}
+
 
 def _zeros(section: str) -> Dict[str, int]:
     return {k: 0 for k in sorted(_SCHEMA_KEYS[section])}
@@ -69,11 +91,13 @@ def _zeros(section: str) -> Dict[str, int]:
 
 def build_report(kind: str = "cli", *, argv: Optional[list] = None,
                  started_unix: float = 0.0, wall_s: float = 0.0,
-                 phases: Optional[Dict[str, float]] = None) -> dict:
+                 phases: Optional[Dict[str, float]] = None,
+                 shards: Optional[List[dict]] = None) -> dict:
     """Assemble a report from the registry and the caller's phase
-    timings (``Polisher.timings``)."""
+    timings (``Polisher.timings``) and, for a shard run, the manifest's
+    shard entries."""
     t = metrics.timer_s
-    return {
+    rep = {
         "schema_version": SCHEMA_VERSION,
         "kind": kind,
         "argv": [str(a) for a in (argv or [])],
@@ -96,7 +120,13 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
         "queue": metrics.queue_summary(),
         "swallowed": {k: int(v) for k, v in
                       metrics.group("swallowed.").items()},
-        "faults": {k: int(v) for k, v in metrics.group("faults.").items()},
+        # the ladder's fault classes, injected sites and backpressure
+        # halvings, and the lease lifecycle
+        "faults": {
+            **{k: int(v) for k, v in metrics.group("faults.").items()},
+            **{f"lease.{k}": int(v)
+               for k, v in metrics.group("lease.").items()},
+        },
         # zeros: the port has no polishing service, no resident
         # dataflow and no fleet gateway (the JAX package's numbers
         # outside those modes), and one device (no per-chip rows)
@@ -109,6 +139,21 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
         "peak_rss_bytes": metrics.peak_rss_bytes(),
         "metrics": metrics.snapshot(),
     }
+    if shards is not None:
+        rep["shards"] = [shard_row(e) for e in shards]
+    return rep
+
+
+def shard_row(entry: dict) -> dict:
+    """One report row from a manifest shard entry: the schema's keys
+    only (the part's file name stays in the manifest)."""
+    row = {"id": int(entry["id"]), "status": str(entry["status"])}
+    for key in ("engine", "worker", "mbp", "wall_s", "extract_s",
+                "timings", "retrace", "peak_rss_mb", "reason",
+                "attempts", "crc32", "reclaimed", "device"):
+        if entry.get(key) is not None:
+            row[key] = entry[key]
+    return row
 
 
 # ------------------------------------------------------------- validation
@@ -193,6 +238,26 @@ def validate_report(rep) -> List[str]:
             errors.append(f"metrics[{kind!r}] missing or not an object")
         else:
             _check_numeric_dict(errors, store, f"metrics.{kind}")
+    for i, row in enumerate(rep.get("shards", [])):
+        if not isinstance(row, dict):
+            errors.append(f"shards[{i}] is not an object")
+            continue
+        for key, (types, required) in _SHARD_ROW.items():
+            if key not in row:
+                if required:
+                    errors.append(f"shards[{i}] missing {key!r}")
+                continue
+            if not isinstance(row[key], types) \
+                    or isinstance(row[key], bool):
+                errors.append(f"shards[{i}][{key!r}] has type "
+                              f"{type(row[key]).__name__}")
+        for key in set(row) - set(_SHARD_ROW):
+            errors.append(f"shards[{i}] unknown key {key!r}")
+        for j, att in enumerate(row.get("attempts") or []):
+            if not isinstance(att, dict) or "class" not in att \
+                    or "action" not in att:
+                errors.append(f"shards[{i}].attempts[{j}] is not a "
+                              f"ladder record (class/action)")
     return errors
 
 

@@ -751,3 +751,64 @@ def find_overlaps(read_seqs: List[bytes], target_seqs: List[bytes],
         return _empty_rows()
     return {key: np.concatenate([p[key] for p in parts])
             for key in _ROW_KEYS}
+
+
+def paf_bytes_rowwise(rows: Dict[str, np.ndarray],
+                      read_names: List[bytes], read_lens: np.ndarray,
+                      target_names: List[bytes],
+                      target_lens: np.ndarray, *, k: int
+                      ) -> List[bytes]:
+    """One row at a time, the oracle of :func:`paf_bytes`."""
+    out: List[bytes] = []
+    for i in range(rows["q_ord"].size):
+        q = int(rows["q_ord"][i])
+        t = int(rows["t_idx"][i])
+        qb, qe = int(rows["q_begin"][i]), int(rows["q_end"][i])
+        tb, te = int(rows["t_begin"][i]), int(rows["t_end"][i])
+        matches = min(int(rows["n_seeds"][i]) * k, qe - qb, te - tb)
+        alen = max(qe - qb, te - tb)
+        out.append(b"\t".join((
+            read_names[q], str(int(read_lens[q])).encode(),
+            str(qb).encode(), str(qe).encode(),
+            b"-" if int(rows["strand"][i]) else b"+",
+            target_names[t], str(int(target_lens[t])).encode(),
+            str(tb).encode(), str(te).encode(),
+            str(matches).encode(), str(alen).encode(), b"255"))
+            + b"\n")
+    return out
+
+
+def paf_bytes(rows: Dict[str, np.ndarray], read_names: List[bytes],
+              read_lens: np.ndarray, target_names: List[bytes],
+              target_lens: np.ndarray, *, k: int) -> List[bytes]:
+    """The overlapper's rows as 12-column PAF lines (newline included;
+    matches ``min(n_seeds * k, query span, target span)``, block length
+    the longer span, quality 255): the shard runner's ``--overlaps auto``
+    file, the same bytes on every run. Each column is formatted as one
+    numpy array and the columns joined once per row."""
+    n = int(rows["q_ord"].size)
+    if n == 0:
+        return []
+    q = rows["q_ord"]
+    t = rows["t_idx"]
+    qb, qe = rows["q_begin"], rows["q_end"]
+    tb, te = rows["t_begin"], rows["t_end"]
+    matches = np.minimum(np.minimum(rows["n_seeds"] * k, qe - qb),
+                         te - tb)
+    alen = np.maximum(qe - qb, te - tb)
+
+    def fmt(col):
+        return np.char.mod(b"%d", np.asarray(col, np.int64)
+                           ).astype(object)
+
+    qn = np.asarray(read_names, object)[q]
+    tn = np.asarray(target_names, object)[t]
+    strand = np.where(rows["strand"] != 0, b"-", b"+").astype(object)
+    tab = np.full(n, b"\t", object)
+    line = qn
+    for col in (fmt(np.asarray(read_lens)[q]), fmt(qb), fmt(qe),
+                strand, tn, fmt(np.asarray(target_lens)[t]),
+                fmt(tb), fmt(te), fmt(matches), fmt(alen)):
+        line = np.char.add(np.char.add(line, tab), col)
+    line = np.char.add(line, np.full(n, b"\t255\n", object))
+    return list(line)

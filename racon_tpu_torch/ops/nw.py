@@ -262,13 +262,34 @@ class CudaAligner:
                       "chunk_shapes": []}
         # the sanitizer's pick of the K4 chunks it shadows with K1
         self._shadow = sanitize.ShadowSampler()
+        # device-OOM backpressure: the shard runner's ladder doubles this
+        # (reduce_capacity) and re-dispatches; 1 is full capacity
+        self.capacity_scale = 1
 
     # ----------------------------------------------------------- geometry
 
+    # chunks stop shrinking here: past a 16x cut the per-chunk fixed costs
+    # dominate (the consensus engine keeps the same limit)
+    _MAX_CAPACITY_SCALE = 16
+
     @property
     def dirs_budget_cap(self) -> int:
-        """Direction-matrix bytes in flight, at most."""
-        return max(1, self.max_dirs_bytes)
+        """Direction-matrix bytes in flight, at most: ``max_dirs_bytes``
+        over the backpressure scale."""
+        return max(1, self.max_dirs_bytes // self.capacity_scale)
+
+    def reduce_capacity(self) -> bool:
+        """Halve the direction-matrix budget (device-OOM backpressure, the
+        shard runner's ``reduce-capacity`` rung): every later chunk is cut
+        against half the bytes. False once at ``_MAX_CAPACITY_SCALE``.
+        Pairs are independent, so the bytes a run polishes do not
+        change."""
+        if self.capacity_scale >= self._MAX_CAPACITY_SCALE:
+            return False
+        self.capacity_scale *= 2
+        metrics.set_gauge("aligner.capacity_scale", self.capacity_scale)
+        metrics.inc("faults.backpressure_halvings")
+        return True
 
     def chunk_dirs_budget(self) -> int:
         """Direction-matrix bytes of one chunk: the in-flight budget split

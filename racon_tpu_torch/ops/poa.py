@@ -24,7 +24,8 @@ the parity oracle); both give the same bytes.
 What the JAX package does for the TPU and the port does not copy: the
 one-hot/int8-limb matmul vote reduction and its compaction routing (an
 integer ``index_add_`` into int64 is exact in any order here), the mesh
-split, the resident lane ingest and the OOM backpressure (later slices).
+split and the resident lane ingest (later slices). ``reduce_capacity``
+(device-OOM backpressure) halves the pair arena and the group size.
 Nor does it copy the Pallas probe, the int32 retry or the refetch on a
 fault: a kernel fault raises.
 
@@ -787,18 +788,43 @@ class CudaPoaConsensus:
                       "rounds_after_converged": 0, "group_shapes": []}
         # the sanitizer's pick of the K4 groups it shadows with K1
         self._shadow = sanitize.ShadowSampler()
+        # device-OOM backpressure: the shard runner's ladder doubles this
+        # (reduce_capacity) and re-dispatches; 1 is full capacity
+        self.capacity_scale = 1
+
+    # groups stop shrinking here: a 16x cut is already 94% of the working
+    # set, and smaller groups would pay their fixed costs (the fetch)
+    # over too few pairs
+    _MAX_CAPACITY_SCALE = 16
 
     @property
     def group_pairs_cap(self) -> int:
-        """Pairs per device group (``TpuPoaConsensus.group_pairs_cap`` at
-        full capacity)."""
-        return MAX_GROUP_PAIRS
+        """Pairs per device group under the backpressure scale
+        (``MAX_GROUP_PAIRS`` at 1), floored at 2048 (never above the
+        configured cap)."""
+        return max(min(2048, MAX_GROUP_PAIRS),
+                   MAX_GROUP_PAIRS // self.capacity_scale)
 
     @property
     def arena_lanes_cap(self) -> int:
-        """The ragged lane-arena budget (``TpuPoaConsensus.
-        arena_lanes_cap`` at full capacity)."""
-        return ARENA_LANES
+        """The ragged lane-arena budget under the backpressure scale
+        (``ARENA_LANES`` at 1), floored at 2048 * 1024 lanes (never above
+        the configured arena)."""
+        return max(min(2048 * 1024, ARENA_LANES),
+                   ARENA_LANES // self.capacity_scale)
+
+    def reduce_capacity(self) -> bool:
+        """Halve the pair arena and the group size (device-OOM
+        backpressure, the shard runner's ``reduce-capacity`` rung). False
+        once at ``_MAX_CAPACITY_SCALE``. Windows are independent and the
+        vote accumulation is exact, so smaller groups polish the same
+        bytes."""
+        if self.capacity_scale >= self._MAX_CAPACITY_SCALE:
+            return False
+        self.capacity_scale *= 2
+        metrics.set_gauge("consensus.capacity_scale", self.capacity_scale)
+        metrics.inc("faults.backpressure_halvings")
+        return True
 
     def cap_pairs_for(self, L: int, band: int) -> int:
         """Greedy-fill pair budget of a ragged bucket: the lane arena over

@@ -12,7 +12,9 @@
   (:func:`check_aligner_canaries`, :func:`check_consensus_canaries`).
 - **Queue watchdog**: :class:`QueueWatchdog` watches the pipelined
   polish's bounded queue and dumps every thread's stack to stderr when
-  neither side moves for the timeout.
+  neither side moves for the timeout; given an ``escalate_cb`` (the shard
+  runner's polishes) it also calls it once a stall outlasts
+  ``escalate_after`` timeouts.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from . import flags
+from .obs import metrics
 from .utils.logger import warn
 
 
@@ -147,17 +150,26 @@ class QueueWatchdog:
     """Stall monitor of a bounded producer/consumer queue: call
     :meth:`beat` on every put and get; when no beat lands for ``timeout``
     seconds the watchdog dumps every thread's stack once for that stall
-    and counts it in ``fired``. It reports; it never ends the run."""
+    and counts it in ``fired``. Without an ``escalate_cb`` it reports and
+    never ends the run. With one, a stall that lasts past ``timeout *
+    escalate_after`` calls it once for that stall (counted in
+    ``faults.stall_escalations``): the pipelined polish then fails with a
+    ``stall``-class fault."""
 
-    def __init__(self, timeout: float, name: str = "queue", stream=None):
+    def __init__(self, timeout: float, name: str = "queue", stream=None,
+                 escalate_cb=None, escalate_after: float = 2.0):
         self.timeout = float(timeout)
         self.name = name
         self.fired = 0
         self._stream = stream
+        self._escalate_cb = escalate_cb
+        self._escalate_after = max(1.0, float(escalate_after))
         self._last = time.monotonic()
         self._dumped_for_beat = -1.0
+        self._escalated_for_beat = -1.0
         self._stop = threading.Event()
         self.stalled = threading.Event()  # set on each dump
+        self.escalated = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
     def beat(self) -> None:
@@ -180,20 +192,35 @@ class QueueWatchdog:
         poll = max(0.01, self.timeout / 4.0)
         while not self._stop.wait(poll):
             last = self._last
-            if (time.monotonic() - last > self.timeout
-                    and self._dumped_for_beat != last):
+            idle = time.monotonic() - last
+            if idle > self.timeout and self._dumped_for_beat != last:
                 self._dumped_for_beat = last
                 self.fired += 1
                 warn(f"{self.name} stalled for > {self.timeout:.1f}s")
                 dump_all_stacks(f"{self.name} made no progress for "
                                 f"{self.timeout:.1f}s", self._stream)
                 self.stalled.set()
+            if (self._escalate_cb is not None
+                    and idle > self.timeout * self._escalate_after
+                    and self._escalated_for_beat != last):
+                self._escalated_for_beat = last
+                metrics.inc("faults.stall_escalations")
+                warn(f"{self.name} still stalled after "
+                     f"{self.timeout * self._escalate_after:.1f}s — "
+                     f"escalating to a stall-class fault")
+                try:
+                    self._escalate_cb()
+                except Exception as e:  # the watchdog thread must go on
+                    warn(f"{self.name} stall-escalation callback "
+                         f"failed: {type(e).__name__}: {e}")
+                self.escalated.set()
 
 
-def queue_watchdog(name: str) -> Optional[QueueWatchdog]:
+def queue_watchdog(name: str,
+                   escalate_cb=None) -> Optional[QueueWatchdog]:
     """A started watchdog with the flag's timeout when the sanitizer is
     on, else None (callers beat with ``if wd:``)."""
     if not enabled():
         return None
     return QueueWatchdog(flags.get_float("RACON_TPU_SANITIZE_WATCHDOG_S"),
-                         name).start()
+                         name, escalate_cb=escalate_cb).start()

@@ -121,16 +121,18 @@ def simulate(mbp: float, seed: int = 23, coverage: int = 30,
 
 
 def write_inputs(mbp: float, out_dir: str, seed: int = 23,
-                 coverage: int = 30) -> dict:
+                 coverage: int = 30, n_contigs: int = 0) -> dict:
     """Generate and write the input triple (+ truth contigs) to
-    ``out_dir``. Exists as a CLI so benches can generate big workloads in
+    ``out_dir``; ``n_contigs`` cuts the genome into that many contigs
+    (default: one per 2 Mbp). Exists as a CLI so benches can generate big workloads in
     a THROWAWAY subprocess: a 100 Mbp set materializes several GB of read
     bytes, and generating in-process would bake that into the parent's
     peak RSS — exactly the number the shard-runner bench budgets."""
     import os
 
     reads, paf, contigs, truths = simulate(mbp, seed=seed,
-                                           coverage=coverage)
+                                           coverage=coverage,
+                                           n_contigs=n_contigs)
     os.makedirs(out_dir, exist_ok=True)
     paths = {"reads": os.path.join(out_dir, "reads.fastq"),
              "overlaps": os.path.join(out_dir, "ovl.paf"),

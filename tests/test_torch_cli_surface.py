@@ -1,7 +1,8 @@
 """The port CLI against the JAX CLI on the host engines, on the CPU.
 
-Both CLIs run with no ``-c`` and no ``--*aligner-batches``, so both
-align and build consensus with their native C++ engines; what differs is
+Both CLIs run with no ``-c`` and no ``--*aligner-batches`` (but in the
+last case below), so both align and build consensus with their native C++
+engines; what differs is
 the Python around them: the parsers (the port's native parser, the JAX
 package's), the filter, the transmute, the windows and the stitch. On
 ``write_inputs(0.01, seed=5)`` each variant's stdout must be
@@ -9,8 +10,10 @@ byte-identical: gzipped reads, overlaps and draft; MHAP and SAM overlaps
 made from the PAF; FASTA reads; ``-u`` with an extra 3 kbp contig that no
 overlap reaches; ``-w 1000``; ``-m 5 -x -4 -g -8``; ``--overlaps auto``
 (the first-party overlapper; the port's on ``--device cpu``, its plain
-versions) in contig and fragment (``-f``) mode. The two CLIs of a case run
-side by side.
+versions) in contig and fragment (``-f``) mode; and ``-b --no-trimming -q
+15`` with the device engines (JAX ``-c 1 --tpualigner-batches 1``, the
+port ``--device cpu -c 1 --cudaaligner-batches 1``), where ``-b`` halves
+the consensus band. The two CLIs of a case run side by side.
 """
 
 import gzip
@@ -72,11 +75,17 @@ CASES = {
                "draft"),
     "auto": ([], "reads", "auto", "draft"),
     "auto_fragment": (["-f"], "reads", "auto", "reads"),
+    "banded_device": (["-b", "--no-trimming", "-q", "15"], "reads",
+                      "overlaps", "draft"),
 }
 # options only the port CLI takes: its overlapper runs on the card unless
 # told otherwise
 PORT_OPTIONS = {"auto": ["--device", "cpu"],
-                "auto_fragment": ["--device", "cpu"]}
+                "auto_fragment": ["--device", "cpu"],
+                "banded_device": ["--device", "cpu", "-c", "1",
+                                  "--cudaaligner-batches", "1"]}
+# the JAX CLI's names of the device engines
+JAX_OPTIONS = {"banded_device": ["-c", "1", "--tpualigner-batches", "1"]}
 
 
 def _cli(module, args, extra_env):
@@ -90,7 +99,7 @@ def _cli(module, args, extra_env):
 def test_port_cli_matches_jax_cli_on_host_engines(files, case):
     opts, *keys = CASES[case]
     args = ["-t", "2", *opts, *[files[k] for k in keys]]
-    jax_proc = _cli("racon_tpu", args,
+    jax_proc = _cli("racon_tpu", JAX_OPTIONS.get(case, []) + args,
                     {"JAX_PLATFORMS": "cpu", "XLA_FLAGS":
                      "--xla_force_host_platform_device_count=1"})
     port_proc = _cli("racon_tpu_torch", PORT_OPTIONS.get(case, []) + args,

@@ -9,6 +9,8 @@ votes, so the kernel and its plain version agree bit for bit (direction
 rows below each pair's ``n + m``, which are the rows a walk reads).
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -478,3 +480,48 @@ def test_overlapper_card_matches_cpu(cuda_device):
     assert rows["cuda"]["q_ord"].size > 100
     for key in rows["cpu"]:
         assert np.array_equal(rows["cuda"][key], rows["cpu"][key]), key
+
+
+def test_shard_runner_survives_a_real_cuda_oom(cuda_device, tmp_path):
+    """A real ``torch.cuda.OutOfMemoryError`` on the 1 Mbp input: with
+    all but 12 GiB of the card taken, the aligner's first full-size chunk
+    (2048 pairs at (16384, 4096): 16 GiB of direction rows) cannot be
+    allocated. The runner's ladder frees the failed attempt, halves both
+    engines' capacity until the chunks fit, and polishes the bytes of the
+    same run on a free card, on the card (``engine: primary``)."""
+    from racon_tpu_torch.exec import ShardRunner
+    from racon_tpu_torch.utils.simulate import write_inputs
+    paths = write_inputs(1.0, str(tmp_path / "in"), seed=23)
+    triple = (paths["reads"], paths["overlaps"], paths["draft"])
+
+    def run(name):
+        runner = ShardRunner(*triple, num_threads=8, aligner="cuda",
+                             consensus="cuda", n_shards=1,
+                             device=cuda_device,
+                             work_dir=str(tmp_path / name))
+        buf = io.BytesIO()
+        return runner, runner.run(buf), buf.getvalue()
+
+    clean_runner, clean, want = run("clean")
+    assert not clean["shards"][0].get("attempts")
+    del clean_runner
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    hog = torch.empty(free - (12 << 30), dtype=torch.uint8,
+                      device=cuda_device)
+    try:
+        runner, summary, got = run("oom")
+    finally:
+        del hog
+        torch.cuda.empty_cache()
+    entry = summary["shards"][0]
+    attempts = entry.get("attempts") or []
+    print("attempts:", attempts)
+    assert got == want
+    assert entry["engine"] == "primary"
+    assert attempts and all((a["class"], a["action"])
+                            == ("device-oom", "reduce-capacity")
+                            for a in attempts)
+    assert "out of memory" in attempts[0]["error"]
+    assert [e.capacity_scale for e in runner.engines] == \
+        [2 ** len(attempts)] * 2

@@ -4,8 +4,8 @@ faults.py``) against the JAX package's ``racon_tpu/faults.py``, on the CPU:
 - ``classify`` gives the JAX class on a list of exceptions, a
   ``torch.cuda.OutOfMemoryError`` (``device-oom``) among them;
 - ``parse_spec`` parses the grammar of ``tests/test_faults.py`` as JAX
-  does at the port's three sites, rejects the same malformed entries, and
-  rejects the JAX package's other sites as unknown;
+  does at the port's three engine sites, rejects the same malformed
+  entries, and rejects the JAX package's service sites as unknown;
 - one-shot, persistent and seeded-probability specs fire at the same calls
   in both packages;
 - ``align.dispatch``, ``align.fetch`` and ``consensus.dispatch`` injected
@@ -113,8 +113,8 @@ def test_parse_spec_rejects_like_jax(raw, match):
             mod.parse_spec(raw)
 
 
-@pytest.mark.parametrize("site", ["part.write", "worker.kill",
-                                  "manifest.write", "serve.polish"])
+@pytest.mark.parametrize("site", ["serve.journal", "server.kill",
+                                  "serve.socket", "serve.polish"])
 def test_jax_only_sites_are_unknown_to_the_port(site):
     jax_faults.parse_spec(f"{site}:io")
     with pytest.raises(ValueError, match="unknown"):

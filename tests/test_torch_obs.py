@@ -15,13 +15,15 @@
   and ``flags.py`` is the port's only reader of the environment;
 - the contract in both directions: every metric and span name that traced
   polisher runs emit (the PAF path on the device engines, the auto path,
-  a consensus stream forced through stage B) is declared in
-  ``racon_tpu_torch/contracts.py``, and every declared span is emitted.
+  a consensus stream forced through stage B, a shard runner's run) is
+  declared in ``racon_tpu_torch/contracts.py``, and every declared span
+  is emitted.
 
 The counters' equality with the JAX engines' is in
 ``test_torch_obs_counters.py``.
 """
 
+import io
 import json
 import os
 import pathlib
@@ -39,6 +41,7 @@ from racon_tpu import flags as jax_flags
 from racon_tpu.obs import report as jax_report
 from racon_tpu_torch import contracts, flags, obs
 from racon_tpu_torch.core.polisher import create_polisher
+from racon_tpu_torch.exec import ShardRunner
 from racon_tpu_torch.obs import metrics, report, trace
 from racon_tpu_torch.ops import overlap_seed
 from racon_tpu_torch.ops import poa as tpoa
@@ -357,7 +360,8 @@ def traced_runs(tmp_path_factory):
     with 0.7-1.3 kbp reads: the PAF path on the device engines, the auto
     path (device aligner, host consensus, so the consensus takes the
     per-range run), and a device consensus stream forced through stage
-    B. Returns (names per run, the exported trace events)."""
+    B, and a shard runner's run on the host engines (its ``exec.*``
+    spans). Returns (names per run, the exported trace events)."""
     saved = torch.get_num_threads()
     torch.set_num_threads(2)
     d = tmp_path_factory.mktemp("traced")
@@ -401,6 +405,11 @@ def traced_runs(tmp_path_factory):
             setattr(tpoa, k, v)
     assert eng.stats["stage_b_windows"] > 0
     names["stage_b"] = _emitted_names()
+    trace.deactivate()
+    obs.begin(None, str(d / "r.json"))
+    ShardRunner(str(d / "r.fastq"), str(d / "o.paf"), str(d / "d.fasta"),
+                num_threads=2, work_dir=str(d / "exec")).run(io.BytesIO())
+    names["exec"] = _emitted_names()
     trace.deactivate()
     torch.set_num_threads(saved)
     return names, events
