@@ -34,6 +34,27 @@ line each:
              the files the native parser read (``native_parse_calls``:
              the draft and the reads, then the overlaps; the polisher
              parses nothing another way);
+   resident — the main phase's polish again with ``RACON_TPU_RESIDENT=1``
+             (the resident align->layers dataflow): each accepted align
+             chunk keeps its breaking-point tables on the card, the layer
+             rows are derived there (``nw.derive_layer_rows``), one stable
+             sort by window runs there and one table comes back
+             (``nw.finalize_layer_table``). It fails unless the FASTA's
+             SHA-256 equals the main phase's, the ``dataflow.resident``
+             gauge is 1 with no bail-out, and K4, K2 and K3 launched
+             (counted from zero just before the run). It prints the
+             ``dataflow`` counters (``bytes_fetched``, ``bytes_avoided``,
+             ``fallback_pairs``) beside the bytes the main phase's aligner
+             fetched, ``window_derive_s``, ``layer_store_s`` and
+             ``build_windows_s`` (the producer's time in the
+             ``build.windows`` span) beside the main phase's, the wall and
+             peak device bytes beside the main phase's, the pool
+             upload's bytes and seconds, and, at the run's
+             largest chunk, the CUDA-event ms of ``derive_layer_rows`` and
+             of the run's ``finalize_layer_table`` with their byte bounds;
+             the card's derived rows and table must equal the same
+             functions on the CPU from the fetched tables. Its launch
+             shapes join the kernels phase's ``unheld`` check;
 6. main_auto — the same polish with ``--overlaps auto``:
              ``create_polisher(reads, "auto", draft, ...)`` on the same
              1 Mbp inputs, so the first-party overlapper (minimizer seeding
@@ -198,6 +219,7 @@ from racon_tpu_torch import cli, contracts, faults, native, obs
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
+from racon_tpu_torch.ops import nw as nw_ops
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.obs import metrics
@@ -775,14 +797,16 @@ def unheld_shapes(path, held) -> list:
     return [sh for sh in shapes if held.get(sh[:3], 0) < sh[3]]
 
 
-def phase_kernels(dev, main, auto, shards):
+def phase_kernels(dev, main, auto, shards, resident):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
-    shards phase (``shards``) launched: every consensus (Lq, band) of any
+    shards phase (``shards``) and the resident phase (``resident``)
+    launched: every consensus (Lq, band) of any
     at its largest and smallest group (K3 at each; K2 at the largest
     group's geometry, off the main path), and each aligner bucket at the
     main path's largest chunk there, and again at the auto path's, then
-    the shards phase's, where that is larger or the bucket is new;
+    the shards phase's and the resident phase's, where that is larger or
+    the bucket is new;
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
@@ -797,7 +821,8 @@ def phase_kernels(dev, main, auto, shards):
     on-path geometry (``("aligner" | "consensus", dims...) -> B``)."""
     consensus = consensus_shapes(main["consensus_group_shapes"]
                                  + auto["consensus_group_shapes"]
-                                 + shards["consensus_group_shapes"])
+                                 + shards["consensus_group_shapes"]
+                                 + resident["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -813,7 +838,8 @@ def phase_kernels(dev, main, auto, shards):
                for i, (k, v) in enumerate(sorted(chunks.items()))]
     largest = {k: v[0] for k, v in chunks.items()}
     for path, label in ((auto, " (auto path)"),
-                        (shards, " (shards phase)")):
+                        (shards, " (shards phase)"),
+                        (resident, " (resident phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 aligner.append(((k, Bc, path["aligner_div_obs"], label),
@@ -1088,6 +1114,114 @@ def phase_main(dev, mbp=1.0):
     if set(polished[0].data) - set(b"ACGTN"):
         raise RuntimeError("polished contig holds non-base bytes")
     return out, paths, polished[0].data
+
+
+def phase_resident(dev, paths, main):
+    """The main phase's polish with the resident dataflow on (see the
+    module docstring). The derive of every chunk and the run's finalize
+    are recorded as they run, so the largest chunk's derive and the
+    finalize are timed and held against the CPU on the run's own
+    inputs."""
+    derives, finals, n_derives = [], [], [0]
+    derive0 = nw_ops._DevChunkBp.derive
+    finalize0 = nw_ops.finalize_layer_table
+
+    def derive(chunk, *args):
+        out = derive0(chunk, *args)
+        n_derives[0] += 1
+        if not derives or chunk.B * chunk.max_len > \
+                derives[0][0].B * derives[0][0].max_len:
+            derives[:] = [(chunk, args)]
+        return out
+
+    def finalize(parts, host_flat, src):
+        finals.append((list(parts), host_flat, src))
+        return finalize0(parts, host_flat, src)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    metrics.clear("dataflow.")
+    nw_ops._DevChunkBp.derive = derive
+    nw_ops.finalize_layer_table = finalize
+    try:
+        with _env(RACON_TPU_RESIDENT="1"):
+            t0 = time.perf_counter()
+            polisher = create_polisher(paths["reads"], paths["overlaps"],
+                                       paths["draft"], num_threads=8,
+                                       aligner="cuda", consensus="cuda",
+                                       device=dev)
+            polished = polisher.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        nw_ops._DevChunkBp.derive = derive0
+        nw_ops.finalize_layer_table = finalize0
+    launches = dict(cuda_nw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    dataflow = metrics.dataflow_summary()
+    stages = dict(polisher.timings)
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polished)
+
+    # the largest chunk's derive on the card, timed, and on the CPU from
+    # the chunk's fetched tables and the pool copied back
+    chunk, args = derives[0]
+    card_rows = chunk.derive(*args)
+    derive_ms = time_ms(lambda: chunk.derive(*args), 5)
+    fp, lp = chunk.fetch()
+    cpu_chunk = nw_ops._DevChunkBp(
+        torch.from_numpy(fp.astype(np.int32)),
+        torch.from_numpy(lp.astype(np.int32)), chunk.w, chunk.max_len)
+    cpu_rows = cpu_chunk.derive(args[0].cpu(), *args[1:])
+    B, NW, Lq = chunk.B, chunk.NW, chunk.max_len
+    # bytes: both tables and each lane's pool span read, the rows written
+    d_bound, d_by = bound(0, 8 * B * NW + 2 * B * Lq + 24 * B * NW)
+    parts, host_flat, src = finals[0]
+    table = finalize0(parts, host_flat, src)
+    fin_ms = time_ms(lambda: finalize0(parts, host_flat, src), 5)
+    cpu_table = finalize0([p.cpu() for p in parts], host_flat, src)
+    T = len(src)
+    # bytes: src and the gathered rows read, the sorted table written
+    f_bound, f_by = bound(0, 8 * T + 24 * T + 24 * T)
+    out = dict(
+        phase="resident", wall_s=wall_s, main_wall_s=main["wall_s"],
+        card=gpu_line(), fasta_sha256=hashlib.sha256(fasta).hexdigest(),
+        main_fasta_sha256=main["fasta_sha256"], dataflow=dataflow,
+        main_aligner_fetched_bytes=main["aligner_fetched_bytes"],
+        aligner_fetched_bytes=polisher.aligner.stats["fetched_bytes"],
+        window_derive_s=stages.get("window_derive_s"),
+        layer_store_s=stages.get("layer_store_s"),
+        build_windows_s=stages["build_windows_s"],
+        main_build_windows_s=main["stages_s"]["build_windows_s"],
+        stages_s=stages, peak_device_bytes=peak,
+        main_peak_device_bytes=main["peak_device_bytes"],
+        pool_upload=polisher._resident_info, launches=launches,
+        derive=dict(shape=f"B={B} NW={NW} Lq={Lq}", calls=n_derives[0],
+                    ms=derive_ms, bound_ms=d_bound, bound_by=d_by,
+                    cpu_equal=torch.equal(card_rows.cpu(), cpu_rows)),
+        finalize=dict(rows_in=sum(p.shape[0] for p in parts) + len(host_flat),
+                      rows=T, ms=fin_ms, bound_ms=f_bound, bound_by=f_by,
+                      cpu_equal=bool(np.array_equal(table, cpu_table))),
+        aligner_chunk_shapes=polisher.aligner.stats["chunk_shapes"],
+        consensus_group_shapes=polisher.consensus.stats["group_shapes"],
+        aligner_div_obs=polisher.aligner._div_obs)
+    del derives, finals, parts, card_rows, chunk, args
+    emit(out)
+    if out["fasta_sha256"] != main["fasta_sha256"]:
+        raise RuntimeError("the resident dataflow did not polish the main "
+                           "phase's bytes")
+    if dataflow["resident"] != 1 or dataflow["resident_bailouts"] != 0:
+        raise RuntimeError(f"the resident dataflow did not run: {dataflow}")
+    idle = [k for k in ("nw_fwd_i16x2", "walk_ops", "walk_vote")
+            if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels not launched on the resident path: "
+                           f"{idle}")
+    if not (out["derive"]["cpu_equal"] and out["finalize"]["cpu_equal"]):
+        raise RuntimeError("the card's derived rows or layer table differ "
+                           "from the CPU's")
+    return out
 
 
 def fasta_seq(path):
@@ -1702,7 +1836,7 @@ def phase_bp(dev, drawn, w=500):
         al._finish_chunk_bp(launched, band, got, reject, bp_meta)
         cig_al = CudaAligner(device=dev)
         walked = cig_al._launch_chunk(pairs, chunk, max_len, band)
-        _, _, n, m, (ops_d, _, _, _) = walked
+        _, _, n, m, (ops_d, _, _, _), _ = walked
         cigars, cig_reject = [None] * C, []
         cig_al._finish_chunk(walked, band, cigars, cig_reject)
         ok = sorted(reject) == sorted(cig_reject)
@@ -1894,6 +2028,9 @@ def main() -> int:
     record["main"], paths, main_seq = phase_main(dev)
     record["main"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["resident"] = phase_resident(dev, paths, record["main"])
+    record["resident"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["main_auto"], launched, auto_seq = phase_main_auto(
         dev, paths, record["main"])
     record["main_auto"]["seconds"] = time.perf_counter() - t0
@@ -1913,7 +2050,8 @@ def main() -> int:
     t0 = time.perf_counter()
     entries, drawn, held = phase_kernels(dev, record["main"],
                                          record["main_auto"],
-                                         record["shards"])
+                                         record["shards"],
+                                         record["resident"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -1930,7 +2068,7 @@ def main() -> int:
                 if record["main_auto"]["launches"][k] <= 0]
     # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
-              for p in ("main", "main_auto", "shards")}
+              for p in ("main", "main_auto", "shards", "resident")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()

@@ -22,8 +22,15 @@ Every phase is a span of the JAX package's name (``parse.*``,
 publishes its depth and wait times, and under the sanitizer a watchdog
 watches the queue; with ``stall_escalation`` (the shard runner's) a
 persistent stall fails the run with a ``stall``-class fault. Left out
-(the JAX package keeps them): the serve/fleet hooks and the resident
-dataflow.
+(the JAX package keeps them): the serve/fleet hooks and the consensus side
+of the resident dataflow.
+
+With ``RACON_TPU_RESIDENT=1`` (the resident dataflow, aligner side) a
+device aligner keeps each accepted chunk's breaking-point tables on its
+device, the layer rows of every chunk are derived there, one stable sort
+by window runs there, and the layer store is built from the one table
+fetched (:meth:`Polisher._assemble_layers_resident`); the host path is
+its parity oracle, and the two precondition bail-outs return to it.
 
 ``--overlaps auto`` (the literal ``auto`` in place of an overlaps file)
 runs the first-party overlapper (``ops/overlap_seed.py``, ``ops/chain.py``)
@@ -46,7 +53,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .. import faults, obs, sanitize
+from .. import faults, flags, obs, sanitize
 from ..device import resolve
 from ..io import parsers
 from ..obs import metrics
@@ -163,6 +170,11 @@ class Polisher:
         self._backbone_s = 0.0
         # wall-clock stage times (seconds)
         self.timings: Dict[str, float] = {}
+        # the resident align->layers dataflow: accepted breaking points
+        # stay on the aligner's device and layer rows derive there;
+        # _resident_info holds the pool upload's bytes and seconds
+        self._resident = flags.get_bool("RACON_TPU_RESIDENT")
+        self._resident_info: Dict[str, float] = {}
 
     # ---------------------------------------------------------- initialize
 
@@ -467,6 +479,10 @@ class Polisher:
         t0 = time.perf_counter()
         with obs.span("bp.decode"):
             todo = [o for o in overlaps if o.breaking_points is None]
+            if todo and self._resident:
+                # SAM CIGARs and a host aligner's: the resident dataflow's
+                # host-decoded share
+                metrics.inc("dataflow.fallback_pairs", len(todo))
             if todo:
                 arrs = decode_breaking_points_batch(
                     [o.cigar or "" for o in todo],
@@ -491,7 +507,8 @@ class Polisher:
         chunk = 65536
         sess = self.aligner.bp_stream(
             self.window_length, total=len(need),
-            progress=lambda d, t: log.bar_to(msg, d, t))
+            progress=lambda d, t: log.bar_to(msg, d, t),
+            resident=self._resident)
         for begin in range(0, len(need), chunk):
             part = need[begin:begin + chunk]
             pairs = [(o.query_span_bytes(self.sequences),
@@ -524,7 +541,8 @@ class Polisher:
         overlaps go through :meth:`_align_device`."""
         sess = self.aligner.bp_stream(
             self.window_length, total=len(need),
-            progress=lambda d, t: log.bar_to(msg, d, t))
+            progress=lambda d, t: log.bar_to(msg, d, t),
+            resident=self._resident)
         feed_wall = 0.0
         t0 = time.perf_counter()
         for batch in feed:
@@ -647,6 +665,9 @@ class Polisher:
         :class:`LayerStore` the windows view. With ``emit``, the windows
         are attached ``chunk_windows`` at a time and ``emit(a, b)`` is
         called once windows ``[a, b)`` have their layers."""
+        if self._resident and self._assemble_layers_resident(
+                overlaps, emit, chunk_windows):
+            return
         n_ov = len(overlaps)
         n_win = len(self.windows)
         t_ids = np.fromiter((o.t_id for o in overlaps), np.int64, n_ov)
@@ -681,6 +702,15 @@ class Polisher:
                 data_refs, qual_refs, pair_ov[order], q_first[order],
                 q_endx[order], win_id[order], layer_begin[order],
                 layer_end[order], n_win)
+        self._attach_layers(store, overlaps, emit, chunk_windows)
+
+    def _attach_layers(self, store: LayerStore, overlaps: List[Overlap],
+                       emit, chunk_windows: int) -> None:
+        """Give every window its rows of ``store``, ``chunk_windows`` at a
+        time, calling ``emit(a, b)`` once windows ``[a, b)`` have theirs;
+        then drop the overlaps' breaking points and, with ``evict_reads``,
+        the reads."""
+        n_win = len(self.windows)
         bounds = store.row_bounds
         chunk_windows = chunk_windows or max(1, n_win)
         for w0 in range(0, n_win, chunk_windows):
@@ -694,6 +724,162 @@ class Polisher:
         for o in overlaps:
             o.breaking_points = None
         self._evict_reads()
+
+    def _assemble_layers_resident(self, overlaps: List[Overlap], emit,
+                                  chunk_windows: int) -> bool:
+        """The resident layer assembly
+        (``racon_tpu.core.polisher.Polisher._assemble_layers_resident``):
+        the layer rows of every align chunk are derived on the aligner's
+        device from its resident tables (``nw.derive_layer_rows``), the
+        host-fallback pairs' rows go through :meth:`_filter_layer_rows`,
+        one stable sort by window runs on the device, and the one table
+        fetched becomes the :class:`LayerStore`. The same bytes as the host
+        path: the derive is that filter in integer form.
+
+        Returns True when it built the layers. Returns False, after
+        decoding every device handle on the host so that the host body
+        sees plain rows, when there is no handle (a host aligner, SAM
+        input) or a precondition of the integer forms fails: a quality
+        threshold that is fractional or outside [0, 2^20), or a quality
+        byte below 33. Each such bail-out is counted and logged."""
+        from ..ops import nw
+        dev = [(i, o.breaking_points) for i, o in enumerate(overlaps)
+               if getattr(o.breaking_points, "is_device_resident", False)]
+        if not dev:
+            return False
+
+        def bail(reason: str) -> bool:
+            metrics.inc("dataflow.resident_bailouts")
+            metrics.set_gauge("dataflow.resident", 0)
+            self.logger.log(
+                f"[racon_tpu::Polisher::initialize] resident dataflow "
+                f"falling back to host assembly ({reason})")
+            for i, h in dev:
+                overlaps[i].breaking_points = h.decode_host()
+            return False
+
+        qthr = self.quality_threshold
+        if not float(qthr).is_integer() or not 0 <= qthr < (1 << 20):
+            return bail("non-integer quality threshold")
+        n_ov = len(overlaps)
+        n_win = len(self.windows)
+        t_ids = np.fromiter((o.t_id for o in overlaps), np.int64, n_ov)
+        self.targets_coverages = np.bincount(
+            t_ids, minlength=self.targets_size).tolist()
+        data_refs, qual_refs = self._layer_refs(overlaps)
+        # every overlap pooled up front: a superset of the host path's
+        # pool of kept rows, with the same bytes for every row
+        t_store = time.thread_time()
+        with obs.span("build.store", rows=n_ov):
+            (pool, qpool, qpw_pool, ov_off, hq_ov,
+             has_q_base) = LayerStore._build_pool(
+                data_refs, qual_refs, np.arange(n_ov))
+        self.timings["layer_store_s"] = time.thread_time() - t_store
+        if has_q_base.any() and int(qpool[has_q_base].min()) < 33:
+            return bail("quality bytes below phred+33")
+
+        t_derive = time.perf_counter()
+        device = dev[0][1].chunk.bp_first.device
+        t_up = time.perf_counter()
+        dev_pool = nw.upload_qpw_pool(qpw_pool, device)
+        self._resident_info = {"pool_bytes": float(qpw_pool.nbytes),
+                               "upload_s": time.perf_counter() - t_up}
+        # an integer >= a real iff >= its ceiling: the host's
+        # span < 0.02 * window_length, exactly
+        s_min = int(np.ceil(0.02 * self.window_length))
+        q_need = int(qthr)
+        # one derive a chunk, on full-B lane arrays (dead lanes zeroed);
+        # every live lane contributes its chunk's NW-row block
+        by_chunk: Dict[int, list] = {}
+        for i, h in dev:
+            by_chunk.setdefault(id(h.chunk), []).append((i, h))
+        parts = []
+        starts = np.zeros(n_ov, np.int64)
+        cnts = np.zeros(n_ov, np.int64)
+        base = 0
+        for items in by_chunk.values():
+            ch = items[0][1].chunk
+            B = ch.B
+            live = np.zeros(B, bool)
+            has_q = np.zeros(B, bool)
+            tb, qo_read, qo_pool, n_reg, win_base, ov_idx, qlen = \
+                np.zeros((7, B), np.int64)
+            for i, h in items:
+                k = h.lane
+                live[k] = True
+                tb[k] = h.t_begin
+                qo_read[k] = h.q_off
+                qo_pool[k] = ov_off[i] + h.q_off
+                n_reg[k] = h.n_reg
+                win_base[k] = self._id_to_first_window[t_ids[i]]
+                ov_idx[k] = i
+                has_q[k] = hq_ov[i]
+                qlen[k] = h.qlen
+                starts[i] = base + k * ch.NW
+                cnts[i] = ch.NW
+            parts.append(ch.derive(dev_pool, live, tb, qo_read, qo_pool,
+                                   n_reg, win_base, ov_idx, has_q, qlen,
+                                   s_min, q_need))
+            base += B * ch.NW
+        del dev_pool
+
+        # the host-fallback pairs (band and length escapes, CIGARs): the
+        # host filter over their rows alone
+        dev_set = set(i for i, _ in dev)
+        counts_host = np.fromiter(
+            (0 if (i in dev_set or o.breaking_points is None)
+             else len(o.breaking_points)
+             for i, o in enumerate(overlaps)), np.int64, n_ov)
+        if int(counts_host.sum()):
+            bp_h = np.concatenate(
+                [overlaps[i].breaking_points
+                 for i in np.flatnonzero(counts_host)]).astype(np.int64)
+            pair_ov_h = np.repeat(np.arange(n_ov), counts_host)
+            keep_h, win_h, lb_h, le_h = self._filter_layer_rows(
+                qual_refs, counts_host, bp_h, pair_ov_h, t_ids)
+            kidx = np.flatnonzero(keep_h)
+            host_flat = np.stack(
+                [win_h[kidx], pair_ov_h[kidx], bp_h[kidx, 1],
+                 bp_h[kidx, 3], lb_h[kidx], le_h[kidx]],
+                axis=1).astype(np.int32)
+            host_counts = np.bincount(pair_ov_h[kidx], minlength=n_ov)
+        else:
+            host_flat = np.zeros((0, 6), np.int32)
+            host_counts = np.zeros(n_ov, np.int64)
+        cum_host = np.zeros(n_ov + 1, np.int64)
+        np.cumsum(host_counts, out=cum_host[1:])
+        host_mask = np.ones(n_ov, bool)
+        host_mask[list(dev_set)] = False
+        starts[host_mask] = base + cum_host[:-1][host_mask]
+        cnts[host_mask] = host_counts[host_mask]
+        # gather in overlap-stream order (each lane's rows in boundary
+        # order, the host rows in theirs), so the device's stable sort is
+        # the host path's stable argsort
+        total = int(cnts.sum())
+        cum0 = np.zeros(n_ov + 1, np.int64)
+        np.cumsum(cnts, out=cum0[1:])
+        src = (np.repeat(starts, cnts)
+               + (np.arange(total, dtype=np.int64)
+                  - np.repeat(cum0[:-1], cnts)))
+        table = nw.finalize_layer_table(parts, host_flat, src)
+        del parts
+        self.timings["window_derive_s"] = time.perf_counter() - t_derive
+        metrics.set_gauge("dataflow.resident", 1)
+        metrics.inc("dataflow.bytes_fetched", int(table.nbytes))
+
+        nkept = int(np.searchsorted(table[:, 0], nw._ROW_SENTINEL))
+        rows = table[:nkept].astype(np.int64)
+        win_id, ov, q_first, q_endx, layer_begin, layer_end = \
+            np.ascontiguousarray(rows.T)
+        if nkept and ((layer_begin > layer_end)
+                      | (layer_end > self._window_lengths[win_id])).any():
+            raise ValueError("layer begin and end positions are invalid")
+        store = LayerStore(
+            pool, qpool, qpw_pool, ov_off[ov] + q_first, q_endx - q_first,
+            layer_begin, layer_end, win_id, hq_ov[ov],
+            np.searchsorted(win_id, np.arange(n_win + 1)))
+        self._attach_layers(store, overlaps, emit, chunk_windows)
+        return True
 
     def _evict_reads(self) -> None:
         """With ``evict_reads``: release every read's payload. The layer

@@ -67,6 +67,15 @@ REGISTRY: Dict[str, Flag] = _declare([
          "kinds io, enospc, oom, err, stall, kill (see faults.py)."),
     Flag("RACON_TPU_FAULTS_SEED", "0", "int",
          "Seed of the probabilistic (%P) fault draws."),
+    # ------------------------------------------ the resident dataflow
+    Flag("RACON_TPU_RESIDENT", "0", "bool",
+         "Device-resident align->layers dataflow: accepted breaking-point "
+         "tables stay on the device, window assignment and per-window "
+         "layer rows are derived there (min-span and mean-PHRED filters, "
+         "window arithmetic, one stable sort by window), and the host "
+         "fetches one layer table. Byte-identical to the host path (the "
+         "parity oracle); falls back per run when a precondition fails "
+         "(fractional quality threshold, sub-33 quality bytes)."),
     # ------------------------------------------------ the shard runner
     Flag("RACON_TPU_HEARTBEAT_S", "30", "float",
          "Shard runner progress line interval in seconds (0 disables the "

@@ -165,6 +165,28 @@ def overlap_summary() -> Dict[str, Number]:
         }
 
 
+def dataflow_summary() -> Dict[str, Number]:
+    """The resident align->layers dataflow (``RACON_TPU_RESIDENT``): whether
+    it ran this run (gauge ``dataflow.resident``; 0 with the flag off or
+    after a bail-out), the bytes fetched from the device and the bytes
+    whose fetch it avoided, the pairs decoded on the host, the bail-outs.
+    ``lanes_device_groups`` and ``ins_overflow_windows`` are the JAX
+    package's consensus-side counters; the port emits neither yet, so they
+    read 0."""
+    with _lock:
+        c = _counters.get
+        return {
+            "resident": _gauges.get("dataflow.resident", 0),
+            "bytes_fetched": c("dataflow.bytes_fetched", 0),
+            "bytes_avoided": c("dataflow.bytes_avoided", 0),
+            "fallback_pairs": c("dataflow.fallback_pairs", 0),
+            "resident_bailouts": c("dataflow.resident_bailouts", 0),
+            "lanes_device_groups": c("dataflow.lanes_device_groups", 0),
+            "ins_overflow_windows": c(
+                "consensus.ins_overflow_windows", 0),
+        }
+
+
 def peak_rss_bytes() -> int:
     """Lifetime peak RSS of this process (ru_maxrss is KiB on Linux,
     bytes on macOS)."""

@@ -127,12 +127,12 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
             **{f"lease.{k}": int(v)
                for k, v in metrics.group("lease.").items()},
         },
-        # zeros: the port has no polishing service, no resident
-        # dataflow and no fleet gateway (the JAX package's numbers
-        # outside those modes), and one device (no per-chip rows)
+        # zeros: the port has no polishing service and no fleet gateway
+        # (the JAX package's numbers outside those modes), and one
+        # device (no per-chip rows)
         "recovery": _zeros("recovery"),
         "compiles": buildwatch.summary(),
-        "dataflow": _zeros("dataflow"),
+        "dataflow": metrics.dataflow_summary(),
         "overlap": metrics.overlap_summary(),
         "fleet": _zeros("fleet"),
         "devices": {},

@@ -190,6 +190,201 @@ def window_geometry(t_begin: np.ndarray, m: np.ndarray, w: int):
     return first_rel, nb
 
 
+# win_id of a dropped derive row: sorts after every real window
+_ROW_SENTINEL = (1 << 31) - 1
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32 two's complement (XLA's int32
+    arithmetic wraps), kept as int64."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def derive_layer_rows(bp_first, bp_last, qpw_pool, live, tb, qo_read,
+                      qo_pool, n_reg, win_base, ov_idx, has_q, qlen,
+                      s_min: int, q_need: int, *, w: int, NW: int, Lq: int):
+    """Layer rows of one align chunk from its device breaking-point tables
+    (``racon_tpu.ops.nw._derive_layer_rows``), on the device the tables
+    lie on: the window assignment and the filters of
+    ``Polisher._filter_layer_rows`` in their integer forms.
+
+    ``bp_first``/``bp_last`` are the chunk's ``[B, NW]`` int32 tables
+    (:func:`breaking_points`), ``qpw_pool`` the run's ``weight << 3 |
+    code`` pool (:func:`upload_qpw_pool`), the rest ``[B]`` per-lane
+    values: ``live`` the accepted lanes, ``tb``/``qo_read`` the overlap's
+    global target start and oriented query offset, ``qo_pool`` the span's
+    start in the pool, ``win_base`` the target's first window, ``ov_idx``
+    the overlap, ``has_q`` whether its read has qualities, ``qlen`` its
+    query span's length (at most ``Lq``, the chunk's bucket length).
+
+    The keeps: min-span ``span >= s_min`` (``s_min = ceil(0.02 * w)``),
+    mean PHRED ``sum(q - 33) >= q_need * span`` with the product wrapped to
+    int32 as XLA computes it, and the empty-layer drop ``begin != end``.
+    Returns ``[B * NW, 6]`` int32 rows ``(win_id, overlap, q_first,
+    q_end_excl, layer_begin, layer_end)``; a dropped row's win_id is
+    ``_ROW_SENTINEL``."""
+    i32 = torch.int32
+    dev = bp_first.device
+    B = bp_first.shape[0]
+    with torch.profiler.record_function("derive_layer_rows"):
+        col = torch.arange(NW, dtype=i32, device=dev)[None, :]
+        fp, lp = bp_first, bp_last
+        valid = (col <= n_reg[:, None]) & (fp < BP_BIG) & live[:, None]
+        t_first = tb[:, None] + (fp >> 14)
+        qf = fp & 0x3FFF
+        qe = (lp & 0x3FFF) + 1
+        t_endx = tb[:, None] + (lp >> 14) + 1
+        span = qe - qf
+        keep = valid & (span >= s_min)
+        # each lane's quality weights over its own query span, [B, Lq],
+        # and their prefix sums (at most 222 * 16384 a lane: int32 holds
+        # them, as in the JAX function)
+        pos = torch.arange(Lq, dtype=i32, device=dev)[None, :]
+        src = qo_pool[:, None] + torch.minimum(
+            pos, torch.clamp(qlen[:, None] - 1, min=0))
+        wrow = qpw_pool.index_select(0, src.reshape(-1)).reshape(B, Lq)
+        wrow = torch.where(pos < qlen[:, None], (wrow >> 3).to(i32), 0)
+        del src
+        csum = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev),
+                          torch.cumsum(wrow, 1, dtype=i32)], 1)
+        del wrow
+        sum_w = (csum.gather(1, torch.clamp(qe, 0, Lq).long())
+                 - csum.gather(1, torch.clamp(qf, 0, Lq).long()))
+        del csum
+        need = _wrap_i32(span.long() * int(q_need))
+        keep &= ~has_q[:, None] | (sum_w.long() >= need)
+        rank = torch.div(t_first, w, rounding_mode="floor")
+        lb = t_first - rank * w
+        le = t_endx - rank * w - 1
+        keep &= lb != le
+        out = torch.stack(
+            [torch.where(keep, win_base[:, None] + rank, _ROW_SENTINEL),
+             ov_idx[:, None].expand(B, NW), qo_read[:, None] + qf,
+             qo_read[:, None] + qe, lb, le], -1)
+        return out.to(i32).reshape(B * NW, 6)
+
+
+def finalize_layer_table(parts, host_flat: np.ndarray,
+                         src: np.ndarray) -> np.ndarray:
+    """The resident layer table (``racon_tpu.ops.nw.finalize_layer_table``):
+    the per-chunk :func:`derive_layer_rows` blocks and the host-fallback
+    rows concatenated on their device, gathered by ``src`` into
+    overlap-stream order, stable-sorted by window id (dropped rows, the
+    sentinel, sort last), and fetched in one device-to-host copy.
+    ``parts`` is not empty: its first block names the device."""
+    dev = parts[0].device
+    with torch.profiler.record_function("finalize_layer_table"):
+        host = torch.from_numpy(np.ascontiguousarray(
+            host_flat, dtype=np.int32).reshape(-1, 6)).to(dev)
+        flat = torch.cat([*parts, host], 0)
+        g = flat.index_select(0, torch.from_numpy(
+            np.ascontiguousarray(src, dtype=np.int64)).to(dev))
+        order = torch.sort(g[:, 0], stable=True).indices
+        return g.index_select(0, order).cpu().numpy()
+
+
+def upload_qpw_pool(qpw_pool: np.ndarray, device) -> torch.Tensor:
+    """The run's ``weight << 3 | code`` pool on ``device``, uploaded once
+    and synchronously (the caller times it). The values are below 2^11, so
+    the pool goes as int16; it is padded to one element at least, so a
+    dead lane's gather at index 0 stays in range."""
+    pool = np.ascontiguousarray(qpw_pool, dtype=np.uint16).view(np.int16)
+    if pool.size == 0:
+        pool = np.zeros(1, np.int16)
+    dev = torch.device(device)
+    out = torch.from_numpy(pool).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out
+
+
+class _DevChunkBp:
+    """The breaking-point tables of one align chunk, kept on its device
+    (``racon_tpu.ops.nw._DevChunkBp``): the resident ``_finish_chunk_bp``
+    fetches only the chunk's gate scalars, its accepted lanes hold
+    :class:`_DevBp` handles into this object, and the polisher's resident
+    assembly calls :meth:`derive` once per chunk. :meth:`fetch` is the
+    host decode's way back: one copy of both tables, shared by every
+    handle."""
+
+    __slots__ = ("bp_first", "bp_last", "w", "NW", "B", "max_len", "_host")
+
+    def __init__(self, bp_first: torch.Tensor, bp_last: torch.Tensor,
+                 w: int, max_len: int):
+        # own [B, NW] storage only, so a retained chunk keeps nothing else
+        # of its launch alive
+        self.bp_first = bp_first.contiguous()
+        self.bp_last = bp_last.contiguous()
+        self.w = w
+        self.B = int(bp_first.shape[0])
+        self.NW = int(bp_first.shape[1])
+        self.max_len = max_len
+        self._host = None
+
+    def fetch(self):
+        """Host int64 copies of the two tables (cached: one copy a
+        chunk)."""
+        if self._host is None:
+            both = torch.cat([self.bp_first, self.bp_last], 1).cpu().numpy()
+            self._host = (both[:, :self.NW].astype(np.int64),
+                          both[:, self.NW:].astype(np.int64))
+        return self._host
+
+    def derive(self, dev_pool, live, tb, qo_read, qo_pool, n_reg, win_base,
+               ov_idx, has_q, qlen, s_min: int, q_need: int) -> torch.Tensor:
+        """:func:`derive_layer_rows` over this chunk's lanes. The per-lane
+        arrays are host ``[B]`` arrays (dead lanes zeroed); they go to the
+        device in one copy."""
+        lanes = torch.from_numpy(np.stack(
+            [live, tb, qo_read, qo_pool, n_reg, win_base, ov_idx, has_q,
+             qlen]).astype(np.int32)).to(self.bp_first.device)
+        live_d, tb_d, qo_d, qp_d, nr_d, wb_d, ov_d, hq_d, ql_d = lanes
+        return derive_layer_rows(
+            self.bp_first, self.bp_last, dev_pool, live_d != 0, tb_d, qo_d,
+            qp_d, nr_d, wb_d, ov_d, hq_d != 0, ql_d, s_min, q_need,
+            w=self.w, NW=self.NW, Lq=self.max_len)
+
+
+class _DevBp:
+    """One accepted pair's breaking points on the device
+    (``racon_tpu.ops.nw._DevBp``): its chunk and lane, and the host values
+    its rows need. It stands in ``overlap.breaking_points`` while the
+    resident dataflow is on; :meth:`decode_host` gives the rows the
+    non-resident path would have."""
+
+    __slots__ = ("chunk", "lane", "t_begin", "q_off", "n_reg", "qlen")
+
+    is_device_resident = True
+
+    def __init__(self, chunk: _DevChunkBp, lane: int, t_begin: int,
+                 q_off: int, n_reg: int, qlen: int):
+        self.chunk = chunk
+        self.lane = lane
+        self.t_begin = t_begin
+        self.q_off = q_off
+        self.n_reg = n_reg
+        self.qlen = qlen
+
+    def __len__(self) -> int:
+        # the row count at most (n_reg + 1 window regions): Polisher.run()
+        # sizes its window ranges from it
+        return self.n_reg + 1
+
+    def decode_host(self) -> np.ndarray:
+        """The non-resident ``_finish_chunk_bp`` rows of this lane, from
+        the chunk's cached fetch."""
+        fp_all, lp_all = self.chunk.fetch()
+        fp = fp_all[self.lane]
+        lp = lp_all[self.lane]
+        col = np.arange(fp.shape[0], dtype=np.int64)
+        valid = (col <= self.n_reg) & (fp < BP_BIG)
+        rows = np.stack(
+            [self.t_begin + (fp >> 14), self.q_off + (fp & 0x3FFF),
+             self.t_begin + (lp >> 14) + 1,
+             self.q_off + (lp & 0x3FFF) + 1], axis=-1)
+        return rows[valid].astype(np.int32)
+
+
 def ops_to_cigar(path: np.ndarray) -> str:
     """Run-length encode a backward-order op path (codes < 3) into a CIGAR
     string."""
@@ -413,14 +608,18 @@ class CudaAligner:
         device."""
         return self._drive(pairs, progress, (window_length, metas), errors)
 
-    def bp_stream(self, window_length: int, progress=None, total: int = 0):
+    def bp_stream(self, window_length: int, progress=None, total: int = 0,
+                  resident: bool = False):
         """A streaming breaking-points session (:class:`_AlignStream`):
         ``feed()`` slices, then ``finish()`` for the rows of every fed pair
-        in feed order. None with ``use_ragged=False``."""
+        in feed order. None with ``use_ragged=False``. With ``resident``
+        an accepted pair's result is a :class:`_DevBp` handle: its chunk's
+        tables stay on the device."""
         if not self.use_ragged:
             return None
         return _AlignStream(self, window_length=window_length,
-                            progress=progress, total_hint=total)
+                            progress=progress, total_hint=total,
+                            resident=resident)
 
     def _drive(self, pairs, progress, bp_meta, errors=None):
         if self.use_ragged:
@@ -558,8 +757,9 @@ class CudaAligner:
                            bp_meta=None):
         """Pack a chunk and launch its kernels: the forward pass, the walk
         and, in breaking-points mode, :func:`breaking_points`. Returns the
-        in-flight handle ``_finish_chunk`` takes; its outputs are device
-        tensors the device is still computing."""
+        in-flight handle ``_finish_chunk`` takes, ``(chunk, pairs, n, m,
+        outputs, max_len)``; its outputs are device tensors the device is
+        still computing."""
         C = len(chunk)
         B = _pow2_at_least(C)
         qs = [pairs[i][0] for i in chunk]
@@ -604,14 +804,14 @@ class CudaAligner:
                                max_len=max_len, band=band, steps=steps)
         del qrp, tp
         if bp_meta is None:
-            return chunk, pairs, n, m, (ops, score, fi, fj)
+            return chunk, pairs, n, m, (ops, score, fi, fj), max_len
         w, metas = bp_meta
         tb = np.fromiter((metas[i][0] for i in chunk), np.int64, C)
         first_rel, nb = window_geometry(tb, m, w)
         bp_first, bp_last = breaking_points(
             ops, nd, md, self._upload(first_rel), self._upload(nb), w=w,
             NW=max_len // max(w, 1) + 2)
-        return chunk, pairs, n, m, (bp_first, bp_last, score, fi, fj)
+        return chunk, pairs, n, m, (bp_first, bp_last, score, fi, fj), max_len
 
     def _shadow_chunk(self, qrp, tp, n, m, packed_out, *, max_len: int,
                       band: int, steps: int) -> None:
@@ -638,23 +838,24 @@ class CudaAligner:
         return out
 
     def _finish_chunk(self, launched, band, results, reject,
-                      bp_meta=None) -> None:
+                      bp_meta=None, resident=False) -> None:
         """:meth:`_finish_chunk_impl` as the fault site and span
         ``align.fetch`` (it waits for the device)."""
         faults.check("align.fetch")
         with obs.span("align.fetch", pairs=len(launched[0]), band=band):
             self._finish_chunk_impl(launched, band, results, reject,
-                                    bp_meta)
+                                    bp_meta, resident)
 
     def _finish_chunk_impl(self, launched, band, results, reject,
-                           bp_meta=None) -> None:
+                           bp_meta=None, resident=False) -> None:
         """Fetch a launched chunk and resolve its pairs into ``results``
         (CIGARs, or breaking-point rows with ``bp_meta``); the pairs that
         fail the accept gate go to ``reject``."""
         if bp_meta is not None:
-            self._finish_chunk_bp(launched, band, results, reject, bp_meta)
+            self._finish_chunk_bp(launched, band, results, reject, bp_meta,
+                                  resident)
             return
-        chunk, pairs, n, m, (ops_d, score_d, fi_d, fj_d) = launched
+        chunk, pairs, n, m, (ops_d, score_d, fi_d, fj_d), _ = launched
         C = len(chunk)
         ops_packed = self._fetch(ops_d[:C])
         score, fi, fj = self._fetch(torch.stack([score_d[:C], fi_d[:C],
@@ -687,25 +888,32 @@ class CudaAligner:
             self._observe_divergence(obs_scores, obs_maxlens)
 
     def _finish_chunk_bp(self, launched, band, results, reject,
-                         bp_meta) -> None:
+                         bp_meta, resident=False) -> None:
         """Breaking-points finish: fetch the chunk's two ``[C, NW]`` tables
         and its gate scalars in one copy, apply the accept gate, and decode
-        every accepted pair's rows in one vectorized pass."""
-        chunk, _, n, m, (bp_first, bp_last, score, fi, fj) = launched
+        every accepted pair's rows in one vectorized pass.
+
+        With ``resident`` the tables stay on the device: only the gate
+        scalars (12 bytes a pair) are fetched, and each accepted pair
+        resolves to a :class:`_DevBp` handle into one :class:`_DevChunkBp`
+        of the chunk."""
+        chunk, _, n, m, (bp_first, bp_last, score, fi, fj), max_len = \
+            launched
         w, metas = bp_meta
         C = len(chunk)
         NW = bp_first.shape[1]
-        host = self._fetch(torch.cat(
-            [bp_first[:C], bp_last[:C],
-             torch.stack([score[:C], fi[:C], fj[:C]], 1)], 1))
+        gate = torch.stack([score[:C], fi[:C], fj[:C]], 1)
+        host = self._fetch(gate if resident else torch.cat(
+            [bp_first[:C], bp_last[:C], gate], 1))
+        g0 = 0 if resident else 2 * NW
         if sanitize.enabled():
             sanitize.check_aligner_canaries(
-                host[:, 2 * NW], host[:, 2 * NW + 1], host[:, 2 * NW + 2],
+                host[:, g0], host[:, g0 + 1], host[:, g0 + 2],
                 big=1 << 28, context=f"aligner bp chunk (band={band})")
         n_h = n[:C].astype(np.int64)
         m_h = m[:C].astype(np.int64)
-        score_h = host[:, 2 * NW].astype(np.int64)
-        clean = (host[:, 2 * NW + 1] == 0) & (host[:, 2 * NW + 2] == 0)
+        score_h = host[:, g0].astype(np.int64)
+        clean = (host[:, g0 + 1] == 0) & (host[:, g0 + 2] == 0)
         accept = (score_h <= band // 2 - np.abs(n_h - m_h) - 2) & clean
         # the ladder's signal: every clean walk's finite score (a gate
         # failure's banded score is an upper bound)
@@ -716,6 +924,20 @@ class CudaAligner:
         tb = np.fromiter((metas[idx][0] for idx in chunk), np.int64, C)
         qo = np.fromiter((metas[idx][1] for idx in chunk), np.int64, C)
         n_reg = (tb + m_h - 1) // w - tb // w
+        if resident:
+            devc = _DevChunkBp(bp_first, bp_last, w, max_len)
+            # the gate scalars crossed the link, the two [B, NW] int32
+            # tables of the padded batch did not
+            metrics.inc("dataflow.bytes_fetched", 12 * C)
+            metrics.inc("dataflow.bytes_avoided", 8 * devc.B * devc.NW)
+            for k, idx in enumerate(chunk):
+                if accept[k]:
+                    results[idx] = _DevBp(devc, k, int(tb[k]), int(qo[k]),
+                                          int(n_reg[k]), int(n[k]))
+                    self.stats["device"] += 1
+                else:
+                    reject.append(idx)
+            return
         fp = host[:, :NW].astype(np.int64)
         lp = host[:, NW:2 * NW].astype(np.int64)
         # rows (t_first, q_first, t_end_excl, q_end_excl) of every region
@@ -738,8 +960,7 @@ class CudaAligner:
 
 
 class _AlignStream:
-    """Ragged streaming align session (``racon_tpu.ops.nw._AlignStream``
-    without its resident mode).
+    """Ragged streaming align session (``racon_tpu.ops.nw._AlignStream``).
 
     Pairs arrive through :meth:`feed` in any number of slices; each is
     seeded a ``(bucket, band)`` class when buffered pairs flush, and each
@@ -752,12 +973,17 @@ class _AlignStream:
     escalates, so the drain ends. With the ladder cold, the first
     ``ALIGN_PROBE_PAIRS`` pairs are seeded, launched and fetched first, so
     later seeds use observed divergence. Resolved pairs release their span
-    bytes at once."""
+    bytes at once.
+
+    In resident mode (breaking-points mode only) accepted chunks keep
+    their tables on the device and resolve to :class:`_DevBp` handles; the
+    host-fallback pairs are the dataflow's ``fallback_pairs``."""
 
     def __init__(self, eng: CudaAligner, window_length=None, progress=None,
-                 total_hint: int = 0):
+                 total_hint: int = 0, resident: bool = False):
         self.eng = eng
         self.w = window_length             # None -> CIGAR mode
+        self.resident = bool(resident) and window_length is not None
         self.progress = progress
         self.total_hint = total_hint
         self.results: List = []            # per fed pair, feed order
@@ -884,7 +1110,7 @@ class _AlignStream:
         self.inflight_pairs -= len(la["chunk"])
         esc: List[int] = []
         eng._finish_chunk(la["launched"], la["cls"][1], self.results, esc,
-                          self._bp_meta())
+                          self._bp_meta(), self.resident)
         esc_set = set(esc)
         for slot in la["chunk"]:
             if slot not in esc_set:
@@ -917,6 +1143,9 @@ class _AlignStream:
                 self._finish_oldest()
             self._flush(final=True)
         self.done_pairs += len(self.reject)
+        if self.resident and self.reject:
+            # band and length escapes decode on the host
+            metrics.inc("dataflow.fallback_pairs", len(self.reject))
         self.eng._resolve_rejects(self.pairs, self.reject, self.results,
                                   self._bp_meta())
         for slot in self.reject:
