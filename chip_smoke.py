@@ -35,14 +35,21 @@ line each:
              the draft and the reads, then the overlaps; the polisher
              parses nothing another way);
    resident — the main phase's polish again with ``RACON_TPU_RESIDENT=1``
-             (the resident align->layers dataflow): each accepted align
+             (the resident dataflow): each accepted align
              chunk keeps its breaking-point tables on the card, the layer
              rows are derived there (``nw.derive_layer_rows``), one stable
              sort by window runs there and one table comes back
-             (``nw.finalize_layer_table``). It fails unless the FASTA's
+             (``nw.finalize_layer_table``), and every consensus group
+             gathers its lanes from the pool on the card
+             (``poa.gather_qpw_rows``). It fails unless the FASTA's
              SHA-256 equals the main phase's, the ``dataflow.resident``
-             gauge is 1 with no bail-out, and K4, K2 and K3 launched
-             (counted from zero just before the run). It prints the
+             gauge is 1 with no bail-out, ``lanes_device_groups`` equals
+             the consensus groups, K4, K2 and K3 launched
+             (counted from zero just before the run), and the card's
+             memory in use is back within 1 MB of its level before the
+             phase once the run's polisher is dropped (printed, both). It
+             prints ``lane_upload_saved_bytes`` and
+             ``lane_upload_saved_s``, the
              ``dataflow`` counters (``bytes_fetched``, ``bytes_avoided``,
              ``fallback_pairs``) beside the bytes the main phase's aligner
              fetched, ``window_derive_s``, ``layer_store_s`` and
@@ -51,10 +58,11 @@ line each:
              peak device bytes beside the main phase's, the pool
              upload's bytes and seconds, and, at the run's
              largest chunk, the CUDA-event ms of ``derive_layer_rows`` and
-             of the run's ``finalize_layer_table`` with their byte bounds;
-             the card's derived rows and table must equal the same
-             functions on the CPU from the fetched tables. Its launch
-             shapes join the kernels phase's ``unheld`` check;
+             of the run's ``finalize_layer_table``, and at the largest
+             group ``gather_qpw_rows``'s, with their byte bounds;
+             the card's derived rows, table and lanes must equal the same
+             functions on the CPU from the fetched tables and the pool.
+             Its launch shapes join the kernels phase's ``unheld`` check;
 6. main_auto — the same polish with ``--overlaps auto``:
              ``create_polisher(reads, "auto", draft, ...)`` on the same
              1 Mbp inputs, so the first-party overlapper (minimizer seeding
@@ -67,6 +75,20 @@ line each:
              it fails on a join
              bail-out (the 1 Mbp tables fit the device join) and unless the
              native parser read exactly the two sequence files;
+   resident_auto — the main_auto polish again with
+             ``RACON_TPU_RESIDENT=1`` and the span timers on: each seed
+             batch compacted on the card (``overlap_seed.
+             compact_selected``), the join's seed coordinates kept there
+             and each chain arena gathered from them
+             (``chain.gather_pairs``). It fails unless the SHA-256 equals
+             main_auto's, ``chain_dp`` launched and equals
+             ``chain_dp_plain`` on every gathered arena, every consensus
+             group gathered its lanes on the card, no join bail-out, and
+             the largest ``compact_selected`` and ``gather_pairs`` calls
+             equal the CPU's; it prints their CUDA-event ms with byte
+             bounds, the ``dataflow`` and overlapper counters, the
+             seeding, join and chain spans and ``overlap_feed_s`` beside
+             main_auto's. Its launch shapes join the ``unheld`` check;
    obs     — the PAF main path once more through the port's CLI
              (``cli.main`` in this process, ``-t 8 -c 1
              --cudaaligner-batches 1``) with ``--trace``, ``--run-report``
@@ -197,6 +219,7 @@ too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import gzip
 import hashlib
 import io
@@ -220,6 +243,7 @@ from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
 from racon_tpu_torch.ops import nw as nw_ops
+from racon_tpu_torch.ops import poa as poa_ops
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.obs import metrics
@@ -797,11 +821,11 @@ def unheld_shapes(path, held) -> list:
     return [sh for sh in shapes if held.get(sh[:3], 0) < sh[3]]
 
 
-def phase_kernels(dev, main, auto, shards, resident):
+def phase_kernels(dev, main, auto, shards, resident, resident_auto):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
-    shards phase (``shards``) and the resident phase (``resident``)
-    launched: every consensus (Lq, band) of any
+    shards phase (``shards``) and the resident phases (``resident``,
+    ``resident_auto``) launched: every consensus (Lq, band) of any
     at its largest and smallest group (K3 at each; K2 at the largest
     group's geometry, off the main path), and each aligner bucket at the
     main path's largest chunk there, and again at the auto path's, then
@@ -822,7 +846,8 @@ def phase_kernels(dev, main, auto, shards, resident):
     consensus = consensus_shapes(main["consensus_group_shapes"]
                                  + auto["consensus_group_shapes"]
                                  + shards["consensus_group_shapes"]
-                                 + resident["consensus_group_shapes"])
+                                 + resident["consensus_group_shapes"]
+                                 + resident_auto["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -839,7 +864,8 @@ def phase_kernels(dev, main, auto, shards, resident):
     largest = {k: v[0] for k, v in chunks.items()}
     for path, label in ((auto, " (auto path)"),
                         (shards, " (shards phase)"),
-                        (resident, " (resident phase)")):
+                        (resident, " (resident phase)"),
+                        (resident_auto, " (resident auto phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 aligner.append(((k, Bc, path["aligner_div_obs"], label),
@@ -1116,15 +1142,37 @@ def phase_main(dev, mbp=1.0):
     return out, paths, polished[0].data
 
 
+def _largest(record, args, size):
+    """Keep in ``record["args"]`` the arguments of the call with the
+    largest ``size``, and count every call in ``record["calls"]``."""
+    record["calls"] += 1
+    if "args" not in record or size > record["size"]:
+        record.update(args=args, size=size)
+
+
+def device_memory(dev) -> int:
+    """Bytes held by live tensors on the card, after a collection."""
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(dev)
+
+
 def phase_resident(dev, paths, main):
     """The main phase's polish with the resident dataflow on (see the
-    module docstring). The derive of every chunk and the run's finalize
-    are recorded as they run, so the largest chunk's derive and the
-    finalize are timed and held against the CPU on the run's own
-    inputs."""
+    module docstring). The derive of every chunk, the run's finalize and
+    every consensus group's lane gather are recorded as they run, so the
+    largest chunk's derive, the finalize and the largest group's gather
+    are timed and held against the CPU on the run's own inputs."""
     derives, finals, n_derives = [], [], [0]
     derive0 = nw_ops._DevChunkBp.derive
     finalize0 = nw_ops.finalize_layer_table
+    gathers = {"calls": 0}
+    gather0 = poa_ops.gather_qpw_rows
+
+    def gather(pool, src0, lens, Lq):
+        _largest(gathers, (pool, src0, lens, Lq),
+                 src0.shape[0] * Lq)
+        return gather0(pool, src0, lens, Lq)
 
     def derive(chunk, *args):
         out = derive0(chunk, *args)
@@ -1138,12 +1186,13 @@ def phase_resident(dev, paths, main):
         finals.append((list(parts), host_flat, src))
         return finalize0(parts, host_flat, src)
 
-    torch.cuda.synchronize()
+    mem_before = device_memory(dev)
     torch.cuda.reset_peak_memory_stats()
     cuda_nw.reset_launches()
     metrics.clear("dataflow.")
     nw_ops._DevChunkBp.derive = derive
     nw_ops.finalize_layer_table = finalize
+    poa_ops.gather_qpw_rows = gather
     try:
         with _env(RACON_TPU_RESIDENT="1"):
             t0 = time.perf_counter()
@@ -1157,12 +1206,18 @@ def phase_resident(dev, paths, main):
     finally:
         nw_ops._DevChunkBp.derive = derive0
         nw_ops.finalize_layer_table = finalize0
+        poa_ops.gather_qpw_rows = gather0
     launches = dict(cuda_nw.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     dataflow = metrics.dataflow_summary()
     stages = dict(polisher.timings)
+    consensus = dict(polisher.consensus.stats)
+    aligner_stats = dict(polisher.aligner.stats)
+    aligner_div_obs = polisher.aligner._div_obs
+    resident_info = dict(polisher._resident_info)
     fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
                      for s in polished)
+    del polisher, polished
 
     # the largest chunk's derive on the card, timed, and on the CPU from
     # the chunk's fetched tables and the pool copied back
@@ -1184,29 +1239,50 @@ def phase_resident(dev, paths, main):
     T = len(src)
     # bytes: src and the gathered rows read, the sorted table written
     f_bound, f_by = bound(0, 8 * T + 24 * T + 24 * T)
+    # the largest group's lane gather on the card, timed, and on the CPU
+    # from the pool copied back; bytes: the lanes written, each pair's
+    # pool span and its 16 bytes of gather rows read
+    pool, src0, lens, Lq = gathers["args"]
+    card_lanes = gather0(pool, src0, lens, Lq)
+    gather_ms = time_ms(lambda: gather0(pool, src0, lens, Lq), 20)
+    cpu_lanes = gather0(pool.cpu(), src0.cpu(), lens.cpu(), Lq)
+    G = src0.shape[0]
+    span = 2 * int(torch.clamp(lens, max=Lq).sum())
+    g_bound, g_by = bound(0, 2 * G * Lq + span + 16 * G)
+    gather_entry = dict(shape=f"B={G} Lq={Lq}", calls=gathers["calls"],
+                        ms=gather_ms, bound_ms=g_bound, bound_by=g_by,
+                        pool_elements=int(pool.numel()),
+                        cpu_equal=torch.equal(card_lanes.cpu(), cpu_lanes))
+    del gathers, pool, src0, lens, card_lanes, cpu_lanes
     out = dict(
         phase="resident", wall_s=wall_s, main_wall_s=main["wall_s"],
         card=gpu_line(), fasta_sha256=hashlib.sha256(fasta).hexdigest(),
         main_fasta_sha256=main["fasta_sha256"], dataflow=dataflow,
         main_aligner_fetched_bytes=main["aligner_fetched_bytes"],
-        aligner_fetched_bytes=polisher.aligner.stats["fetched_bytes"],
+        aligner_fetched_bytes=aligner_stats["fetched_bytes"],
         window_derive_s=stages.get("window_derive_s"),
         layer_store_s=stages.get("layer_store_s"),
         build_windows_s=stages["build_windows_s"],
         main_build_windows_s=main["stages_s"]["build_windows_s"],
         stages_s=stages, peak_device_bytes=peak,
         main_peak_device_bytes=main["peak_device_bytes"],
-        pool_upload=polisher._resident_info, launches=launches,
+        pool_upload=resident_info, launches=launches,
         derive=dict(shape=f"B={B} NW={NW} Lq={Lq}", calls=n_derives[0],
                     ms=derive_ms, bound_ms=d_bound, bound_by=d_by,
                     cpu_equal=torch.equal(card_rows.cpu(), cpu_rows)),
         finalize=dict(rows_in=sum(p.shape[0] for p in parts) + len(host_flat),
                       rows=T, ms=fin_ms, bound_ms=f_bound, bound_by=f_by,
                       cpu_equal=bool(np.array_equal(table, cpu_table))),
-        aligner_chunk_shapes=polisher.aligner.stats["chunk_shapes"],
-        consensus_group_shapes=polisher.consensus.stats["group_shapes"],
-        aligner_div_obs=polisher.aligner._div_obs)
-    del derives, finals, parts, card_rows, chunk, args
+        gather_qpw_rows=gather_entry,
+        consensus_groups=consensus["groups"],
+        lane_upload_saved_bytes=consensus["lane_upload_saved_bytes"],
+        lane_upload_saved_s=stages.get("lane_upload_saved_s"),
+        aligner_chunk_shapes=aligner_stats["chunk_shapes"],
+        consensus_group_shapes=consensus["group_shapes"],
+        aligner_div_obs=aligner_div_obs)
+    del derives, finals, parts, card_rows, chunk, args, cpu_chunk
+    out["device_bytes_before"] = mem_before
+    out["device_bytes_after"] = device_memory(dev)
     emit(out)
     if out["fasta_sha256"] != main["fasta_sha256"]:
         raise RuntimeError("the resident dataflow did not polish the main "
@@ -1218,9 +1294,18 @@ def phase_resident(dev, paths, main):
     if idle:
         raise RuntimeError(f"kernels not launched on the resident path: "
                            f"{idle}")
-    if not (out["derive"]["cpu_equal"] and out["finalize"]["cpu_equal"]):
-        raise RuntimeError("the card's derived rows or layer table differ "
-                           "from the CPU's")
+    if not (out["derive"]["cpu_equal"] and out["finalize"]["cpu_equal"]
+            and gather_entry["cpu_equal"]):
+        raise RuntimeError("the card's derived rows, layer table or "
+                           "gathered lanes differ from the CPU's")
+    if dataflow["lanes_device_groups"] != consensus["groups"]:
+        raise RuntimeError(f"consensus groups took the host lane gather: "
+                           f"{dataflow['lanes_device_groups']} of "
+                           f"{consensus['groups']} on the device")
+    if out["device_bytes_after"] - mem_before > 1 << 20:
+        raise RuntimeError(f"the finished resident run left "
+                           f"{out['device_bytes_after'] - mem_before} B "
+                           f"on the card")
     return out
 
 
@@ -1264,7 +1349,10 @@ def phase_main_auto(dev, paths, main):
     stats = dict(chain.STATS)
     peak = torch.cuda.max_memory_allocated(dev)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polished)
     out = dict(phase="main_auto", wall_s=wall_s, card=gpu_line(),
+               fasta_sha256=hashlib.sha256(fasta).hexdigest(),
                stages_s=dict(polisher.timings), launches=launches,
                overlapper=stats, overlaps=sum(polisher.targets_coverages),
                overlaps_paf_path=main["overlaps"],
@@ -1286,6 +1374,139 @@ def phase_main_auto(dev, paths, main):
     if len(polished) != 1 or set(polished[0].data) - set(b"ACGTN"):
         raise RuntimeError("expected one polished contig of bases")
     return out, launched, polished[0].data
+
+
+def phase_resident_auto(dev, paths, main_auto):
+    """The main_auto polish again with the resident dataflow on (see the
+    module docstring), span timers armed: the FASTA must equal
+    main_auto's; every ``chain_dp`` launch ran on an arena gathered on
+    the card, and is held against ``chain_dp_plain`` there; the largest
+    call of ``compact_selected`` and of ``gather_pairs`` is timed and held
+    against the same function on the CPU."""
+    launched = []
+    compacts = {"calls": 0}
+    gathers = {"calls": 0}
+    dp0 = chain.chain_dp
+    compact0 = overlap_seed.compact_selected
+    gather0 = chain.gather_pairs
+
+    def dp(ts, qs, ns, *, k):
+        launched.append((ts, qs, ns, k))
+        return dp0(ts, qs, ns, k=k)
+
+    def compact(h, strand, sel):
+        _largest(compacts, (h, strand, sel), h.numel())
+        return compact0(h, strand, sel)
+
+    def gather(tp, qc, starts, counts, S):
+        _largest(gathers, (tp, qc, starts, counts, S),
+                 starts.shape[0] * S)
+        return gather0(tp, qc, starts, counts, S)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    overlap_seed.clear_table_cache()
+    cuda_nw.reset_launches()
+    chain.reset_stats()
+    obs.begin()
+    obs.trace.activate(tracing=False)
+    chain.chain_dp, chain.gather_pairs = dp, gather
+    overlap_seed.compact_selected = compact
+    try:
+        with _env(RACON_TPU_RESIDENT="1"):
+            t0 = time.perf_counter()
+            polisher = create_polisher(paths["reads"], "auto",
+                                       paths["draft"], num_threads=8,
+                                       aligner="cuda", consensus="cuda",
+                                       device=dev)
+            polished = polisher.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        chain.chain_dp, chain.gather_pairs = dp0, gather0
+        overlap_seed.compact_selected = compact0
+        obs.trace.deactivate()
+    launches = dict(cuda_nw.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    dataflow = metrics.dataflow_summary()
+    overlap = metrics.overlap_summary()
+    spans = {k: metrics.timer_s(k) for k in (
+        "overlap.seed", "overlap.seed.dispatch", "overlap.seed.fetch",
+        "overlap.match", "overlap.chain", "poa.pack")}
+    stages = dict(polisher.timings)
+    consensus = dict(polisher.consensus.stats)
+    aligner_shapes = list(polisher.aligner.stats["chunk_shapes"])
+    aligner_div_obs = polisher.aligner._div_obs
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polished)
+    del polisher, polished
+
+    # the chain DP on every arena the run gathered on the card
+    dp_ok = all(torch.equal(dp0(ts, qs, ns, k=k), chain.chain_dp_plain(
+        ts, qs, ns, k=k)) for ts, qs, ns, k in launched)
+    n_launched = len(launched)
+    del launched
+    # compact_selected at its largest batch; bytes: the hash words,
+    # strands and mask read, 10 bytes a selected entry written
+    h, strand, sel = compacts["args"]
+    card = compact0(h, strand, sel)
+    c_ms = time_ms(lambda: compact0(h, strand, sel), 10)
+    cpu = compact0(h.cpu(), strand.cpu(), sel.cpu())
+    n = int(card[4])
+    c_bound, c_by = bound(0, 6 * h.numel() + 10 * n)
+    compact_entry = dict(
+        shape=f"B={h.shape[0]} P={h.shape[1]}", calls=compacts["calls"],
+        selected=n, ms=c_ms, bound_ms=c_bound, bound_by=c_by,
+        cpu_equal=all(torch.equal(a[:n].cpu(), b[:n])
+                      for a, b in zip(card[:4], cpu[:4]))
+        and n == int(cpu[4]))
+    # gather_pairs at its largest arena; bytes: the live hits' two
+    # coordinates and 16 bytes a lane read, the arena written
+    tp, qc, starts, counts, S = gathers["args"]
+    card = gather0(tp, qc, starts, counts, S)
+    g_ms = time_ms(lambda: gather0(tp, qc, starts, counts, S), 20)
+    cpu = gather0(tp.cpu(), qc.cpu(), starts.cpu(), counts.cpu(), S)
+    B = starts.shape[0]
+    g_bound, g_by = bound(0, 8 * int(counts.sum()) + 16 * B + 8 * B * S)
+    gather_entry = dict(
+        shape=f"S={S} B={B}", calls=gathers["calls"], ms=g_ms,
+        bound_ms=g_bound, bound_by=g_by,
+        cpu_equal=all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)))
+    del compacts, gathers, h, strand, sel, tp, qc, starts, counts, card, cpu
+    out = dict(phase="resident_auto", wall_s=wall_s,
+               main_auto_wall_s=main_auto["wall_s"], card=gpu_line(),
+               fasta_sha256=hashlib.sha256(fasta).hexdigest(),
+               main_auto_fasta_sha256=main_auto["fasta_sha256"],
+               dataflow=dataflow, overlap=overlap, spans_s=spans,
+               stages_s=stages,
+               overlap_feed_s=stages.get("overlap_feed_s"),
+               main_auto_overlap_feed_s=main_auto["stages_s"].get(
+                   "overlap_feed_s"),
+               launches=launches, chain_dp_launches_held=n_launched,
+               chain_dp_equal=dp_ok, compact_selected=compact_entry,
+               gather_pairs=gather_entry,
+               consensus_groups=consensus["groups"],
+               lane_upload_saved_bytes=consensus["lane_upload_saved_bytes"],
+               peak_device_bytes=peak,
+               main_auto_peak_device_bytes=main_auto["peak_device_bytes"],
+               aligner_chunk_shapes=aligner_shapes,
+               aligner_div_obs=aligner_div_obs,
+               consensus_group_shapes=consensus["group_shapes"])
+    emit(out)
+    if out["fasta_sha256"] != main_auto["fasta_sha256"]:
+        raise RuntimeError("the resident auto path did not polish "
+                           "main_auto's bytes")
+    if launches["chain_dp"] <= 0 or not dp_ok:
+        raise RuntimeError("chain_dp did not run, or disagreed with its "
+                           "plain version, on the gathered arenas")
+    if not (compact_entry["cpu_equal"] and gather_entry["cpu_equal"]):
+        raise RuntimeError("compact_selected or gather_pairs on the card "
+                           "differs from the CPU's")
+    if dataflow["lanes_device_groups"] != consensus["groups"] \
+            or overlap["join_bailouts"] > 0:
+        raise RuntimeError(f"the resident auto path took a host path: "
+                           f"{dataflow} {overlap}")
+    return out
 
 
 def phase_accuracy(record, paths, main_seq, auto_seq) -> dict:
@@ -1662,9 +1883,9 @@ def overlap_split(dev, paths) -> dict:
         reads, device=dev))
     tt = timed("seed_draft_s", lambda: overlap_seed.build_seed_table(
         draft, cache=True, device=dev))
+    prm = chain.resolve_params()
     hits, _ = timed("join_s", lambda: chain.join_seeds(
-        rt, tt, self_t, qlens, k=overlap_seed.DEFAULT_K,
-        max_occ=chain.DEFAULT_MAX_OCC, device=dev))
+        rt, tt, self_t, qlens, k=prm.k, max_occ=prm.max_occ, device=dev))
     timed("find_overlaps_s", lambda: chain.find_overlaps(
         reads, draft, self_t, device=dev))
     out["chain_and_emit_s"] = (out["find_overlaps_s"] - out["seed_reads_s"]
@@ -2035,6 +2256,10 @@ def main() -> int:
         dev, paths, record["main"])
     record["main_auto"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["resident_auto"] = phase_resident_auto(dev, paths,
+                                                  record["main_auto"])
+    record["resident_auto"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["obs"] = phase_obs(dev, paths, record["main"], line)
     record["obs"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2051,7 +2276,8 @@ def main() -> int:
     entries, drawn, held = phase_kernels(dev, record["main"],
                                          record["main_auto"],
                                          record["shards"],
-                                         record["resident"])
+                                         record["resident"],
+                                         record["resident_auto"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -2068,7 +2294,8 @@ def main() -> int:
                 if record["main_auto"]["launches"][k] <= 0]
     # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
-              for p in ("main", "main_auto", "shards", "resident")}
+              for p in ("main", "main_auto", "shards", "resident",
+                        "resident_auto")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()

@@ -35,10 +35,11 @@ METRICS: FrozenSet[str] = frozenset((
     "faults.backpressure_halvings",
     # kernel library builds (obs.buildwatch)
     "compile.build_s", "compile.builds",
-    # the resident align->layers dataflow (RACON_TPU_RESIDENT)
+    # the resident dataflow (RACON_TPU_RESIDENT) and the overlapper's
+    # device-link bytes
     "dataflow.bytes_avoided", "dataflow.bytes_fetched",
-    "dataflow.fallback_pairs", "dataflow.resident",
-    "dataflow.resident_bailouts",
+    "dataflow.fallback_pairs", "dataflow.lanes_device_groups",
+    "dataflow.resident", "dataflow.resident_bailouts",
     # consensus groups, and the sanitizer's K1 shadows of them
     "consensus.dropped_layers", "consensus.fallback_windows",
     "consensus.group_windows", "consensus.groups", "consensus.ins_overflow",

@@ -40,13 +40,17 @@ class LayerStore:
     window — the POA tie-break contract); ``pool``/``qpool`` hold each
     referenced read orientation once, ``qpw_pool`` the device lane
     packing ``weight << 3 | code`` per pooled base (weights are
-    phred-33 clipped at 0, or 1 for no-quality reads)."""
+    phred-33 clipped at 0, or 1 for no-quality reads). ``dev_qpw`` is
+    ``qpw_pool`` on the device (an int16 tensor of the same bits, at least
+    one element) when the resident dataflow uploaded it, else None; the
+    consensus engine then gathers each group's lanes there
+    (``ops.poa.gather_qpw_rows``)."""
 
     __slots__ = ("pool", "qpool", "qpw_pool", "src", "length", "begin",
-                 "end", "win_id", "has_qual", "row_bounds")
+                 "end", "win_id", "has_qual", "row_bounds", "dev_qpw")
 
     def __init__(self, pool, qpool, qpw_pool, src, length, begin, end,
-                 win_id, has_qual, row_bounds):
+                 win_id, has_qual, row_bounds, dev_qpw=None):
         self.pool = pool
         self.qpool = qpool
         self.qpw_pool = qpw_pool
@@ -57,6 +61,7 @@ class LayerStore:
         self.win_id = win_id
         self.has_qual = has_qual
         self.row_bounds = row_bounds
+        self.dev_qpw = dev_qpw
 
     @classmethod
     def build(cls, data_refs: Sequence[bytes],
@@ -137,7 +142,8 @@ class LayerStore:
         """One vectorized gather: the packed ``weight << 3 | code``
         uint16 lane block [len(rows), Lq] for the given layer rows —
         exactly the array ``ops.poa.pack_group`` ships to the
-        device (rows shorter than ``Lq`` zero-padded)."""
+        device (rows shorter than ``Lq`` zero-padded), and the block
+        ``ops.poa.gather_qpw_rows`` gathers from ``dev_qpw``."""
         lens = self.length[rows]
         pos = np.arange(Lq, dtype=np.int64)[None, :]
         valid = pos < lens[:, None]

@@ -22,15 +22,20 @@ Every phase is a span of the JAX package's name (``parse.*``,
 publishes its depth and wait times, and under the sanitizer a watchdog
 watches the queue; with ``stall_escalation`` (the shard runner's) a
 persistent stall fails the run with a ``stall``-class fault. Left out
-(the JAX package keeps them): the serve/fleet hooks and the consensus side
-of the resident dataflow.
+(the JAX package keeps them): the serve/fleet hooks.
 
-With ``RACON_TPU_RESIDENT=1`` (the resident dataflow, aligner side) a
-device aligner keeps each accepted chunk's breaking-point tables on its
-device, the layer rows of every chunk are derived there, one stable sort
-by window runs there, and the layer store is built from the one table
-fetched (:meth:`Polisher._assemble_layers_resident`); the host path is
-its parity oracle, and the two precondition bail-outs return to it.
+With ``RACON_TPU_RESIDENT=1`` (the resident dataflow) a device aligner
+keeps each accepted chunk's breaking-point tables on its device, the
+layer rows of every chunk are derived there, one stable sort by window
+runs there, and the layer store is built from the one table fetched
+(:meth:`Polisher._assemble_layers_resident`). The store keeps the packed
+lane pool uploaded for the derive (``LayerStore.dev_qpw``), so the device
+consensus engine gathers each group's lanes from it on the card instead
+of uploading host-gathered blocks (``timings["lane_upload_saved_s"]``
+prices the uploads it skipped); on ``--overlaps auto`` the minimizer
+tables are compacted on the device and the chain arenas are gathered
+there from the resident join. The host path is the parity oracle, and
+the two precondition bail-outs return to it.
 
 ``--overlaps auto`` (the literal ``auto`` in place of an overlaps file)
 runs the first-party overlapper (``ops/overlap_seed.py``, ``ops/chain.py``)
@@ -170,9 +175,10 @@ class Polisher:
         self._backbone_s = 0.0
         # wall-clock stage times (seconds)
         self.timings: Dict[str, float] = {}
-        # the resident align->layers dataflow: accepted breaking points
-        # stay on the aligner's device and layer rows derive there;
-        # _resident_info holds the pool upload's bytes and seconds
+        # the resident dataflow: accepted breaking points stay on the
+        # aligner's device, layer rows derive there and the consensus
+        # gathers its lanes there; _resident_info holds the pool upload's
+        # bytes and seconds (they price the lane uploads skipped)
         self._resident = flags.get_bool("RACON_TPU_RESIDENT")
         self._resident_info: Dict[str, float] = {}
 
@@ -373,7 +379,7 @@ class Polisher:
             run: List[Overlap] = []
             for rows in chain.iter_overlap_groups(
                     read_seqs, target_seqs, read_self_t,
-                    device=self.device):
+                    resident=self._resident, device=self.device):
                 for i in range(rows["q_ord"].size):
                     q = int(rows["q_ord"][i])
                     t = int(rows["t_idx"][i])
@@ -821,7 +827,6 @@ class Polisher:
                                    n_reg, win_base, ov_idx, has_q, qlen,
                                    s_min, q_need))
             base += B * ch.NW
-        del dev_pool
 
         # the host-fallback pairs (band and length escapes, CIGARs): the
         # host filter over their rows alone
@@ -877,7 +882,7 @@ class Polisher:
         store = LayerStore(
             pool, qpool, qpw_pool, ov_off[ov] + q_first, q_endx - q_first,
             layer_begin, layer_end, win_id, hq_ov[ov],
-            np.searchsorted(win_id, np.arange(n_win + 1)))
+            np.searchsorted(win_id, np.arange(n_win + 1)), dev_qpw=dev_pool)
         self._attach_layers(store, overlaps, emit, chunk_windows)
         return True
 
@@ -1093,6 +1098,15 @@ class Polisher:
     def _stitch(self, polished_flags: List[bool],
                 drop_unpolished_sequences: bool) -> List[Sequence]:
         log = self.logger
+        # the lane uploads the consensus engine skipped (it gathered from
+        # the resident pool), priced at the pool upload's bandwidth
+        saved = getattr(self.consensus, "stats", {}).get(
+            "lane_upload_saved_bytes", 0)
+        if saved:
+            info = self._resident_info
+            up_s = info.get("upload_s", 0.0)
+            bw = info.get("pool_bytes", 0.0) / up_s if up_s else 0.0
+            self.timings["lane_upload_saved_s"] = saved / bw if bw else 0.0
         dst: List[Sequence] = []
         polished_data: List[bytes] = []
         num_polished = 0

@@ -278,7 +278,7 @@ def write_auto_paf(sequences_path: str, target_path: str, paf_path: str,
     (``ops/chain.py``, on ``device``) over the whole input, its rows
     written as a 12-column PAF with an atomic replace. The bytes are the
     same on every run, so a resume's fingerprint (path and size) holds."""
-    from ..ops import chain, overlap_seed
+    from ..ops import chain
     from .manifest import atomic_write
     tparse = parsers.sequence_parser_for(target_path)
     sparse = parsers.sequence_parser_for(sequences_path)
@@ -300,7 +300,7 @@ def write_auto_paf(sequences_path: str, target_path: str, paf_path: str,
         len(read_names))
     rows = chain.find_overlaps(read_seqs, target_seqs, read_self_t,
                                device=device)
-    k, _ = chain._clip_kw(overlap_seed.DEFAULT_K, overlap_seed.DEFAULT_W)
+    k = chain.resolve_params().k
     lines = chain.paf_bytes(
         rows, read_names,
         np.fromiter((len(s) for s in read_seqs), np.int64, len(read_seqs)),

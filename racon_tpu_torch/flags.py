@@ -69,13 +69,42 @@ REGISTRY: Dict[str, Flag] = _declare([
          "Seed of the probabilistic (%P) fault draws."),
     # ------------------------------------------ the resident dataflow
     Flag("RACON_TPU_RESIDENT", "0", "bool",
-         "Device-resident align->layers dataflow: accepted breaking-point "
-         "tables stay on the device, window assignment and per-window "
-         "layer rows are derived there (min-span and mean-PHRED filters, "
-         "window arithmetic, one stable sort by window), and the host "
-         "fetches one layer table. Byte-identical to the host path (the "
-         "parity oracle); falls back per run when a precondition fails "
-         "(fractional quality threshold, sub-33 quality bytes)."),
+         "Device-resident align->consensus dataflow: accepted breaking-"
+         "point tables stay on the device, window assignment and "
+         "per-window layer rows are derived there (min-span and "
+         "mean-PHRED filters, window arithmetic, one stable sort by "
+         "window), the host fetches one layer table, and the consensus "
+         "engine gathers weight<<3|code lanes from the device-resident "
+         "pool instead of uploading host-gathered lanes; the overlapper "
+         "compacts its minimizer tables on the device and gathers its "
+         "chain arenas from the device-resident seed join. Byte-identical "
+         "to the host path (the parity oracle); falls back per run when a "
+         "precondition fails (fractional quality threshold, sub-33 "
+         "quality bytes)."),
+    # ------------------------------------------------ the overlapper
+    Flag("RACON_TPU_OVERLAP_K", "15", "int",
+         "Overlapper minimizer k-mer length (clipped to 4..16; canonical "
+         "codes live in 32 bits)."),
+    Flag("RACON_TPU_OVERLAP_W", "5", "int",
+         "Overlapper minimizer window: each run of w consecutive k-mers "
+         "contributes its leftmost minimum-hash k-mer (at least 1)."),
+    Flag("RACON_TPU_OVERLAP_MAX_OCC", "64", "int",
+         "Overlapper seed frequency cap: hash buckets whose total "
+         "occurrence count (reads + targets) exceeds this drop whole "
+         "before matching (counted in the run report's overlap section)."),
+    Flag("RACON_TPU_OVERLAP_MIN_SEEDS", "4", "int",
+         "Minimum chained seeds for an overlapper candidate pair to emit "
+         "an overlap row (pairs and chains below it count as "
+         "chains_dropped)."),
+    Flag("RACON_TPU_OVERLAP_DEVICE_JOIN", "1", "bool",
+         "Device seed join: sort both minimizer tables on the device and "
+         "join them there with the counted frequency cap (byte-identical "
+         "to the host join; 0 forces the numpy match_seeds oracle)."),
+    Flag("RACON_TPU_OVERLAP_CACHE", "1", "bool",
+         "Target seed-table cache: key the target minimizer table by "
+         "(content fingerprint, k, w) and reuse it across the runs of one "
+         "process (hits and misses counted in the run report's overlap "
+         "section and credited to the dataflow bytes ledger)."),
     # ------------------------------------------------ the shard runner
     Flag("RACON_TPU_HEARTBEAT_S", "30", "float",
          "Shard runner progress line interval in seconds (0 disables the "

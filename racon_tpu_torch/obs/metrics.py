@@ -166,13 +166,15 @@ def overlap_summary() -> Dict[str, Number]:
 
 
 def dataflow_summary() -> Dict[str, Number]:
-    """The resident align->layers dataflow (``RACON_TPU_RESIDENT``): whether
-    it ran this run (gauge ``dataflow.resident``; 0 with the flag off or
-    after a bail-out), the bytes fetched from the device and the bytes
-    whose fetch it avoided, the pairs decoded on the host, the bail-outs.
-    ``lanes_device_groups`` and ``ins_overflow_windows`` are the JAX
-    package's consensus-side counters; the port emits neither yet, so they
-    read 0."""
+    """The resident dataflow (``RACON_TPU_RESIDENT``): whether it ran
+    this run (gauge ``dataflow.resident``; 0 with the flag off or after a
+    bail-out), the bytes fetched from the device and the bytes whose fetch
+    it avoided (the overlapper's join and table cache count theirs with
+    the flag off too), the pairs decoded on the host, the bail-outs, the
+    consensus groups whose lanes were gathered on the device.
+    ``ins_overflow_windows`` is the JAX package's per-window attribution
+    of ``consensus.ins_overflow``, which the port does not emit, so it
+    reads 0."""
     with _lock:
         c = _counters.get
         return {

@@ -15,9 +15,12 @@ Consumes the minimizer tables of :mod:`.overlap_seed` and emits
   tables or hit counts past the arena bounds bail out to the numpy
   :func:`match_seeds` (counted in ``join_bailouts``), which is also the
   tests' oracle. Hits are unique 5-tuples, so any correct sort gives the
-  oracle's order.
+  oracle's order. Under the resident dataflow (``resident=True``) only
+  ``q``, ``t`` and ``rel`` come to the host; the seed coordinates ``tp``
+  and ``qc`` stay on the device for the chain arenas.
 - **chaining** (:class:`_ChainStream`): pairs pack by pow2 seed-count
-  bucket into ``[B, S]`` arenas on the host, and :func:`chain_dp` scores
+  bucket into ``[B, S]`` arenas, on the host or, from the resident join,
+  on the device (:func:`gather_pairs`), and :func:`chain_dp` scores
   gap-bounded colinear chains against the :data:`CHAIN_LOOKBACK` previous
   seeds and walks the best one back, returning one ``[6]`` row a pair.
   On a CUDA tensor it launches the CUDA kernel ``chain_dp``
@@ -39,28 +42,34 @@ base 1), so the kernel, the plain version and :func:`chain_np` agree bit
 for bit. Reverse-strand query coordinates flip to ``qlen - pos - k``
 before chaining and back on emission.
 
-The parameters' defaults are the JAX package's flag defaults
-(``RACON_TPU_OVERLAP_K``, ``_W``, ``_MAX_OCC``, ``_MIN_SEEDS``); the
-paths are the ones its default flags choose (``_DEVICE_JOIN``,
-``_RAGGED`` and ``_CACHE`` all on), with no switch: the port reads no
-environment flag. ``STATS`` holds the counters the JAX package keeps
-under ``overlap.*``; each also goes to the metrics registry under that
-name (``overlap_seed.count``). The spans are the JAX package's: seeding
-``overlap.seed``, the join ``overlap.match`` with its device halves
-``overlap.join.dispatch``/``.fetch``, each chain launch and fetch
-``overlap.chain.dispatch``/``.fetch``, and the chain stream's final drain
-``overlap.chain``.
+The parameters left None are read from the flags as in the JAX package
+(:func:`resolve_params`: ``RACON_TPU_OVERLAP_K``, ``_W``, ``_MAX_OCC``,
+``_MIN_SEEDS``, ``_DEVICE_JOIN``, ``_CACHE`` and ``RACON_TPU_RESIDENT``),
+with its defaults and clipping. ``RACON_TPU_OVERLAP_RAGGED`` is not
+read: it selects the JAX package's phase-barriered chaining, which the
+port does not have (the ragged stream is its one path). The
+``dataflow.*`` counters are the JAX package's: the join's 8-byte count
+fetch on every device join, and under the resident dataflow the
+compacted tables' and the join's bytes. ``STATS`` holds the counters the
+JAX package keeps under ``overlap.*``; each also goes to the metrics
+registry under that name (``overlap_seed.count``). The spans are the JAX
+package's: seeding ``overlap.seed``, the join ``overlap.match`` with its
+device halves ``overlap.join.dispatch``/``.fetch``, each chain launch
+and fetch ``overlap.chain.dispatch``/``.fetch``, and the chain stream's
+final drain ``overlap.chain``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Callable, Dict, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
 
-from .. import obs
+from .. import flags, obs
 from ..device import resolve
+from ..obs import metrics
 from . import _build, cuda_nw, overlap_seed
 from .overlap_seed import STATS, count, reset_stats  # noqa: F401
 
@@ -71,8 +80,6 @@ GAP_UNIT = 16             # a matched base; a gap base costs 1
 _NEG = -(1 << 30)         # the score of a dead lane or slot
 # cells of one chain arena (B * S)
 CHAIN_ARENA_CELLS = 1 << 21
-DEFAULT_MAX_OCC = 64
-DEFAULT_MIN_SEEDS = 4
 # device-join bounds: padded table entries or hits past these bail out to
 # match_seeds (counted), so one pathological input cannot demand an
 # unbounded device sort
@@ -326,16 +333,25 @@ def _empty_hits() -> Dict[str, np.ndarray]:
 
 
 def join_seeds(read_table, target_table, read_self_t: np.ndarray,
-               qlens: np.ndarray, *, k: int, max_occ: int, device="cuda"
-               ) -> Tuple[Dict[str, np.ndarray], int]:
+               qlens: np.ndarray, *, k: int, max_occ: int,
+               device_join: bool = True, resident: bool = False,
+               device="cuda") -> Tuple[Dict[str, object], int]:
     """The seed join: the device path when it is eligible, the numpy
-    :func:`match_seeds` otherwise. Returns ``(hits, freq_capped)``, the
-    hits as host int64 arrays ``q``, ``t``, ``rel``, ``tp``, ``qc`` in
-    the oracle's order.
+    :func:`match_seeds` otherwise (always with ``device_join=False``).
+    Returns ``(hits, freq_capped)``, the hits as host int64 arrays ``q``,
+    ``t``, ``rel``, ``tp``, ``qc`` in the oracle's order. With
+    ``resident`` on the device path, ``tp`` and ``qc`` stay on the device
+    as int32 tensors ``tp_dev`` and ``qc_dev`` (the chain arenas gather
+    from them, :func:`gather_pairs`), and only ``q``, ``t``, ``rel`` are
+    fetched: ``dataflow.bytes_fetched`` counts their 12 bytes a hit and
+    the hit count's 4, ``dataflow.bytes_avoided`` the 8 bytes a hit left
+    on the device. Every device join counts its 8-byte fetch of the hit
+    total and the capped count.
 
-    The bail-out ladder (each counted in ``join_bailouts``): an empty
-    table; padded tables over :data:`JOIN_TABLE_CELLS` or an int32 ramp
-    that could overflow; more hits than :data:`JOIN_MAX_HITS`."""
+    The bail-out ladder (each counted in ``join_bailouts``; the hits then
+    come from :func:`match_seeds` on the host): an empty table; padded
+    tables over :data:`JOIN_TABLE_CELLS` or an int32 ramp that could
+    overflow; more hits than :data:`JOIN_MAX_HITS`."""
     rh, th = read_table[0], target_table[0]
 
     def _bail():
@@ -343,6 +359,9 @@ def join_seeds(read_table, target_table, read_self_t: np.ndarray,
         return match_seeds(read_table, target_table, read_self_t, qlens,
                            k=k, max_occ=max_occ)
 
+    if not device_join:
+        return match_seeds(read_table, target_table, read_self_t, qlens,
+                           k=k, max_occ=max_occ)
     if rh.size == 0 or th.size == 0:
         return _bail()
     R2, T2 = _table_pad(rh.size), _table_pad(th.size)
@@ -358,6 +377,7 @@ def join_seeds(read_table, target_table, read_self_t: np.ndarray,
         # the join's one host read before the expansion
         total, capped = (int(x) for x in
                          torch.stack([total_d, capped_d]).cpu())
+    metrics.inc("dataflow.bytes_fetched", 8)
     if total > JOIN_MAX_HITS:
         return _bail()
     if total == 0:
@@ -370,8 +390,14 @@ def join_seeds(read_table, target_table, read_self_t: np.ndarray,
             E=_hits_pad(total), k=k)
     with obs.span("overlap.join.fetch"):
         n = int(cols[5])
-        hits = {key: col[:n].cpu().numpy()
-                for key, col in zip(("q", "t", "rel", "tp", "qc"), cols)}
+        keys = ("q", "t", "rel") + (() if resident else ("tp", "qc"))
+        hits: Dict[str, object] = {key: col[:n].cpu().numpy()
+                                   for key, col in zip(keys, cols)}
+    if resident:
+        hits["tp_dev"] = cols[3][:n].to(torch.int32)
+        hits["qc_dev"] = cols[4][:n].to(torch.int32)
+        metrics.inc("dataflow.bytes_fetched", 12 * n + 4)
+        metrics.inc("dataflow.bytes_avoided", 8 * n)
     return hits, capped
 
 
@@ -505,9 +531,37 @@ def _pack_lanes(tp: np.ndarray, qc: np.ndarray, starts: np.ndarray,
     return ts, qs
 
 
+def gather_pairs(tp_dev: torch.Tensor, qc_dev: torch.Tensor,
+                 starts: torch.Tensor, counts: torch.Tensor, S: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``[B, S]`` chain arena gathered on the device from the
+    resident join's seed coordinates (``racon_tpu.ops.chain.
+    _gather_pairs_kernel``; plain PyTorch on their device): lane ``b``
+    holds hits ``starts[b] ..`` up to ``counts[b]`` and zeros past them,
+    with :func:`_pack_lanes`' clip and mask, so the arena is the host
+    pack's bit for bit. Returns int32 ``(ts, qs)``. Bound: ``8 * B * S``
+    bytes written, the lanes' live hits and 16 bytes a lane read."""
+    dev = tp_dev.device
+    B = starts.shape[0]
+    if tp_dev.shape[0] == 0:
+        z = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        return z, z.clone()
+    j = torch.arange(S, dtype=torch.int64, device=dev)[None, :]
+    idx = torch.clamp(starts.to(torch.int64)[:, None] + j, 0,
+                      tp_dev.shape[0] - 1)
+    mask = j < counts.to(torch.int64)[:, None]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return (torch.where(mask, tp_dev[idx].to(torch.int32), zero),
+            torch.where(mask, qc_dev[idx].to(torch.int32), zero))
+
+
 class _ChainStream:
     """Ragged streaming chain session (``racon_tpu.ops.chain.
-    _ChainStream`` with host-packed lanes).
+    _ChainStream``). ``tp``/``qc`` are the join's host arrays, packed
+    into each arena on the host (:func:`_pack_lanes`), or with
+    ``device_src`` the resident join's device tensors, gathered into each
+    arena on the device (:func:`gather_pairs`) and handed straight to
+    :func:`chain_dp`: the seed coordinates never visit the host.
 
     :meth:`add` queues a candidate pair in its pow2 seed-count bucket;
     :meth:`pump` launches every full ``[B, S]`` arena, without waiting for
@@ -517,11 +571,12 @@ class _ChainStream:
     independent, so its row does not depend on how the stream was fed.
     ``on_row(pid, row)`` fires as each pair's ``[6]`` row is fetched."""
 
-    def __init__(self, *, k: int, tp: np.ndarray, qc: np.ndarray,
+    def __init__(self, *, k: int, tp, qc, device_src: bool = False,
                  on_row: Optional[Callable] = None, device="cuda"):
         self.k = k
         self.tp = tp
         self.qc = qc
+        self.device_src = device_src
         self.on_row = on_row
         self.device = resolve(device)
         self.rows: Dict[int, np.ndarray] = {}
@@ -564,13 +619,18 @@ class _ChainStream:
             starts[lane] = s0
             counts[lane] = c
         with obs.span("overlap.chain.dispatch", pairs=len(chunk)):
-            # pack the arena on the host, upload it and launch
-            # (asynchronous on a card)
-            ts, qs = _pack_lanes(self.tp, self.qc, starts, counts, S, B)
-            out = chain_dp(torch.from_numpy(ts).to(self.device),
-                           torch.from_numpy(qs).to(self.device),
-                           torch.from_numpy(counts.astype(np.int32))
-                           .to(self.device), k=self.k)
+            # fill the arena (on the device from the resident join, else
+            # on the host and uploaded) and launch (asynchronous on a card)
+            ns = torch.from_numpy(counts.astype(np.int32)).to(self.device)
+            if self.device_src:
+                ts, qs = gather_pairs(
+                    self.tp, self.qc,
+                    torch.from_numpy(starts).to(self.device), ns, S)
+            else:
+                ts, qs = (torch.from_numpy(a).to(self.device) for a in
+                          _pack_lanes(self.tp, self.qc, starts, counts, S,
+                                      B))
+            out = chain_dp(ts, qs, ns, k=self.k)
         count("lanes_total", B * S)
         count("lanes_occupied", int(counts.sum()))
         count("chunks")
@@ -613,23 +673,58 @@ def _empty_rows() -> Dict[str, np.ndarray]:
     return {key: np.zeros(0, np.int64) for key in _ROW_KEYS}
 
 
-def _clip_kw(k: int, w: int) -> Tuple[int, int]:
-    # the canonical codes of the scan hold 2k bits of a uint32
-    return max(4, min(16, k)), max(1, w)
+class OverlapParams(NamedTuple):
+    k: int
+    w: int
+    max_occ: int
+    min_seeds: int
+    resident: bool
+    device_join: bool
+    cache: bool
 
 
-def _seed_and_join(read_seqs, target_seqs, read_self_t, qlens, *,
-                   k, w, max_occ, device):
-    """Seed both pools (the targets through the table cache) and join."""
+def resolve_params(k=None, w=None, max_occ=None, min_seeds=None,
+                   resident=None, device_join=None, cache=None
+                   ) -> OverlapParams:
+    """The overlapper's parameters: each one given, or else its flag
+    (``RACON_TPU_OVERLAP_K``, ``_W``, ``_MAX_OCC``, ``_MIN_SEEDS``,
+    ``RACON_TPU_RESIDENT``, ``RACON_TPU_OVERLAP_DEVICE_JOIN``, ``_CACHE``);
+    k clipped to 4..16 (the scan's canonical codes hold 2k bits of 32)
+    and w to at least 1 (``racon_tpu.ops.chain._resolve_params``)."""
+    def pick(value, name, get):
+        return get(name) if value is None else value
+
+    k = pick(k, "RACON_TPU_OVERLAP_K", flags.get_int)
+    w = pick(w, "RACON_TPU_OVERLAP_W", flags.get_int)
+    return OverlapParams(
+        k=max(4, min(16, k)), w=max(1, w),
+        max_occ=pick(max_occ, "RACON_TPU_OVERLAP_MAX_OCC", flags.get_int),
+        min_seeds=pick(min_seeds, "RACON_TPU_OVERLAP_MIN_SEEDS",
+                       flags.get_int),
+        resident=pick(resident, "RACON_TPU_RESIDENT", flags.get_bool),
+        device_join=pick(device_join, "RACON_TPU_OVERLAP_DEVICE_JOIN",
+                         flags.get_bool),
+        cache=pick(cache, "RACON_TPU_OVERLAP_CACHE", flags.get_bool))
+
+
+def _seed_and_join(read_seqs, target_seqs, read_self_t, qlens,
+                   prm: OverlapParams, device):
+    """Seed both pools (the targets through the table cache) and join;
+    under the resident dataflow the tables are compacted on the device,
+    and a device join keeps the seed coordinates there."""
     with obs.span("overlap.seed", reads=len(read_seqs),
                   targets=len(target_seqs)):
-        rt = overlap_seed.build_seed_table(read_seqs, k=k, w=w,
-                                           device=device)
-        tt = overlap_seed.build_seed_table(target_seqs, k=k, w=w,
-                                           cache=True, device=device)
+        rt = overlap_seed.build_seed_table(
+            read_seqs, k=prm.k, w=prm.w, resident=prm.resident,
+            device=device)
+        tt = overlap_seed.build_seed_table(
+            target_seqs, k=prm.k, w=prm.w, resident=prm.resident,
+            cache=prm.cache, device=device)
     with obs.span("overlap.match"):
-        hits, capped = join_seeds(rt, tt, read_self_t, qlens, k=k,
-                                  max_occ=max_occ, device=device)
+        hits, capped = join_seeds(
+            rt, tt, read_self_t, qlens, k=prm.k, max_occ=prm.max_occ,
+            device_join=prm.device_join,
+            resident=prm.resident and prm.device_join, device=device)
         count("freq_capped_buckets", capped)
     return hits
 
@@ -652,21 +747,27 @@ def _group_rows(q, t, rel, rows6, qlens, k) -> Dict[str, np.ndarray]:
 
 def iter_overlap_groups(read_seqs: List[bytes], target_seqs: List[bytes],
                         read_self_t: np.ndarray, *,
-                        k: int = overlap_seed.DEFAULT_K,
-                        w: int = overlap_seed.DEFAULT_W,
-                        max_occ: int = DEFAULT_MAX_OCC,
-                        min_seeds: int = DEFAULT_MIN_SEEDS,
+                        k: Optional[int] = None, w: Optional[int] = None,
+                        max_occ: Optional[int] = None,
+                        min_seeds: Optional[int] = None,
+                        resident: Optional[bool] = None,
+                        device_join: Optional[bool] = None,
+                        cache: Optional[bool] = None,
                         device="cuda") -> Iterator[Dict[str, np.ndarray]]:
     """The streaming overlapper: yield each query group's overlap rows
     (ascending query ordinal) as soon as its chains are fetched (see the
     module docstring for when that is before all chaining is done).
     ``read_self_t[i]`` is the target read ``i`` is, or -1 (its self hits
-    are dropped). Concatenated, the yields are :func:`find_overlaps`."""
-    k, w = _clip_kw(k, w)
+    are dropped). The parameters left None come from the flags
+    (:func:`resolve_params`). Concatenated, the yields are
+    :func:`find_overlaps`."""
+    prm = resolve_params(k, w, max_occ, min_seeds, resident, device_join,
+                         cache)
+    k, min_seeds = prm.k, prm.min_seeds
     qlens = np.fromiter((len(s) for s in read_seqs), np.int64,
                         len(read_seqs))
-    hits = _seed_and_join(read_seqs, target_seqs, read_self_t, qlens, k=k,
-                          w=w, max_occ=max_occ, device=device)
+    hits = _seed_and_join(read_seqs, target_seqs, read_self_t, qlens, prm,
+                          device)
     starts, _, counts = _pair_runs(hits)
     count("candidate_pairs", int(starts.size))
     if starts.size == 0:
@@ -692,7 +793,10 @@ def iter_overlap_groups(read_seqs: List[bytes], target_seqs: List[bytes],
     def on_row(pid, _row):
         rem[group_of[pid]] -= 1
 
-    stream = _ChainStream(k=k, tp=hits["tp"], qc=hits["qc"], on_row=on_row,
+    device_src = "tp_dev" in hits
+    key = "_dev" if device_src else ""
+    stream = _ChainStream(k=k, tp=hits["tp" + key], qc=hits["qc" + key],
+                          device_src=device_src, on_row=on_row,
                           device=device)
 
     def emit(g: int) -> Optional[Dict[str, np.ndarray]]:
@@ -735,18 +839,22 @@ def iter_overlap_groups(read_seqs: List[bytes], target_seqs: List[bytes],
 
 def find_overlaps(read_seqs: List[bytes], target_seqs: List[bytes],
                   read_self_t: np.ndarray, *,
-                  k: int = overlap_seed.DEFAULT_K,
-                  w: int = overlap_seed.DEFAULT_W,
-                  max_occ: int = DEFAULT_MAX_OCC,
-                  min_seeds: int = DEFAULT_MIN_SEEDS, device="cuda"
+                  k: Optional[int] = None, w: Optional[int] = None,
+                  max_occ: Optional[int] = None,
+                  min_seeds: Optional[int] = None,
+                  resident: Optional[bool] = None,
+                  device_join: Optional[bool] = None,
+                  cache: Optional[bool] = None, device="cuda"
                   ) -> Dict[str, np.ndarray]:
     """The whole overlapper, :func:`iter_overlap_groups` collected: arrays
     ``q_ord``, ``t_idx``, ``strand``, ``q_begin``, ``q_end``, ``t_begin``,
     ``t_end``, ``n_seeds``, ``score``, sorted by ``(q_ord, t_idx, strand,
-    t_begin, q_begin)``."""
+    t_begin, q_begin)`` (the JAX ``find_overlaps`` on its default, ragged
+    path)."""
     parts = list(iter_overlap_groups(
         read_seqs, target_seqs, read_self_t, k=k, w=w, max_occ=max_occ,
-        min_seeds=min_seeds, device=device))
+        min_seeds=min_seeds, resident=resident, device_join=device_join,
+        cache=cache, device=device))
     if not parts:
         return _empty_rows()
     return {key: np.concatenate([p[key] for p in parts])

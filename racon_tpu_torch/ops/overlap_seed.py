@@ -11,9 +11,12 @@
   skipped), scrambled through the invertible murmur3 finalizer, and each
   w-window's leftmost strict-< minimum scattered into a selection mask.
 - The host fetches the batch's hashes, strands and mask and compacts them
-  with ``np.nonzero`` into one flat ``(hash, seq_id, pos, strand)`` table
-  (the JAX package's non-resident path; its device compaction belongs to
-  the resident dataflow, which the port does not have yet).
+  with ``np.nonzero`` into one flat ``(hash, seq_id, pos, strand)`` table;
+  under the resident dataflow (``resident=True``, ``RACON_TPU_RESIDENT=1``
+  in the overlapper) :func:`compact_selected` packs the selected entries
+  on the device in the same order and only they are fetched, 10 bytes
+  each (counted in ``dataflow.bytes_fetched`` and, against the three
+  full arrays, ``dataflow.bytes_avoided``).
 
 Hashes are uint32 in the JAX package. On the device they are int64: a
 uint32 value of 2^31 or more would sort first as int32, and PyTorch's
@@ -182,6 +185,36 @@ def minimizer_scan(codes: torch.Tensor, lens: torch.Tensor,
     return h, strand, sel[:, :P]
 
 
+def compact_selected(h: torch.Tensor, strand: torch.Tensor,
+                     sel: torch.Tensor):
+    """The selected entries of a ``[B, P]`` batch packed to the front in
+    row-major order, which is ``np.nonzero``'s (``racon_tpu.ops.
+    overlap_seed._compact_kernel``; plain PyTorch on the batch's device).
+    Returns ``(hash, row, col, strand, total)``: flat ``[B * P]`` arrays
+    whose first ``total`` entries are the selected ones and the rest
+    zeros (``hash`` in ``h``'s dtype, ``row``/``col`` int32, ``strand``
+    bool), and ``total`` a device scalar. A cumsum rank and one scatter
+    each: every unselected entry goes to one dump slot past the end,
+    which is sliced off unread (the winner of duplicate scatter indices is
+    undefined on CUDA). Bound: the three ``[B, P]`` inputs read once, the
+    outputs written once."""
+    B, P = h.shape
+    dev = h.device
+    n = B * P
+    flat = sel.reshape(-1)
+    rank = torch.cumsum(flat.to(torch.int64), 0)
+    idx = torch.where(flat, rank - 1, n)
+    lin = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def packed(vals, dtype):
+        out = torch.zeros(n + 1, dtype=dtype, device=dev)
+        return out.scatter_(0, idx, vals.to(dtype))[:n]
+
+    return (packed(h.reshape(-1), h.dtype), packed(lin // P, torch.int32),
+            packed(lin % P, torch.int32),
+            packed(strand.reshape(-1), torch.bool), rank[-1])
+
+
 # ------------------------------------------------------------ host driver
 
 def _iter_chunks(seqs: List[bytes], k: int, w: int
@@ -233,14 +266,18 @@ def _table_cache_put(ckey, table) -> None:
 
 
 def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
-                     w: int = DEFAULT_W, cache: bool = False,
-                     device="cuda"
+                     w: int = DEFAULT_W, resident: bool = False,
+                     cache: bool = False, device="cuda"
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                 np.ndarray]:
     """The flat minimizer table of a sequence set: numpy ``(hash uint32,
     seq_id int32, pos int32, strand bool)`` sorted by ``(seq_id, pos)``.
-    :func:`minimizer_scan` runs on ``device``; ``cache=True`` looks the
-    set up in the table cache first (a hit counts ``cache_hits``)."""
+    :func:`minimizer_scan` runs on ``device``. ``resident=True`` compacts
+    each batch there (:func:`compact_selected`) and fetches its selected
+    entries only; the host path fetches the whole batch and compacts with
+    ``np.nonzero``; both give the same table. ``cache=True`` looks the
+    set up in the table cache first: a hit counts ``cache_hits`` and, at
+    the table's resident wire size, ``dataflow.bytes_avoided``."""
     ckey = None
     if cache:
         ckey = _fingerprint(seqs, k, w)
@@ -251,6 +288,7 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
         if hit is not None:
             count("cache_hits")
             metrics.inc("overlap.minimizers", int(hit[0].size))
+            metrics.inc("dataflow.bytes_avoided", int(hit[0].size) * 10)
             return hit
         metrics.inc("overlap.cache_misses")
     dev = resolve(device)
@@ -285,13 +323,26 @@ def build_seed_table(seqs: List[bytes], *, k: int = DEFAULT_K,
                 # read back as uint32
                 h32 = torch.where(h >= 1 << 31, h - (1 << 32),
                                   h).to(torch.int32)
-            with obs.span("overlap.seed.fetch", rows=len(part)):
-                h_full = h32.cpu().numpy().view(np.uint32)
-                sel_np = sel.cpu().numpy()
-                s_full = strand.cpu().numpy()
-            rows, cols = np.nonzero(sel_np)
-            h_np = h_full[rows, cols]
-            s_np = s_full[rows, cols]
+                if resident:
+                    packed = compact_selected(h32, strand, sel)
+            if resident:
+                with obs.span("overlap.seed.fetch", rows=len(part)):
+                    n = int(packed[4])
+                    h_np, rows, cols, s_np = (x[:n].cpu().numpy()
+                                              for x in packed[:4])
+                    h_np = h_np.view(np.uint32)
+                fetched = n * 10   # 4 + 4 + 1 + 1 bytes an entry
+                metrics.inc("dataflow.bytes_fetched", fetched)
+                metrics.inc("dataflow.bytes_avoided",
+                            max(0, B * (L - k + 1) * 6 - fetched))
+            else:
+                with obs.span("overlap.seed.fetch", rows=len(part)):
+                    h_full = h32.cpu().numpy().view(np.uint32)
+                    sel_np = sel.cpu().numpy()
+                    s_full = strand.cpu().numpy()
+                rows, cols = np.nonzero(sel_np)
+                h_np = h_full[rows, cols]
+                s_np = s_full[rows, cols]
             keep = h_np != np.uint32(_HASH_MAX)
             rows, cols = rows[keep], cols[keep]
             chunk_ids = np.fromiter((c[0] for c in part), np.int32,

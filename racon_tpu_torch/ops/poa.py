@@ -23,11 +23,21 @@ the parity oracle); both give the same bytes.
 
 What the JAX package does for the TPU and the port does not copy: the
 one-hot/int8-limb matmul vote reduction and its compaction routing (an
-integer ``index_add_`` into int64 is exact in any order here), the mesh
-split and the resident lane ingest (later slices). ``reduce_capacity``
+integer ``index_add_`` into int64 is exact in any order here) and the mesh
+split (a later slice). ``reduce_capacity``
 (device-OOM backpressure) halves the pair arena and the group size.
 Nor does it copy the Pallas probe, the int32 retry or the refetch on a
 fault: a kernel fault raises.
+
+The resident lane ingest (``RACON_TPU_RESIDENT=1``): when every layer of
+a group comes from one layer store whose packed pool the resident
+dataflow left on the engine's device (``LayerStore.dev_qpw``), and no
+window of the group is hand-built, :func:`pack_group` returns 16 bytes of
+gather rows a pair instead of the ``[B, Lq]`` host lane block, and
+:func:`gather_qpw_rows` builds the block on the device; the group counts
+``lane_upload_saved_bytes`` (``2 * B * Lq``), ``dataflow.bytes_avoided``
+and ``dataflow.lanes_device_groups``. Any other group gathers its lanes
+on the host and counts nothing.
 
 A group's packing is the span ``poa.pack``, its enqueued rounds
 ``poa.dispatch`` (and the fault site ``consensus.dispatch``), its fetch
@@ -52,7 +62,7 @@ from ..core.window import WindowType
 from ..device import resolve
 from ..obs import metrics
 from ..params import (DEFAULT_GAP, DEFAULT_MATCH, DEFAULT_MISMATCH, PARAMS,
-                      STATE_NAMES, refine_state_to_torch)
+                      STATE_NAMES, refine_state_to_torch, upload)
 from ..utils.logger import warn
 
 BAND = PARAMS.band
@@ -349,6 +359,37 @@ def fetch_pack(bcodes, blen, covs, ever, frozen, conv, dropped, bg, ed,
     return mat, meta
 
 
+def gather_qpw_rows(pool: torch.Tensor, src0: torch.Tensor,
+                    lens: torch.Tensor, Lq: int) -> torch.Tensor:
+    """A group's ``[B, Lq]`` int16 ``weight << 3 | code`` lane block
+    gathered from the device-resident pool (``racon_tpu.ops.poa.
+    _gather_qpw_rows``; plain PyTorch on the pool's device): pair ``b``
+    reads ``pool[src0[b] + min(pos, max(lens[b] - 1, 0))]`` and is zero
+    from ``lens[b]`` on, so the block is bit for bit the host's
+    ``LayerStore.gather_qpw`` (a dead pair, ``lens`` 0, reads slot
+    ``src0`` and keeps zeros). The index is int64: JAX's int32 ``src0``
+    wraps on a pool past 2^31 elements, where the port stays exact.
+    Bound: ``2 * B * Lq`` bytes written, the pairs' pool spans and 16
+    bytes a pair read."""
+    pos = torch.arange(Lq, dtype=torch.int64, device=pool.device)[None, :]
+    lens = lens.to(torch.int64)[:, None]
+    idx = src0.to(torch.int64)[:, None] + torch.minimum(
+        pos, torch.clamp(lens - 1, min=0))
+    return torch.where(pos < lens, pool[idx],
+                       torch.zeros((), dtype=pool.dtype, device=pool.device))
+
+
+def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``t`` lies on ``dev`` (an unindexed ``cuda`` is the current
+    card)."""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    want = dev.index if dev.index is not None else torch.cuda.current_device()
+    return t.device.index == want
+
+
 # ---------------------------------------------------------------- engine
 
 class _Work:
@@ -423,20 +464,44 @@ def sweep_geometry(Lq: int, max_nm: int, max_n: int):
     return steps, Lq2
 
 
-def pack_group(items, Lq: int, Lb: int, overrides=None):
+def pack_group(items, Lq: int, Lb: int, overrides=None, allow_dev=None):
     """Pack one group's windows into the refine-loop state as numpy arrays
     (``TpuPoaConsensus._pack_shard``): pair rows padded to a power of two
     vote into the sink window ``nWp - 1``. ``overrides`` (a stage-B
     repack) maps a window's result index to its fetched stage-A state
     ``(bcodes row, blen, covs row, ever, bg, ed)``, so it resumes from its
     refined backbone and remapped spans. Returns ``(state, B, nWp)`` with
-    ``state`` keyed by ``params.STATE_NAMES``."""
+    ``state`` keyed by ``params.STATE_NAMES``.
+
+    ``allow_dev`` is the device the group will run on, or None. When it
+    is given, every layer of the group comes from one layer store whose
+    ``dev_qpw`` lies on it, and no window is hand-built, the lanes are
+    not gathered on the host: ``state["qpw"]`` is None and
+    ``state["qpw_rows"]`` is ``(dev_qpw, src0, lens)``, full-``B`` int64
+    gather rows for :func:`gather_qpw_rows` (zeros past the real pairs);
+    ``_pack_shard(allow_dev=True)`` in the JAX package."""
     counts = np.array([w.n_layers for _, w in items], np.int64)
     k = int(counts.sum())
     B = _pow2_at_least(k)
     nWp = _pow2_at_least(len(items) + 1)
+    by_store = {}
+    legacy = []
+    for wi, (_, w) in enumerate(items):
+        if not w.n_layers:
+            continue
+        if w.store is not None:
+            by_store.setdefault(id(w.store), []).append(wi)
+        else:
+            legacy.append(wi)
+    dev_store = None
+    if allow_dev is not None and len(by_store) == 1 and not legacy:
+        store = items[next(iter(by_store.values()))[0]][1].store
+        if store.dev_qpw is not None and _on_device(store.dev_qpw,
+                                                    allow_dev):
+            dev_store = store
     n = np.ones(B, np.int32)
-    qpw = np.zeros((B, Lq), np.uint16)
+    qpw = None if dev_store is not None else np.zeros((B, Lq), np.uint16)
+    qpw_rows = None
     bg = np.zeros(B, np.int32)
     ed = np.zeros(B, np.int32)
     win_of = np.full(B, nWp - 1, np.int64)
@@ -453,21 +518,20 @@ def pack_group(items, Lq: int, Lb: int, overrides=None):
                             bb_len - 1)
         win_of[:k] = np.repeat(np.arange(len(items)), counts)
         real[:k] = True
-        by_store = {}
-        legacy = []
-        for wi, (_, w) in enumerate(items):
-            if not w.n_layers:
-                continue
-            if w.store is not None:
-                by_store.setdefault(id(w.store), []).append(wi)
-            else:
-                legacy.append(wi)
         for wis in by_store.values():
             store = items[wis[0]][1].store
             rows = np.concatenate([items[wi][1].rows for wi in wis])
             dest = np.concatenate(
                 [np.arange(offs[wi], offs[wi + 1]) for wi in wis])
-            qpw[dest] = store.gather_qpw(rows, Lq)
+            if store is dev_store:
+                # 16 bytes of gather rows a pair, not 2 * Lq of lanes
+                src0 = np.zeros(B, np.int64)
+                lens_full = np.zeros(B, np.int64)
+                src0[dest] = store.src[rows]
+                lens_full[dest] = store.length[rows]
+                qpw_rows = (store.dev_qpw, src0, lens_full)
+            else:
+                qpw[dest] = store.gather_qpw(rows, Lq)
         if legacy:
             lay = [(s, q) for wi in legacy
                    for s, q, _, _ in items[wi][1].layers]
@@ -525,6 +589,8 @@ def pack_group(items, Lq: int, Lb: int, overrides=None):
              "blen": blen, "covs": covs, "ever": ever,
              "frozen": np.zeros(nWp, bool), "conv": np.zeros(nWp, bool),
              "dropped": np.zeros((1, 4 + nWp), np.int64)}
+    if qpw_rows is not None:
+        state["qpw_rows"] = qpw_rows
     return state, B, nWp
 
 
@@ -785,7 +851,8 @@ class CudaPoaConsensus:
                       "passthrough": 0, "stage_b_windows": 0,
                       "wavefront_steps": 0, "lanes_occupied": 0,
                       "lanes_total": 0, "groups": 0, "group_windows": 0,
-                      "rounds_after_converged": 0, "group_shapes": []}
+                      "rounds_after_converged": 0, "group_shapes": [],
+                      "lane_upload_saved_bytes": 0}
         # the sanitizer's pick of the K4 groups it shadows with K1
         self._shadow = sanitize.ShadowSampler()
         # device-OOM backpressure: the shard runner's ladder doubles this
@@ -963,9 +1030,23 @@ class CudaPoaConsensus:
 
     def _launch_group_impl(self, items, Lq: int, Lb: int, overrides=None):
         """Pack one group (:func:`pack_group`) and upload it, through
-        pinned memory to a card; records the occupancy counters. Returns
-        the launch handle: its device state, the works and the sizes."""
-        state_np, B, nWp = pack_group(items, Lq, Lb, overrides)
+        pinned memory to a card; records the occupancy counters. A group
+        whose layers lie in a store with its pool on this engine's device
+        gathers its lanes there (:func:`gather_qpw_rows`) and uploads only
+        the gather rows. Returns the launch handle: its device state, the
+        works and the sizes."""
+        state_np, B, nWp = pack_group(items, Lq, Lb, overrides,
+                                      allow_dev=self.device)
+        rows = state_np.pop("qpw_rows", None)
+        if rows is not None:
+            pool, src0, lens = rows
+            state_np["qpw"] = gather_qpw_rows(
+                pool, upload(src0, self.device), upload(lens, self.device),
+                Lq)
+            saved = 2 * B * Lq
+            self.stats["lane_upload_saved_bytes"] += saved
+            metrics.inc("dataflow.bytes_avoided", saved)
+            metrics.inc("dataflow.lanes_device_groups")
         real = state_np["real"]
         occupied = int(state_np["n"][real].sum())
         self.stats["lanes_occupied"] += occupied

@@ -66,15 +66,35 @@ def refine_state_to_torch(state, device="cpu") -> Dict[str, torch.Tensor]:
     ``device``. The uint16 ``weight << 3 | code`` lanes become int16 with
     the same bits (their values stay below 2^15). To a card the arrays go
     through pinned memory, so the copies do not wait for the work already
-    queued on the stream."""
+    queued on the stream. An entry that is already a tensor on ``device``
+    (the lanes the resident dataflow gathered there) is taken as it is:
+    nothing is pinned or copied for it."""
     dev = torch.device(device)
     out = {}
     for name in STATE_NAMES:
+        if isinstance(state[name], torch.Tensor):
+            t = state[name]
+            if t.device.type != dev.type or t.dtype != STATE_DTYPES[name]:
+                raise ValueError(f"state {name!r}: a {t.dtype} tensor on "
+                                 f"{t.device}, wanted "
+                                 f"{STATE_DTYPES[name]} on {dev}")
+            out[name] = t
+            continue
         arr = np.asarray(state[name])
         if name == "qpw":
             arr = arr.astype(np.uint16).view(np.int16)
-        t = torch.as_tensor(np.ascontiguousarray(arr)).to(STATE_DTYPES[name])
-        if dev.type == "cuda":
-            t = t.pin_memory().to(dev, non_blocking=True)
-        out[name] = t.to(dev)
+        out[name] = upload(arr, dev, STATE_DTYPES[name])
     return out
+
+
+def upload(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (as ``dtype`` when given).
+    To a card it goes through pinned memory with a non-blocking copy, so
+    it does not wait for the work already queued on the stream."""
+    dev = torch.device(device)
+    t = torch.as_tensor(np.ascontiguousarray(arr))
+    if dtype is not None:
+        t = t.to(dtype)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

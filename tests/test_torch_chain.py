@@ -15,8 +15,9 @@ against the JAX package's (``racon_tpu/ops/chain.py``), on the CPU.
 - ``find_overlaps`` and the concatenated ``iter_overlap_groups`` give the
   JAX ``find_overlaps`` rows on ``simulate(0.02, seed=11)``, with and
   without self hits, the second call's target table from the cache;
-- the overlapper's defaults are the JAX flags' defaults, and the paths it
-  takes with no switch are the ones those flags choose by default.
+- the overlapper reads its parameters from flags with the JAX flags'
+  names, kinds, defaults and clipping (``RACON_TPU_OVERLAP_RAGGED``
+  excepted: the port has no barrier path).
 """
 
 import pathlib
@@ -27,6 +28,7 @@ import torch
 
 from racon_tpu import flags
 from racon_tpu.ops import chain as jax_chain
+from racon_tpu_torch import flags as port_flags
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.ops import chain as port_chain
 from racon_tpu_torch.ops import overlap_seed as port_seed
@@ -237,24 +239,33 @@ def test_find_overlaps_matches_jax(genome, self_hits):
         assert not (want["t_idx"][q < 20] == self_t[q[q < 20]]).any()
 
 
-def test_defaults_are_the_jax_flag_defaults():
+def test_defaults_are_the_jax_flag_defaults(monkeypatch):
     def default(name):
         return int(flags.REGISTRY[name].default)
 
+    names = ("RACON_TPU_OVERLAP_K", "RACON_TPU_OVERLAP_W",
+             "RACON_TPU_OVERLAP_MAX_OCC", "RACON_TPU_OVERLAP_MIN_SEEDS",
+             "RACON_TPU_RESIDENT", "RACON_TPU_OVERLAP_DEVICE_JOIN",
+             "RACON_TPU_OVERLAP_CACHE")
+    for name in names:
+        monkeypatch.delenv(name, raising=False)
+        mine = port_flags.REGISTRY[name]
+        theirs = flags.REGISTRY[name]
+        assert (mine.default, mine.kind) == (theirs.default, theirs.kind)
     assert port_seed.DEFAULT_K == default("RACON_TPU_OVERLAP_K")
     assert port_seed.DEFAULT_W == default("RACON_TPU_OVERLAP_W")
-    assert port_chain.DEFAULT_MAX_OCC == default("RACON_TPU_OVERLAP_MAX_OCC")
-    assert port_chain.DEFAULT_MIN_SEEDS == default(
-        "RACON_TPU_OVERLAP_MIN_SEEDS")
+    # the parameters left None read the flags, which default to the JAX
+    # defaults: the device join, the target-table cache, no resident path
     kw = port_chain.find_overlaps.__kwdefaults__
     assert kw == port_chain.iter_overlap_groups.__kwdefaults__
-    assert kw == {"k": 15, "w": 5, "max_occ": 64, "min_seeds": 4,
+    assert kw == {"k": None, "w": None, "max_occ": None, "min_seeds": None,
+                  "resident": None, "device_join": None, "cache": None,
                   "device": "cuda"}
-    # the port has no switch for these: it always takes the device join,
-    # the ragged chain stream and the target-table cache
-    for name in ("RACON_TPU_OVERLAP_DEVICE_JOIN", "RACON_TPU_OVERLAP_RAGGED",
-                 "RACON_TPU_OVERLAP_CACHE"):
-        assert default(name) == 1, name
+    assert port_chain.resolve_params() == (15, 5, 64, 4, False, True, True)
+    assert port_chain.resolve_params(k=2, w=0) == (4, 1, 64, 4, False,
+                                                   True, True)
+    assert default("RACON_TPU_OVERLAP_RAGGED") == 1
+    assert "RACON_TPU_OVERLAP_RAGGED" not in port_flags.REGISTRY
     for name in ("CHAIN_LOOKBACK", "MAX_GAP", "BAND_DIAG", "GAP_UNIT",
                  "_NEG", "CHAIN_ARENA_CELLS", "JOIN_TABLE_CELLS",
                  "JOIN_MAX_HITS", "CHAIN_INFLIGHT"):

@@ -482,6 +482,60 @@ def test_overlapper_card_matches_cpu(cuda_device):
         assert np.array_equal(rows["cuda"][key], rows["cpu"][key]), key
 
 
+@pytest.mark.parametrize("resident", [False, True])
+def test_resident_overlapper_card_matches_cpu(cuda_device, resident):
+    """find_overlaps with the resident dataflow's device steps on the
+    card (each seed batch compacted there, the chain arenas gathered from
+    the resident join) gives the host path's rows on the CPU."""
+    rng = np.random.default_rng(5)
+    genome = BASES[rng.integers(0, 4, 20_000)]
+    reads = [_mutate(rng, genome[s:s + 3000], 0.12).tobytes()
+             for s in rng.integers(0, 17_000, 150)]
+    self_t = np.full(len(reads), -1, np.int64)
+    rows = {}
+    for where, flag in ((cuda_device, resident),
+                        (torch.device("cpu"), False)):
+        overlap_seed.clear_table_cache()
+        rows[where.type] = chain.find_overlaps(
+            reads, [genome.tobytes()], self_t, resident=flag, device=where)
+    assert rows["cuda"]["q_ord"].size > 100
+    for key in rows["cpu"]:
+        assert np.array_equal(rows["cuda"][key], rows["cpu"][key]), key
+
+
+def test_resident_device_steps_match_cpu(cuda_device):
+    """compact_selected, gather_pairs and gather_qpw_rows on the card
+    equal the same functions on the CPU."""
+    rng = np.random.default_rng(9)
+    B, P = 64, 700
+    h = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (B, P),
+                                      dtype=np.int64).astype(np.int32))
+    strand = torch.from_numpy(rng.random((B, P)) < 0.5)
+    sel = torch.from_numpy(rng.random((B, P)) < 0.3)
+    want = overlap_seed.compact_selected(h, strand, sel)
+    got = overlap_seed.compact_selected(h.to(cuda_device),
+                                        strand.to(cuda_device),
+                                        sel.to(cuda_device))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    tp = torch.from_numpy(rng.integers(0, 1 << 20, 900).astype(np.int32))
+    qc = torch.from_numpy(rng.integers(0, 1 << 20, 900).astype(np.int32))
+    starts = torch.from_numpy(rng.integers(0, 880, 40))
+    counts = torch.from_numpy(rng.integers(0, 65, 40).astype(np.int32))
+    want = chain.gather_pairs(tp, qc, starts, counts, 64)
+    got = chain.gather_pairs(*(x.to(cuda_device)
+                               for x in (tp, qc, starts, counts)), 64)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    pool = torch.from_numpy(rng.integers(0, 1 << 11, 9000).astype(np.int16))
+    src0 = torch.from_numpy(rng.integers(0, 7000, 48))
+    lens = torch.from_numpy(rng.integers(0, 1100, 48))
+    want = poa.gather_qpw_rows(pool, src0, lens, 1024)
+    got = poa.gather_qpw_rows(pool.to(cuda_device), src0.to(cuda_device),
+                              lens.to(cuda_device), 1024)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_shard_runner_survives_a_real_cuda_oom(cuda_device, tmp_path):
     """A real ``torch.cuda.OutOfMemoryError`` on the 1 Mbp input: with
     all but 12 GiB of the card taken, the aligner's first full-size chunk

@@ -10,11 +10,15 @@ resident, resident, host, ``REPS`` times (default 2).
 Per run, one JSON line: the leg, the card (``nvidia-smi`` name and power
 limit), the wall, the SHA-256 of the polished FASTA (every run must give
 the same), the stage seconds of ``Polisher.timings`` (``build_windows_s``,
-``window_derive_s``, ``layer_store_s`` among them), the span timers that
+``window_derive_s``, ``layer_store_s``, ``consensus_s`` and, on the
+resident leg, ``lane_upload_saved_s`` among them), the span timers that
 carry the wall (``build.windows``, ``build.store``, ``queue.get``,
-``align.fetch``, ``poa.pack``), the ``dataflow`` counters, the aligner's
-fetched bytes and the peak device bytes. Last, the median, minimum and
-maximum of each leg's wall and ``build.windows`` seconds. Span timers are
+``align.fetch``, ``poa.pack``, ``poa.dispatch``), the
+``dataflow`` counters, the consensus engine's ``lane_upload_saved_bytes``,
+the aligner's fetched bytes and the peak device bytes. Last, the median,
+minimum and maximum of each leg's wall, its ``build.windows``,
+``poa.pack`` and ``poa.dispatch`` span seconds and its ``consensus_s``
+(``Polisher.timings``). Span timers are
 on for every run. All lines go to ``chiprun_out/resident_ab.json`` too.
 """
 
@@ -33,7 +37,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SPANS = ("build.windows", "build.store", "queue.get", "align.fetch",
-         "poa.pack")
+         "poa.pack", "poa.dispatch")
 
 
 def gpu_line() -> str:
@@ -88,6 +92,8 @@ def main() -> int:
                     stages_s=dict(polisher.timings),
                     spans_s={k: metrics.timer_s(k) for k in SPANS},
                     dataflow=metrics.dataflow_summary(),
+                    lane_upload_saved_bytes=polisher.consensus.stats[
+                        "lane_upload_saved_bytes"],
                     aligner_fetched_bytes=polisher.aligner.stats[
                         "fetched_bytes"],
                     peak_device_bytes=torch.cuda.max_memory_allocated(dev))
@@ -101,11 +107,17 @@ def main() -> int:
     runs = [r for r in lines if not r.get("warmup")]
     summary = {"summary": {}, "card": card,
                "same_bytes": len({r["fasta_sha256"] for r in lines}) == 1}
+    def value(run, key):
+        if key == "wall_s":
+            return run["wall_s"]
+        if key == "consensus_s":
+            return run["stages_s"][key]
+        return run["spans_s"][key]
+
     for leg in ("host", "resident"):
-        for key, get in (("wall_s", lambda r: r["wall_s"]),
-                         ("build_windows_span_s",
-                          lambda r: r["spans_s"]["build.windows"])):
-            vals = [get(r) for r in runs if r["leg"] == leg]
+        for key in ("wall_s", "build.windows", "poa.pack", "poa.dispatch",
+                    "consensus_s"):
+            vals = [value(r, key) for r in runs if r["leg"] == leg]
             summary["summary"][f"{leg}.{key}"] = dict(
                 median=statistics.median(vals), min=min(vals),
                 max=max(vals), n=len(vals))
