@@ -131,6 +131,36 @@ line each:
              fault, and
              every launch shape of the phase joins the kernels phase's
              ``unheld`` check;
+   workers — the shards phase's inputs through ``python -m
+             racon_tpu_torch -t 8 -c 1 --cudaaligner-batches 1 --shards 4``
+             in child processes on the card: ``--workers 2`` (this CLI and
+             the secondary it starts; the wall, the shards each worker
+             finished, the card's memory in use from ``nvidia-smi`` and
+             each child's peak device bytes); worker A with
+             ``RACON_TPU_FAULTS=worker.kill:kill@2`` (it must exit -9 with
+             one shard ``running`` and one ``done``), then worker B with
+             ``--resume`` (exactly one ``reclaimed`` shard,
+             ``lease.reclaimed`` >= 1 in its report); two workers launched
+             at once with ``--resume`` on an empty directory
+             (``RACON_TPU_EXEC_SLEEP_S=0.5``). Every merged FASTA must
+             have the single shot's SHA-256, every manifest the shards
+             phase's plan with each shard ``done`` on ``primary``, the
+             report at ``--run-report`` must be the primary's, and no
+             child may build a library (its report's ``compiles``, the
+             libraries' mtimes). A ``sitecustomize`` on the children's
+             path (``HOOK_SOURCE``) writes each child's kernel launches
+             (from zero at its start; K4, K2 and K3 > 0 in the
+             ``--workers 2`` run and in the phase), its engines' launch
+             shapes (they join the kernels phase's shapes and its
+             ``unheld`` check) and its peak device bytes at exit;
+   wrapper — ``python -m racon_tpu_torch.wrapper`` with the device
+             engines and racon's scores on the same inputs: ``--split`` at
+             the largest contig's bytes (one contig a shard; the single
+             shot's SHA-256), then ``--legacy-split`` at that size (one
+             ``rampler split`` and one CLI process a chunk, each launching
+             K4, K2 and K3 on the card; the single shot's contig names, and
+             its summed edit distance to the truth contigs under a quarter
+             of the draft's); launches and shapes as in ``workers``;
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -238,7 +268,7 @@ import numpy as np
 import torch
 
 import racon_tpu_torch.exec as exec_pkg
-from racon_tpu_torch import cli, contracts, faults, native, obs
+from racon_tpu_torch import cli, contracts, faults, native, obs, rampler
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.polisher import create_polisher
 from racon_tpu_torch.ops import _build, chain, cuda_nw, overlap_seed
@@ -821,11 +851,13 @@ def unheld_shapes(path, held) -> list:
     return [sh for sh in shapes if held.get(sh[:3], 0) < sh[3]]
 
 
-def phase_kernels(dev, main, auto, shards, resident, resident_auto):
+def phase_kernels(dev, main, auto, shards, resident, resident_auto,
+                  workers, wrapper):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
-    shards phase (``shards``) and the resident phases (``resident``,
-    ``resident_auto``) launched: every consensus (Lq, band) of any
+    shards phase (``shards``), the resident phases (``resident``,
+    ``resident_auto``) and the child processes of the workers and wrapper
+    phases (``workers``, ``wrapper``) launched: every consensus (Lq, band) of any
     at its largest and smallest group (K3 at each; K2 at the largest
     group's geometry, off the main path), and each aligner bucket at the
     main path's largest chunk there, and again at the auto path's, then
@@ -847,7 +879,9 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto):
                                  + auto["consensus_group_shapes"]
                                  + shards["consensus_group_shapes"]
                                  + resident["consensus_group_shapes"]
-                                 + resident_auto["consensus_group_shapes"])
+                                 + resident_auto["consensus_group_shapes"]
+                                 + workers["consensus_group_shapes"]
+                                 + wrapper["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -865,7 +899,9 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto):
     for path, label in ((auto, " (auto path)"),
                         (shards, " (shards phase)"),
                         (resident, " (resident phase)"),
-                        (resident_auto, " (resident auto phase)")):
+                        (resident_auto, " (resident auto phase)"),
+                        (workers, " (workers phase)"),
+                        (wrapper, " (wrapper phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 aligner.append(((k, Bc, path["aligner_div_obs"], label),
@@ -1798,6 +1834,7 @@ def phase_shards(dev, main, paths):
     # later phases time the main path with spans off
     obs.trace.deactivate()
     out = dict(phase="shards", card=gpu_line(), mbp=1.0, n_contigs=4,
+               inputs=sim,
                single_wall_s=single_wall, wall_s=wall,
                single_sha256=hashlib.sha256(single_fa).hexdigest(),
                sha256=hashlib.sha256(fa).hexdigest(),
@@ -1855,6 +1892,464 @@ def phase_shards(dev, main, paths):
     if rc != 0 or cli_sha != main["fasta_sha256"]:
         raise RuntimeError(f"--shards 1 through the CLI (rc {rc}) did not "
                            f"polish the main phase's bytes")
+    return out
+
+
+# -------------------------------------------- several workers, the wrapper
+
+# The workers and wrapper phases drive the port through its entry points in
+# child processes (``python -m racon_tpu_torch``, ``.wrapper``, and the
+# processes those start). This ``sitecustomize`` is put on the children's
+# path: at exit each child writes its kernel launches (counted from zero at
+# its start), its device engines' launch shapes and divergence
+# observations, its builds and its peak device bytes to
+# ``$CHIP_SMOKE_HOOK_DIR/hook.<pid>.json``. A ``sitecustomize`` it shadows
+# runs too.
+HOOK_SOURCE = r'''
+import atexit, importlib.abc, importlib.util, json, os, sys
+
+_OUT = os.environ.get("CHIP_SMOKE_HOOK_DIR", "")
+_ENGINES = []
+_CLASSES = {"racon_tpu_torch.ops.nw": "CudaAligner",
+            "racon_tpu_torch.ops.poa": "CudaPoaConsensus"}
+
+
+def _register(cls):
+    init = cls.__init__
+
+    def __init__(self, *a, **kw):
+        init(self, *a, **kw)
+        _ENGINES.append(self)
+    cls.__init__ = __init__
+
+
+class _Finder(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name not in _CLASSES:
+            return None
+        sys.meta_path.remove(self)
+        try:
+            spec = importlib.util.find_spec(name)
+        finally:
+            sys.meta_path.insert(0, self)
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            _register(getattr(module, _CLASSES[name]))
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+def _dump():
+    mods = sys.modules
+    rec = {"pid": os.getpid(), "argv": sys.argv[1:]}
+    nw = mods.get("racon_tpu_torch.ops.cuda_nw")
+    rec["launches"] = dict(nw.LAUNCHES) if nw else {}
+    al = [e for e in _ENGINES if type(e).__name__ == "CudaAligner"]
+    co = [e for e in _ENGINES if type(e).__name__ == "CudaPoaConsensus"]
+    rec["aligner_chunk_shapes"] = [list(x) for e in al
+                                   for x in e.stats["chunk_shapes"]]
+    rec["consensus_group_shapes"] = [list(x) for e in co
+                                     for x in e.stats["group_shapes"]]
+    rec["aligner_div_obs"] = [sum(e._div_obs[k] for e in al)
+                              for k in range(3)]
+    build = mods.get("racon_tpu_torch.ops._build")
+    rec["nvcc_builds"] = sorted(build.build_log) if build else []
+    met = mods.get("racon_tpu_torch.obs.metrics")
+    rec["compile_builds"] = met.counter("compile.builds") if met else 0
+    torch = mods.get("torch")
+    try:
+        if torch is not None and torch.cuda.is_initialized():
+            rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    except Exception as e:
+        rec["device_error"] = repr(e)
+    with open(os.path.join(_OUT, f"hook.{os.getpid()}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _chain():
+    here = os.path.dirname(os.path.abspath(__file__))
+    for entry in sys.path:
+        cand = os.path.join(entry or ".", "sitecustomize.py")
+        if os.path.abspath(entry or ".") != here and os.path.isfile(cand):
+            spec = importlib.util.spec_from_file_location(
+                "_shadowed_sitecustomize", cand)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            return
+
+
+if _OUT:
+    sys.meta_path.insert(0, _Finder())
+    atexit.register(_dump)
+_chain()
+'''
+
+
+class DeviceMemorySampler:
+    """``nvidia-smi``'s memory in use on the card (MiB), sampled every
+    0.25 s from :meth:`start` to :meth:`stop`: its level before and its
+    peak (each child's own peak comes from its exit record)."""
+
+    def __init__(self):
+        self.samples = []
+        self.errors = []
+        self._stop = False
+        self.baseline = self._used()
+
+    @staticmethod
+    def _used():
+        return int(subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=10).stdout.split()[0])
+
+    def _loop(self):
+        while not self._stop:
+            try:
+                self.samples.append(self._used())
+            except (OSError, ValueError, IndexError,
+                    subprocess.SubprocessError) as e:
+                self.errors.append(repr(e))
+            time.sleep(0.25)
+
+    def start(self):
+        import threading
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self._stop = True
+        self._thread.join()
+        peak = max(self.samples, default=self.baseline)
+        return dict(baseline_mib=self.baseline, peak_mib=peak,
+                    above_baseline_mib=peak - self.baseline,
+                    samples=len(self.samples), errors=self.errors[:3])
+
+
+def _child_env(hook_dir, **extra):
+    """The smoke's environment for a child: no ``RACON_TPU_*`` setting of
+    an earlier phase, the hook on the path, the checkout importable."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RACON_TPU_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(hook_dir), str(ROOT)]
+        + [p for p in [os.environ.get("PYTHONPATH", "")] if p])
+    return dict(env, CHIP_SMOKE_HOOK_DIR=str(hook_dir), **extra)
+
+
+def _spawn(args, cwd, env, out_path=None):
+    """A child ``python -m`` run; its stdout goes to ``out_path`` (or a
+    pipe), its stderr to a pipe."""
+    stdout = open(out_path, "wb") if out_path else subprocess.PIPE
+    try:
+        # a session of its own: a child that outlives its time limit is
+        # killed with the processes it started
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=cwd,
+                                env=env, stdout=stdout,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+    finally:
+        if out_path:
+            stdout.close()
+
+
+def _finish(procs, timeout=300):
+    """Wait for every child, then kill what is left of its session (all
+    of it when a child outlives ``timeout``); (rc, stdout, stderr) of
+    each."""
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e.decode(errors="replace")))
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, 9)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    return out
+
+
+def _hook_records(hook_dir) -> list:
+    """The children's exit records written since the last call (and
+    removes them)."""
+    recs = []
+    for f in sorted(pathlib.Path(hook_dir).glob("hook.*.json")):
+        recs.append(json.loads(f.read_text()))
+        f.unlink()
+    return recs
+
+
+def _merge_children(recs) -> dict:
+    """One path's record from its children's: launches summed, shapes
+    concatenated, divergence observations pooled."""
+    launches = {k: sum(r["launches"].get(k, 0) for r in recs)
+                for k in cuda_nw.LAUNCHES}
+    return dict(
+        processes=len(recs), launches=launches,
+        aligner_chunk_shapes=[s for r in recs
+                              for s in r["aligner_chunk_shapes"]],
+        consensus_group_shapes=[s for r in recs
+                                for s in r["consensus_group_shapes"]],
+        aligner_div_obs=[sum(r["aligner_div_obs"][k] for r in recs)
+                         for k in range(3)],
+        nvcc_builds=sorted({b for r in recs for b in r["nvcc_builds"]}),
+        compile_builds=sum(r["compile_builds"] for r in recs),
+        peak_device_bytes=[r.get("peak_device_bytes") for r in recs])
+
+
+def _libraries() -> dict:
+    """mtime of every built library: a rebuild in a child changes one."""
+    return {str(p): p.stat().st_mtime_ns
+            for p in (ROOT / "build").glob("**/*.so")}
+
+
+def _names(fasta: bytes) -> list:
+    return [line[1:].split(None, 1)[0] for line in fasta.split(b"\n")
+            if line.startswith(b">")]
+
+
+def phase_workers(shards):
+    """Several workers on the shards phase's inputs (see the module
+    docstring)."""
+    inputs = shards["inputs"]
+    triple = [inputs["reads"], inputs["overlaps"], inputs["draft"]]
+    base = ROOT / "build" / "smoke_workers"
+    shutil.rmtree(base, ignore_errors=True)
+    hook = base / "hook"
+    hook.mkdir(parents=True)
+    (hook / "sitecustomize.py").write_text(HOOK_SOURCE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    libs = _libraries()
+    want = shards["single_sha256"]
+    plan = [r["contigs"] for r in shards["shards"]]
+    cli_args = ["racon_tpu_torch", "-t", "8", "-c", "1",
+                "--cudaaligner-batches", "1", "--shards", "4"]
+    env = _child_env(hook)
+
+    def manifest_rows(work):
+        m = exec_pkg.load_manifest(str(work))
+        return [{k: e.get(k) for k in ("id", "contigs", "status", "worker",
+                                       "engine", "reclaimed", "wall_s")}
+                for e in m["shards"]]
+
+    def report(path):
+        rep = json.loads(pathlib.Path(path).read_text())
+        return dict(kind=rep["kind"], argv=rep["argv"],
+                    compile_builds=rep["compiles"]["count"],
+                    align_chunks=rep["pack"]["align_chunks"],
+                    consensus_groups=rep["pack"]["groups"],
+                    faults=rep["faults"], wall_s=rep["wall_s"])
+
+    # 1. --workers 2: this CLI and one secondary it starts
+    mem = DeviceMemorySampler().start()
+    t0 = time.perf_counter()
+    (rc, _, err), = _finish([_spawn(
+        [*cli_args, "--workers", "2", "--shard-dir", str(base / "w2"),
+         "--run-report", str(base / "w2.json"), *triple], base, env,
+        out_path=base / "w2.fasta")])
+    w2_wall = time.perf_counter() - t0
+    w2_mem = mem.stop()
+    w2_fa = (base / "w2.fasta").read_bytes()
+    w2_children = _hook_records(hook)
+    w2 = dict(rc=rc, wall_s=w2_wall,
+              sha256=hashlib.sha256(w2_fa).hexdigest(),
+              shards=manifest_rows(base / "w2") if rc == 0 else None,
+              report=report(base / "w2.json") if rc == 0 else None,
+              device_memory=w2_mem,
+              peak_device_bytes=[r.get("peak_device_bytes")
+                                 for r in w2_children],
+              stderr=err[-3000:] if rc else "")
+    w2_path = _merge_children(w2_children)
+    # 2. chaos: worker A kills itself at its second shard; B reclaims it
+    chaos_dir = base / "chaos"
+    (a_rc, _, a_err), = _finish([_spawn(
+        [*cli_args, "--resume", "--shard-dir", str(chaos_dir), *triple],
+        base, dict(env, RACON_TPU_FAULTS="worker.kill:kill@2",
+                   RACON_TPU_WORKER="chaos-a"))])
+    after_a = manifest_rows(chaos_dir)
+    t0 = time.perf_counter()
+    (b_rc, b_fa, b_err), = _finish([_spawn(
+        [*cli_args, "--resume", "--shard-dir", str(chaos_dir),
+         "--run-report", str(base / "chaos_b.json"), *triple], base,
+        dict(env, RACON_TPU_WORKER="chaos-b"))])
+    chaos = dict(a_rc=a_rc, b_rc=b_rc, b_wall_s=time.perf_counter() - t0,
+                 after_a=[(e["id"], e["status"], e["worker"])
+                          for e in after_a],
+                 sha256=hashlib.sha256(b_fa).hexdigest(),
+                 shards=manifest_rows(chaos_dir) if b_rc == 0 else None,
+                 report=report(base / "chaos_b.json") if b_rc == 0
+                 else None,
+                 reclaimed_msg="reclaiming shard" in b_err,
+                 stderr=b_err[-3000:] if b_rc else "")
+    chaos_children = _hook_records(hook)
+    # 3. two workers launched at once on an empty directory
+    mem = DeviceMemorySampler().start()
+    t0 = time.perf_counter()
+    race_out = _finish([_spawn(
+        [*cli_args, "--resume", "--shard-dir", str(base / "race"),
+         "--run-report", str(base / f"race_{k}.json"), *triple], base,
+        dict(env, RACON_TPU_WORKER=f"race-{k}",
+             RACON_TPU_EXEC_SLEEP_S="0.5")) for k in range(2)])
+    race_wall = time.perf_counter() - t0
+    race_mem = mem.stop()
+    race_children = _hook_records(hook)
+    race = dict(rc=[r[0] for r in race_out], wall_s=race_wall,
+                sha256=[hashlib.sha256(r[1]).hexdigest() for r in race_out],
+                shards=manifest_rows(base / "race")
+                if all(r[0] == 0 for r in race_out) else None,
+                reports=[report(base / f"race_{k}.json") for k in range(2)]
+                if all(r[0] == 0 for r in race_out) else None,
+                device_memory=race_mem,
+                peak_device_bytes=[r.get("peak_device_bytes")
+                                   for r in race_children],
+                stderr=[r[2][-3000:] for r in race_out if r[0]])
+    path = _merge_children(w2_children + chaos_children + race_children)
+    rebuilt = [k for k, v in _libraries().items() if libs.get(k) != v]
+    out = dict(phase="workers", card=gpu_line(), workers2=w2, chaos=chaos,
+               race=race, launches=path["launches"],
+               launches_workers2=w2_path["launches"],
+               processes=path["processes"], rebuilt_libraries=rebuilt,
+               child_nvcc_builds=path["nvcc_builds"],
+               child_compile_builds=path["compile_builds"],
+               single_sha256=want, single_wall_s=shards["single_wall_s"],
+               one_worker_wall_s=shards["wall_s"],
+               **{k: path[k] for k in ("aligner_chunk_shapes",
+                                       "consensus_group_shapes",
+                                       "aligner_div_obs")})
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")})
+    if w2["rc"] != 0 or w2["sha256"] != want:
+        raise RuntimeError(f"--workers 2 (rc {w2['rc']}) did not polish the "
+                           f"single shot's bytes: {w2['stderr']}")
+    for name, rows in (("--workers 2", w2["shards"]),
+                       ("the chaos run", chaos["shards"]),
+                       ("the race", race["shards"])):
+        if rows is None or [r["contigs"] for r in rows] != plan or any(
+                r["status"] != "done" or r["engine"] != "primary"
+                for r in rows):
+            raise RuntimeError(f"{name} did not run the shards phase's "
+                               f"plan to done on the card: {rows}")
+    if (a_rc != -9 or sorted(s for _, s, _ in chaos["after_a"])
+            != ["done", "pending", "pending", "running"]
+            or chaos["b_rc"] != 0 or chaos["sha256"] != want
+            or sum(1 for r in chaos["shards"] if r["reclaimed"]) != 1
+            or chaos["report"]["faults"].get("lease.reclaimed", 0) < 1
+            or not chaos["reclaimed_msg"]):
+        raise RuntimeError(f"the kill and reclaim did not end in the single "
+                           f"shot's bytes: {chaos} {a_err[-2000:]}")
+    if race["rc"] != [0, 0] or race["sha256"] != [want, want]:
+        raise RuntimeError(f"the racing workers failed: {race}")
+    reports = [w2["report"], chaos["report"], *race["reports"]]
+    if (rebuilt or path["nvcc_builds"] or path["compile_builds"]
+            or any(r["compile_builds"] for r in reports)):
+        raise RuntimeError(f"a worker rebuilt a library: {rebuilt} "
+                           f"{path['nvcc_builds']} {reports}")
+    if "--exec-secondary" in w2["report"]["argv"] or w2_path["processes"] != 2:
+        raise RuntimeError("the report left at --run-report is not the "
+                           "primary's, or the secondary did not run")
+    for name, counts in (("--workers 2", w2_path["launches"]),
+                         ("the workers phase", path["launches"])):
+        if min(counts[k] for k in ("nw_fwd_i16x2", "walk_ops",
+                                   "walk_vote")) <= 0:
+            raise RuntimeError(f"{name} missed a kernel: {counts}")
+    out["names"] = [n.decode() for n in _names(w2_fa)]
+    return out
+
+
+def phase_wrapper(shards, workers):
+    """``racon_tpu_torch.wrapper`` on the shards phase's inputs (see the
+    module docstring)."""
+    inputs = shards["inputs"]
+    triple = [inputs["reads"], inputs["overlaps"], inputs["draft"]]
+    base = ROOT / "build" / "smoke_wrapper"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    hook = ROOT / "build" / "smoke_workers" / "hook"
+    env = _child_env(hook)
+    libs = _libraries()
+    draft = parsers.parse_fasta(inputs["draft"])
+    largest = max(len(r.data) for r in draft)
+    # the racon scores (the wrapper's own defaults are 5/-4/-8)
+    args = ["racon_tpu_torch.wrapper", "-t", "8", "-c", "1",
+            "--cudaaligner-batches", "1", "-m", "3", "-x", "-5", "-g", "-4",
+            "--split", str(largest)]
+    plan = rampler.plan(*triple, split_bytes=largest)
+    t0 = time.perf_counter()
+    (rc, fa, err), = _finish([_spawn([*args, *triple], base, env)])
+    split_wall = time.perf_counter() - t0
+    split_children = _hook_records(hook)
+    t0 = time.perf_counter()
+    (l_rc, l_fa, l_err), = _finish([_spawn(
+        [*args, "--legacy-split", *triple], base, env)], timeout=600)
+    legacy_wall = time.perf_counter() - t0
+    legacy_children = _hook_records(hook)
+    truth = {r.name: r.data for r in parsers.parse_fasta(inputs["truth"])}
+    polished = {}
+    for line_pair in re.findall(rb">(\S+)[^\n]*\n([^\n]*)\n", l_fa):
+        polished[line_pair[0]] = line_pair[1]
+    t0 = time.perf_counter()
+    jobs = [(r.data, truth[r.name]) for r in draft] + [
+        (polished[n], truth[n]) for n in sorted(polished) if n in truth]
+    with ThreadPoolExecutor(8) as pool:
+        eds = list(pool.map(lambda ab: native.edit_distance(*ab), jobs))
+    ed_draft, ed_legacy = sum(eds[:len(draft)]), sum(eds[len(draft):])
+    path = _merge_children(split_children + legacy_children)
+    rebuilt = [k for k, v in _libraries().items() if libs.get(k) != v]
+    out = dict(phase="wrapper", card=gpu_line(), split_bytes=largest,
+               plan=[s["contigs"] for s in plan["shards"]],
+               split=dict(rc=rc, wall_s=split_wall,
+                          sha256=hashlib.sha256(fa).hexdigest(),
+                          plan_line=[ln for ln in err.splitlines()
+                                     if "plan:" in ln],
+                          launches=_merge_children(split_children)["launches"],
+                          stderr=err[-3000:] if rc else ""),
+               legacy=dict(rc=l_rc, wall_s=legacy_wall,
+                           processes=len(legacy_children),
+                           names=[n.decode() for n in _names(l_fa)],
+                           ed_draft=ed_draft, ed_polished=ed_legacy,
+                           edit_distance_s=time.perf_counter() - t0,
+                           launches=_merge_children(
+                               legacy_children)["launches"],
+                           stderr=l_err[-3000:] if l_rc else ""),
+               launches=path["launches"], rebuilt_libraries=rebuilt,
+               child_nvcc_builds=path["nvcc_builds"],
+               child_compile_builds=path["compile_builds"],
+               peak_device_bytes=path["peak_device_bytes"],
+               single_sha256=shards["single_sha256"],
+               **{k: path[k] for k in ("aligner_chunk_shapes",
+                                       "consensus_group_shapes",
+                                       "aligner_div_obs")})
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")})
+    if rc != 0 or out["split"]["sha256"] != shards["single_sha256"]:
+        raise RuntimeError(f"wrapper --split (rc {rc}) did not polish the "
+                           f"single shot's bytes: {err[-2000:]}")
+    if sorted(len(c) for c in out["plan"]) != [1] * len(draft) or not any(
+            f"-> {len(draft)} shards (mode=split)" in ln
+            for ln in out["split"]["plan_line"]):
+        raise RuntimeError(f"the --split plan is not one contig a shard: "
+                           f"{out['plan']} {out['split']['plan_line']}")
+    legacy = out["legacy"]
+    if (l_rc != 0 or legacy["names"] != workers["names"]
+            or not ed_legacy * 4 < ed_draft):
+        raise RuntimeError(f"wrapper --legacy-split failed: {legacy}")
+    # one rampler process and one CLI process a chunk, each on the card
+    chunk_runs = [r for r in legacy_children if "--device" in r["argv"]]
+    if len(chunk_runs) != len(draft) or any(
+            min(r["launches"].get(k, 0) for k in ("nw_fwd_i16x2",
+                                                  "walk_ops", "walk_vote"))
+            <= 0 for r in chunk_runs + split_children):
+        raise RuntimeError(f"a wrapper run missed a kernel: "
+                           f"{[r['launches'] for r in legacy_children]}")
+    if rebuilt or path["nvcc_builds"] or path["compile_builds"]:
+        raise RuntimeError(f"a wrapper child rebuilt a library: {rebuilt}")
     return out
 
 
@@ -2266,6 +2761,12 @@ def main() -> int:
     record["shards"] = phase_shards(dev, record["main"], paths)
     record["shards"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["workers"] = phase_workers(record["shards"])
+    record["workers"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["wrapper"] = phase_wrapper(record["shards"], record["workers"])
+    record["wrapper"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2277,7 +2778,9 @@ def main() -> int:
                                          record["main_auto"],
                                          record["shards"],
                                          record["resident"],
-                                         record["resident_auto"])
+                                         record["resident_auto"],
+                                         record["workers"],
+                                         record["wrapper"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -2295,7 +2798,7 @@ def main() -> int:
     # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
               for p in ("main", "main_auto", "shards", "resident",
-                        "resident_auto")}
+                        "resident_auto", "workers", "wrapper")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -2319,6 +2822,9 @@ def main() -> int:
             launches_sanitized=record["obs"]["launches"][name],
             # the 4-shard run of the shards phase
             launches_shards=record["shards"]["launches"][name],
+            # the child processes of the workers and wrapper phases
+            launches_workers=record["workers"]["launches"][name],
+            launches_wrapper=record["wrapper"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

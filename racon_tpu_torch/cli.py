@@ -18,16 +18,21 @@ the run; ``RACON_TPU_TRACE`` and ``RACON_TPU_RUN_REPORT`` are the first
 two's environment equivalents. The trace and the report are written on the
 error paths too. None of them changes an output byte.
 
-The streaming shard runner (``racon_tpu_torch.exec``, one worker on one
-device): ``--shards N``, ``--max-ram SIZE``, ``--resume`` and ``--shard-dir
-DIR`` route the run through ``ShardRunner``, whose output bytes equal the
-one-shot run's; its run report is of kind ``exec`` with one row a shard.
+The streaming shard runner (``racon_tpu_torch.exec``, on one device):
+``--shards N``, ``--max-ram SIZE``, ``--resume``, ``--shard-dir DIR`` and
+``--workers N`` route the run through ``ShardRunner``, whose output bytes
+equal the one-shot run's; its run report is of kind ``exec`` with one row
+a shard. ``--workers N`` starts N-1 secondary processes of this CLI on
+the same device (``--exec-secondary``, hidden), which drain the same
+work dir and write no FASTA; this process merges, reaps them, and then
+removes a derived work dir and writes its trace and report.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -115,6 +120,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "derived from the input paths and parameters, "
                         "removed after a fully successful run; an "
                         "explicit DIR is kept)")
+    p.add_argument("--workers", type=int, default=1, metavar="N",
+                   help="drain the shard manifest with N cooperating "
+                        "worker processes on --device (this one plus N-1 "
+                        "spawned secondaries): workers claim shards "
+                        "through O_EXCL lease files with heartbeats, a "
+                        "dead worker's lease expires and its shard is "
+                        "reclaimed, and the output stays byte-identical "
+                        "to a single-shot run; independently launched "
+                        "processes sharing one --shard-dir cooperate the "
+                        "same way (implies the streaming shard runner)")
+    # internal: a spawned cooperating worker, which adopts the primary's
+    # manifest, polishes shards and emits no merged FASTA
+    p.add_argument("--exec-secondary", action="store_true",
+                   help=argparse.SUPPRESS)
     return p
 
 
@@ -166,9 +185,49 @@ def _finish_obs(trace_path, report_path, argv, t_start, t0,
             shards=shards))
 
 
+def _secondary_argv(argv, n: int):
+    """The argv of the N-1 spawned secondaries: the command line without
+    ``--workers`` (a secondary spawns none) and with the secondary
+    marker."""
+    child = []
+    skip = False
+    for tok in argv:
+        if skip:
+            skip = False
+            continue
+        if tok == "--workers":
+            skip = True
+            continue
+        if tok.startswith("--workers="):
+            continue
+        child.append(tok)
+    child.append("--exec-secondary")
+    return [child] * n
+
+
+def _reap(children) -> None:
+    """Wait for the secondaries. Every shard was terminal before the
+    primary's run returned, so they are in their last poll; one that
+    hangs must not fail a finished run (its FASTA is on stdout): it is
+    killed with a warning."""
+    for proc in children:
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            print("[racon::] warning: a secondary worker did not exit "
+                  "after the run completed — killing it",
+                  file=sys.stderr)
+            proc.kill()
+            proc.wait()
+
+
 def _run_sharded(args, argv, trace_path, report_path, t_start, t0) -> int:
-    """The run through the streaming shard runner (one worker)."""
+    """The run through the streaming shard runner, with its spawned
+    secondaries under ``--workers``."""
     from .exec import ShardRunner, parse_ram
+    workers = max(1, args.workers)
+    secondary = bool(args.exec_secondary)
+    children = []
     try:
         runner = ShardRunner(
             args.sequences, args.overlaps, args.target_sequences,
@@ -189,14 +248,34 @@ def _run_sharded(args, argv, trace_path, report_path, t_start, t0) -> int:
             n_shards=args.shards,
             max_ram_bytes=parse_ram(args.max_ram) if args.max_ram else 0,
             resume=args.resume, work_dir=args.shard_dir,
+            secondary=secondary, defer_cleanup=workers > 1,
             device=args.device)
+        if workers > 1 and not secondary:
+            # the secondaries poll for the manifest this process is about
+            # to publish, then claim shards on the same device
+            for child_argv in _secondary_argv(argv, workers - 1):
+                children.append(subprocess.Popen(
+                    [sys.executable, "-m", "racon_tpu_torch"] + child_argv,
+                    stdout=subprocess.DEVNULL))
         with obs.profile(args.profile or ""):
-            runner.run(sys.stdout.buffer)
+            if secondary:
+                with open(os.devnull, "wb") as sink:
+                    runner.run(sink)
+            else:
+                runner.run(sys.stdout.buffer)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"[racon::] error: {e}", file=sys.stderr)
+        for proc in children:
+            proc.terminate()
+        _reap(children)
         _finish_obs(trace_path, report_path, argv, t_start, t0,
                     kind="exec")
         return 1
+    # the cleanup and this process's trace and report come after the
+    # secondaries exit, so the report left at the path is this one's
+    _reap(children)
+    if workers > 1 and not secondary:
+        runner.cleanup_work_dir()
     _finish_obs(trace_path, report_path, argv, t_start, t0, kind="exec",
                 shards=runner.summary.get("shards"))
     if runner.summary.get("quarantined"):
@@ -218,7 +297,8 @@ def main(argv=None) -> int:
     obs.begin(trace_path, report_path)
     t_start = time.time()
     t0 = time.perf_counter()
-    if args.shards or args.max_ram or args.resume or args.shard_dir:
+    if args.shards or args.max_ram or args.resume or args.shard_dir \
+            or args.workers > 1 or args.exec_secondary:
         return _run_sharded(args, list(argv), trace_path, report_path,
                             t_start, t0)
     try:

@@ -1,20 +1,26 @@
 """The port's contract registry (counterpart of ``racon_tpu/contracts.py``,
 trimmed to what the port emits): the metric names, the span names, the
-fault-injection sites and the run report's schema, declared once.
+fault-injection sites, the run report's schema, which metric backs each
+report key, and the shard and lease lifecycle machines, declared once.
 
-The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`)
-import their sets from here, and ``tests/test_torch_obs.py`` holds the
-registry to a traced run in both directions: every name a run emits is
-declared, and every declared span is opened by the PAF path, the auto
-path, the device engines or the shard runner. The report schema is the JAX package's
-(version 11, every section), so a port report passes the JAX validator
-and a JAX CLI report passes the port's. Stdlib only.
+The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`,
+:mod:`.exec.manifest`) import their sets from here, and
+``tests/test_torch_obs.py`` holds the registry to a traced run in both
+directions: every name a run emits is declared, and every declared span
+is opened by the PAF path, the auto path, the device engines or the
+shard runner. The report schema is the JAX package's (version 11, every
+section), so a port report passes the JAX validator and a JAX CLI report
+passes the port's. :func:`selfcheck` audits the registry itself; the
+runtime half (``RACON_TPU_SANITIZE=1``) is the exit audit in
+:mod:`.sanitize`, which reads :data:`REPORT_BACKING`. The job, tenant
+and placement machines and the journal's record alphabet come with the
+service and the fleet. Stdlib only.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, FrozenSet, Tuple
+from typing import Dict, FrozenSet, Iterable, Tuple
 
 # ----------------------------------------------------------- metric names
 
@@ -59,6 +65,10 @@ METRICS: FrozenSet[str] = frozenset((
     "overlap.seed_lanes_total", "overlap.stream_groups",
     # the pipelined polish's bounded queue
     "queue.consumer_wait_s", "queue.depth", "queue.producer_wait_s",
+    # the runtime sanitizer's exit reports (lock-order cycles, the
+    # contract audit)
+    "sanitize.contract_defaulted_keys", "sanitize.contract_never_emitted",
+    "sanitize.lock_order_cycles",
     # the span rings' overflow; the torch profile's stop and export
     "trace.dropped_events", "trace.profile_stop_s",
 ))
@@ -190,3 +200,182 @@ def schema_keys() -> Dict[str, FrozenSet[str]]:
     for section, keys in SECTION_KEYS.items():
         out[section] = frozenset(keys)
     return out
+
+
+# which function emits each section (module path, function name): the
+# ``top`` keys and ``dispatch_fetch`` are assembled inline by
+# build_report, and so are ``recovery`` and ``fleet``, as zeros, until
+# the service and the fleet come
+SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
+    "top": ("racon_tpu_torch/obs/report.py", "build_report"),
+    "dispatch_fetch": ("racon_tpu_torch/obs/report.py", "build_report"),
+    "queue": ("racon_tpu_torch/obs/metrics.py", "queue_summary"),
+    "pack": ("racon_tpu_torch/obs/metrics.py", "pack_summary"),
+    "recovery": ("racon_tpu_torch/obs/report.py", "build_report"),
+    "compiles": ("racon_tpu_torch/obs/buildwatch.py", "summary"),
+    "dataflow": ("racon_tpu_torch/obs/metrics.py", "dataflow_summary"),
+    "overlap": ("racon_tpu_torch/obs/metrics.py", "overlap_summary"),
+    "fleet": ("racon_tpu_torch/obs/report.py", "build_report"),
+}
+
+# report key -> the metric or span timer whose emission backs it. The
+# RACON_TPU_SANITIZE=1 exit audit uses it to tell a real zero (the metric
+# fired and summed to 0) from a default (it never fired, and the section
+# builder's .get() default filled the key). The JAX package's map less
+# the keys the port does not back: ``recovery.*`` and ``fleet.*`` (the
+# service's and the fleet's metrics) and
+# ``dataflow.ins_overflow_windows`` (the per-window attribution of
+# ``consensus.ins_overflow``, which the port does not emit); and
+# ``compile_s`` reads the port's library builds.
+REPORT_BACKING: Dict[str, str] = {
+    "dispatch_fetch.align_dispatch_s": "align.dispatch",
+    "dispatch_fetch.align_fetch_s": "align.fetch",
+    "dispatch_fetch.consensus_pack_s": "poa.pack",
+    "dispatch_fetch.consensus_dispatch_s": "poa.dispatch",
+    "dispatch_fetch.consensus_fetch_s": "poa.fetch",
+    "dispatch_fetch.compile_s": "compile.build_s",
+    "queue.depth": "queue.depth",
+    "queue.producer_wait_s": "queue.producer_wait_s",
+    "queue.consumer_wait_s": "queue.consumer_wait_s",
+    "queue.stall_s": "queue.producer_wait_s",
+    "pack.pack_efficiency": "consensus.lanes_occupied",
+    "pack.pad_fraction": "consensus.lanes_total",
+    "pack.windows_per_group": "consensus.group_windows",
+    "pack.groups": "consensus.groups",
+    "pack.align_pack_efficiency": "align.lanes_occupied",
+    "pack.align_pad_fraction": "align.lanes_total",
+    "pack.align_chunks": "align.chunks",
+    "pack.align_steps_wasted": "align.steps_wasted",
+    "dataflow.resident": "dataflow.resident",
+    "dataflow.bytes_fetched": "dataflow.bytes_fetched",
+    "dataflow.bytes_avoided": "dataflow.bytes_avoided",
+    "dataflow.fallback_pairs": "dataflow.fallback_pairs",
+    "dataflow.resident_bailouts": "dataflow.resident_bailouts",
+    "dataflow.lanes_device_groups": "dataflow.lanes_device_groups",
+    "overlap.minimizers": "overlap.minimizers",
+    "overlap.candidate_pairs": "overlap.candidate_pairs",
+    "overlap.freq_capped_buckets": "overlap.freq_capped_buckets",
+    "overlap.chains_kept": "overlap.chains_kept",
+    "overlap.chains_dropped": "overlap.chains_dropped",
+    "overlap.lanes_occupied": "overlap.lanes_occupied",
+    "overlap.lanes_total": "overlap.lanes_total",
+    "overlap.chunks": "overlap.chunks",
+    "overlap.join_bailouts": "overlap.join_bailouts",
+    "overlap.cache_hits": "overlap.cache_hits",
+    "overlap.cache_misses": "overlap.cache_misses",
+    "overlap.seed_dispatch_s": "overlap.seed.dispatch",
+    "overlap.seed_fetch_s": "overlap.seed.fetch",
+    "overlap.join_dispatch_s": "overlap.join.dispatch",
+    "overlap.join_fetch_s": "overlap.join.fetch",
+    "overlap.chain_dispatch_s": "overlap.chain.dispatch",
+    "overlap.chain_fetch_s": "overlap.chain.fetch",
+}
+
+# -------------------------------------------------------- state machines
+
+
+class StateMachine:
+    """A declared lifecycle machine: states, directed edges and the
+    initial states. Frozen data: the consumers keep their own logic, and
+    the tests check the writes they make against :meth:`has_edge`."""
+
+    def __init__(self, name: str, states: Iterable[str],
+                 edges: Iterable[Tuple[str, str]],
+                 initial: Iterable[str]):
+        self.name = name
+        self.states: Tuple[str, ...] = tuple(states)
+        self.edges: FrozenSet[Tuple[str, str]] = frozenset(edges)
+        self.initial: Tuple[str, ...] = tuple(initial)
+        for src, dst in self.edges:
+            if src not in self.states or dst not in self.states:
+                raise ValueError(
+                    f"{name}: edge {src!r}->{dst!r} references an "
+                    f"undeclared state")
+        for s in self.initial:
+            if s not in self.states:
+                raise ValueError(f"{name}: initial {s!r} undeclared")
+
+    @property
+    def terminal(self) -> Tuple[str, ...]:
+        """States with no outgoing edge."""
+        srcs = {src for src, _ in self.edges}
+        return tuple(s for s in self.states if s not in srcs)
+
+    def has_edge(self, src: str, dst: str) -> bool:
+        return (src, dst) in self.edges
+
+    def __contains__(self, state: str) -> bool:
+        return state in self.states
+
+
+# the shard states' one spelling (exec/manifest.py binds its names to
+# these)
+SHARD_PENDING = "pending"
+SHARD_RUNNING = "running"
+SHARD_DONE = "done"
+SHARD_QUARANTINED = "quarantined"
+
+# the shard machine. done->pending is the part-CRC re-queue,
+# quarantined->pending the retry of a quarantined shard, running->running
+# the stale-lease reclaim (a takeover rewrites the worker, not the
+# state), running->pending a re-queue of an abandoned shard.
+SHARD_MACHINE = StateMachine(
+    "shard",
+    states=(SHARD_PENDING, SHARD_RUNNING, SHARD_DONE,
+            SHARD_QUARANTINED),
+    edges=(
+        (SHARD_PENDING, SHARD_RUNNING),
+        (SHARD_RUNNING, SHARD_RUNNING), (SHARD_RUNNING, SHARD_PENDING),
+        (SHARD_RUNNING, SHARD_DONE), (SHARD_RUNNING, SHARD_QUARANTINED),
+        (SHARD_DONE, SHARD_PENDING), (SHARD_QUARANTINED, SHARD_PENDING),
+    ),
+    initial=(SHARD_PENDING,),
+)
+
+# the shard lease (exec/lease.py); the lease.* metrics name these
+# transitions one to one
+LEASE_MACHINE = StateMachine(
+    "lease",
+    states=("free", "claimed", "expired", "lost"),
+    edges=(
+        ("free", "claimed"),
+        ("claimed", "free"), ("claimed", "expired"), ("claimed", "lost"),
+        ("expired", "claimed"),
+    ),
+    initial=("free",),
+)
+
+MACHINES: Tuple[StateMachine, ...] = (SHARD_MACHINE, LEASE_MACHINE)
+
+
+def selfcheck() -> list:
+    """The registry's audit of itself: every metric, span and fault-site
+    name parses under the grammar, every :data:`REPORT_BACKING` key is a
+    schema key backed by a registered metric or span timer, and every
+    emitter section is declared. Returns the violations ([] = clean)."""
+    errors = []
+    for name in sorted(METRICS):
+        if not METRIC_NAME_RE.match(name):
+            errors.append(f"metric {name!r} violates METRIC_NAME_RE")
+    for span in sorted(SPANS):
+        if not METRIC_NAME_RE.match(span):
+            errors.append(f"span {span!r} violates METRIC_NAME_RE")
+    for site in FAULT_SITES:
+        if not METRIC_NAME_RE.match(site):
+            errors.append(f"fault site {site!r} violates the name "
+                          f"grammar")
+    for key, metric in REPORT_BACKING.items():
+        section = key.split(".", 1)[0]
+        if section not in SECTION_KEYS:
+            errors.append(f"REPORT_BACKING {key!r}: unknown section")
+        elif key.split(".", 1)[1] not in SECTION_KEYS[section]:
+            errors.append(f"REPORT_BACKING {key!r}: key not in "
+                          f"SECTION_KEYS[{section!r}]")
+        if metric not in METRICS and metric not in SPANS:
+            errors.append(f"REPORT_BACKING {key!r} -> {metric!r}: "
+                          f"backing metric is neither a registered "
+                          f"metric nor a span timer")
+    for section in SECTION_EMITTERS:
+        if section != "top" and section not in SECTION_KEYS:
+            errors.append(f"SECTION_EMITTERS {section!r}: no key set")
+    return errors

@@ -1,5 +1,5 @@
 """The streaming shard runner: bounded-memory, checkpointed polishing (the
-port of ``racon_tpu/exec`` for one worker on one device).
+port of ``racon_tpu/exec`` on one device).
 
 A single ``Polisher`` holds every read, overlap and window of a run at
 once. This package streams the target contigs through it in shards:
@@ -15,16 +15,17 @@ once. This package streams the target contigs through it in shards:
   CRC32, a failed shard walked down the ladder (backoff, device-OOM
   backpressure, the CPU engines when the primary pair is on the host
   already, quarantine), and the parts merged back in target-file order;
-- :mod:`.lease`: the O_EXCL lease files by which the worker owns a shard;
+- :mod:`.lease`: the O_EXCL lease files by which a worker owns a shard,
+  so that several worker processes (``--workers``, or runs launched by
+  hand on one work dir) drain one manifest;
 - :mod:`.manifest`: the fsync'd checkpoint that lets ``--resume`` skip the
   shards that finished;
 - :mod:`.heartbeat`: the progress line.
 
 The contract, held by ``tests/test_torch_exec*.py``: sharded, resumed and
-faulted-then-recovered runs write the single-shot run's bytes. Left out
-(the JAX package keeps them): cooperating workers (``--workers``,
-secondaries), the chip scheduler and mesh shards, and the service's cost
-helpers.
+faulted-then-recovered runs, and runs of several workers, write the
+single-shot run's bytes. Left out (the JAX package keeps them): the chip
+scheduler and mesh shards, and the service's cost helpers.
 """
 
 from .index import RunIndex, build_index  # noqa: F401

@@ -17,7 +17,7 @@ import threading
 import time
 from typing import Optional
 
-from .. import flags
+from .. import flags, sanitize
 from ..obs import metrics
 
 
@@ -58,7 +58,7 @@ class Heartbeat:
         self.worker = worker
         self._stream = stream if stream is not None else sys.stderr
         self._t0 = time.perf_counter()
-        self._lock = threading.Lock()
+        self._lock = sanitize.named_lock("exec.heartbeat")
         self._done = 0
         self._mbp = 0.0
         self._phase = "indexing"

@@ -25,12 +25,12 @@ apart and change the best line of a group.
 from __future__ import annotations
 
 import os
-import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import sanitize
 from ..core.polisher import PolisherType
 from ..core.window import WindowType
 from ..io import parsers
@@ -65,10 +65,13 @@ class RunIndex:
     ov_end: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     ov_target: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     ov_read: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    # a plan made before any overlap exists (``rampler plan`` of an
+    # ``auto`` run): the read bases to charge the contigs by their size
+    uniform_read_bases: int = 0
     _groups: Optional[dict] = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        self._groups_lock = threading.Lock()
+        self._groups_lock = sanitize.named_lock("exec.index")
 
     def _contig_groups(self) -> dict:
         """contig index -> kept-overlap indices, file order within each:
@@ -98,6 +101,12 @@ class RunIndex:
     def contig_read_bytes(self) -> np.ndarray:
         """Bases of the distinct reads per contig (a planner cost term; a
         read two contigs share is charged to both)."""
+        if self.uniform_read_bases and not self.ov_read.size:
+            # no overlap indexed yet: the read bases in proportion to the
+            # contigs' sizes
+            tb = np.fromiter((t.bases for t in self.targets), np.int64,
+                             len(self.targets))
+            return tb * self.uniform_read_bases // max(1, int(tb.sum()))
         out = np.zeros(len(self.targets), np.int64)
         for t, g in self._contig_groups().items():
             out[t] = int(self.read_spans[np.unique(self.ov_read[g]),
@@ -145,43 +154,19 @@ def build_index(sequences_path: str, overlaps_path: str, target_path: str,
                 error_threshold: float = 0.3) -> RunIndex:
     """One metadata pass over the three inputs; raises the empty-set
     errors a single-shot ``initialize()`` raises."""
-    tscan = parsers.scan_sequence_spans(target_path)
-    if tscan is None:
-        raise ValueError(f"file {target_path} has unsupported format "
-                         f"extension")
-    targets = list(tscan)
-    if not targets:
-        raise ValueError("empty target sequences set")
+    idx = _scan_sequences(sequences_path, overlaps_path, target_path, "")
+    idx.overlap_fmt = _overlap_fmt(overlaps_path)
+    targets, read_names = idx.targets, idx.read_names
     # later duplicate target names win, as in the polisher's name map
     target_ids: Dict[bytes, int] = {t.name: i for i, t in enumerate(targets)}
-
-    rscan = parsers.scan_sequence_spans(sequences_path)
-    if rscan is None:
-        raise ValueError(f"file {sequences_path} has unsupported format "
-                         f"extension")
-    read_names: List[bytes] = []
-    spans: List[Tuple[int, int, int]] = []
-    total_len = 0
-    for rec in rscan:
-        read_names.append(rec.name)
-        spans.append((rec.start, rec.end, rec.bases))
-        total_len += rec.bases
-    if not read_names:
-        raise ValueError("empty sequences set")
-    read_spans = np.asarray(spans, np.int64).reshape(-1, 3)
-    window_type = (WindowType.NGS
-                   if total_len / len(read_names) <= 1000 else WindowType.TGS)
     read_ids: Dict[bytes, int] = {n: i for i, n in enumerate(read_names)}
 
-    fmt = _overlap_fmt(overlaps_path)
-    lines = _scan_overlaps(overlaps_path, fmt, targets, target_ids,
-                           read_names, read_ids)
+    lines = _scan_overlaps(overlaps_path, idx.overlap_fmt, targets,
+                           target_ids, read_names, read_ids)
     kept = _global_filter(lines, type_, error_threshold)
     if not kept:
         raise ValueError("empty overlap set")
 
-    idx = RunIndex(sequences_path, overlaps_path, target_path, fmt,
-                   targets, read_spans, read_names, window_type)
     idx.ov_start = np.fromiter((ln.start for ln in kept), np.int64,
                                len(kept))
     idx.ov_end = np.fromiter((ln.end for ln in kept), np.int64, len(kept))
@@ -322,3 +307,46 @@ def build_index_auto(sequences_path: str, target_path: str, paf_path: str,
         write_auto_paf(sequences_path, target_path, paf_path, device=device)
     return build_index(sequences_path, paf_path, target_path, type_,
                        error_threshold)
+
+
+def _scan_sequences(sequences_path: str, overlaps_path: str,
+                    target_path: str, fmt: str) -> RunIndex:
+    """The index of the targets and the reads (names, spans, bases, the
+    window type), with no overlap yet."""
+    tscan = parsers.scan_sequence_spans(target_path)
+    if tscan is None:
+        raise ValueError(f"file {target_path} has unsupported format "
+                         f"extension")
+    targets = list(tscan)
+    if not targets:
+        raise ValueError("empty target sequences set")
+    rscan = parsers.scan_sequence_spans(sequences_path)
+    if rscan is None:
+        raise ValueError(f"file {sequences_path} has unsupported format "
+                         f"extension")
+    read_names: List[bytes] = []
+    spans: List[Tuple[int, int, int]] = []
+    total_len = 0
+    for rec in rscan:
+        read_names.append(rec.name)
+        spans.append((rec.start, rec.end, rec.bases))
+        total_len += rec.bases
+    if not read_names:
+        raise ValueError("empty sequences set")
+    window_type = (WindowType.NGS
+                   if total_len / len(read_names) <= 1000 else WindowType.TGS)
+    return RunIndex(sequences_path, overlaps_path, target_path, fmt,
+                    targets, np.asarray(spans, np.int64).reshape(-1, 3),
+                    read_names, window_type)
+
+
+def build_index_readsonly(sequences_path: str,
+                          target_path: str) -> RunIndex:
+    """An index of the targets and the reads alone, for planning an
+    ``auto`` run before the overlapper has run: no overlap, and
+    :attr:`RunIndex.uniform_read_bases` set, so the planner's cost model
+    works from the read and target sizes."""
+    idx = _scan_sequences(sequences_path, parsers.AUTO_OVERLAPS,
+                          target_path, "paf")
+    idx.uniform_read_bases = int(idx.read_spans[:, 2].sum())
+    return idx

@@ -31,7 +31,7 @@ import os
 import time
 from typing import Dict, Optional
 
-from .. import faults
+from .. import contracts, faults
 from ..utils.logger import warn
 
 MANIFEST_NAME = "manifest.json"
@@ -40,12 +40,12 @@ REPORT_NAME = "run_report.json"
 STATE_PREFIX = "state_"
 VERSION = 2
 
-# a shard's states: pending -> running -> done | quarantined, and back to
-# pending when a part fails verification
-PENDING = "pending"
-RUNNING = "running"
-DONE = "done"
-QUARANTINED = "quarantined"
+# a shard's states (contracts.SHARD_MACHINE): pending -> running -> done
+# | quarantined, and back to pending when a part fails verification
+PENDING = contracts.SHARD_PENDING
+RUNNING = contracts.SHARD_RUNNING
+DONE = contracts.SHARD_DONE
+QUARANTINED = contracts.SHARD_QUARANTINED
 
 
 def fsync_dir(path: str) -> None:

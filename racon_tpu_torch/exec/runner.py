@@ -1,6 +1,6 @@
-"""ShardRunner: a checkpointed, crash-safe streaming polish for one worker
-on one device (the port of ``racon_tpu/exec/runner.py`` without its chip
-scheduler, mesh engines and cooperating secondary workers).
+"""ShardRunner: a checkpointed, crash-safe streaming polish on one device
+(the port of ``racon_tpu/exec/runner.py`` without its chip scheduler and
+mesh engines). Several worker processes may drain one work directory.
 
 - **Shards**: the index pass (:mod:`.index`) and the plan (:mod:`.planner`)
   cut the target contigs into shards; each shard's inputs are copied out
@@ -24,6 +24,14 @@ scheduler, mesh engines and cooperating secondary workers).
   merge every part is read again, and a truncated or corrupt one is
   re-queued rather than merged. The merge writes the parts' records back
   in target-file order, so the output equals a single-shot run's bytes.
+- **Workers**: processes that share a work dir cooperate through the
+  leases: the first to start publishes the plan
+  (``create_manifest_if_absent``) and the others adopt it; a shard leased
+  by a live worker is waited on, and one whose worker died is reclaimed.
+  A ``secondary`` (the CLI's ``--workers`` spawns them) waits for the
+  primary's manifest instead of planning, never verifies or merges the
+  parts and never removes the work dir; ``defer_cleanup`` leaves the
+  removal to the caller, which reaps its secondaries first.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ from .planner import ShardPlan, plan_shards
 # verification rounds before a part that keeps failing is a hard error
 # (each round polishes the shard again)
 _MAX_VERIFY_ROUNDS = 3
+# how long a secondary worker waits for the primary's manifest
+_SECONDARY_MANIFEST_WAIT_S = 120.0
 
 
 def _eprint(msg: str) -> None:
@@ -94,7 +104,9 @@ class ShardRunner:
                  include_unpolished: bool = False, n_shards: int = 0,
                  max_ram_bytes: int = 0, max_target_bytes: int = 0,
                  resume: bool = False, work_dir: Optional[str] = None,
-                 keep_work_dir: Optional[bool] = None, device="cuda"):
+                 keep_work_dir: Optional[bool] = None,
+                 secondary: bool = False, defer_cleanup: bool = False,
+                 device="cuda"):
         self.sequences = os.path.abspath(sequences)
         # ``auto``: run() writes the overlapper's PAF into the work dir
         # and points self.overlaps at it before indexing
@@ -119,14 +131,19 @@ class ShardRunner:
         self.max_ram_bytes = max_ram_bytes
         self.max_target_bytes = max_target_bytes
         self.resume = resume
+        # a secondary adopts the primary's manifest, polishes shards and
+        # writes no merged FASTA; defer_cleanup leaves the work dir's
+        # removal to the caller (cleanup_work_dir)
+        self.secondary = secondary
+        self.defer_cleanup = defer_cleanup
         # resolved where it is used (the cuda engines, the overlapper), as
         # create_polisher does: host engines never touch it
         self.device = device
         self.worker = lease_mod.worker_identity()
         # an explicit work dir is the user's (resume workflows); a derived
-        # one is removed after a fully successful run
+        # one is removed after a fully successful run, never by a secondary
         self.keep_work_dir = (keep_work_dir if keep_work_dir is not None
-                              else work_dir is not None)
+                              else work_dir is not None or secondary)
         self.work_dir = os.path.abspath(work_dir or self.derive_work_dir())
         self.index: Optional[RunIndex] = None
         self.plan: Optional[ShardPlan] = None
@@ -210,9 +227,9 @@ class ShardRunner:
     # ----------------------------------------------------------------- run
 
     def run(self, out) -> Dict:
-        """Run (or resume) the whole sharded polish, writing the merged
-        FASTA to the binary stream ``out``. Returns the summary (also kept
-        as :attr:`summary`)."""
+        """Run (or resume, or join) the whole sharded polish, writing the
+        merged FASTA to the binary stream ``out`` (a secondary writes
+        nothing). Returns the summary (also kept as :attr:`summary`)."""
         t0 = time.perf_counter()
         t_start = time.time()
         # a run boundary, and the span timers on: the report written next
@@ -257,7 +274,9 @@ class ShardRunner:
         try:
             for _ in range(_MAX_VERIFY_ROUNDS):
                 self._drain(manifest, beat)
-                bad = self._verify_parts(manifest)
+                # the merging worker verifies: the parts it emits are
+                # what the check protects
+                bad = [] if self.secondary else self._verify_parts(manifest)
                 if not bad:
                     break
                 for si in bad:
@@ -270,9 +289,10 @@ class ShardRunner:
                     f"to emit a corrupt assembly")
             mf.merge_states(manifest, mf.load_shard_states(self.work_dir))
             mf.save_manifest(self.work_dir, manifest)
-            beat.update(phase="merging")
-            with obs.span("exec.merge"):
-                self._merge_parts(manifest, out)
+            if not self.secondary:
+                beat.update(phase="merging")
+                with obs.span("exec.merge"):
+                    self._merge_parts(manifest, out)
         finally:
             beat.stop()
 
@@ -306,12 +326,13 @@ class ShardRunner:
             shards=manifest["shards"])
         mf.durable_write(os.path.join(self.work_dir, mf.REPORT_NAME),
                          json.dumps(self.report, indent=1).encode())
-        self.cleanup_work_dir()
+        if not self.defer_cleanup:
+            self.cleanup_work_dir()
         return self.summary
 
     def cleanup_work_dir(self) -> None:
         """Remove a derived work dir after a fully successful run (a kept
-        dir, or a run with quarantined shards, stays)."""
+        dir, a secondary's, or a run with quarantined shards, stays)."""
         if self.summary.get("quarantined") or self.keep_work_dir:
             return
         shutil.rmtree(self.work_dir, ignore_errors=True)
@@ -324,7 +345,13 @@ class ShardRunner:
             self._params_fingerprint())
         manifest = None
         rejected = False
-        if self.resume:
+        if self.secondary:
+            manifest = self._await_manifest(fingerprint)
+            if not self._adopt_plan(manifest):
+                raise RuntimeError(
+                    "the published manifest's shard plan does not "
+                    "cover this input — refusing to join it")
+        elif self.resume:
             manifest = mf.load_manifest(self.work_dir)
             if manifest is not None and \
                     manifest["fingerprint"] != fingerprint:
@@ -333,7 +360,7 @@ class ShardRunner:
                 manifest, rejected = None, True
             if manifest is not None and not self._adopt_plan(manifest):
                 manifest, rejected = None, True
-        if not self.resume or rejected:
+        if (not self.resume and not self.secondary) or rejected:
             self._clean_work_dir()
         if manifest is None:
             fresh = {
@@ -358,10 +385,27 @@ class ShardRunner:
                 # trusted for now: the verification before the merge
                 # re-queues a missing, truncated or corrupt part
                 self._initially_done.add(int(e["id"]))
-            elif e["status"] == mf.QUARANTINED and self.resume:
+            elif e["status"] == mf.QUARANTINED and \
+                    (self.resume or self.secondary):
                 # a new run retries what an earlier one gave up on
                 self._retry_quarantined.add(int(e["id"]))
         return manifest
+
+    def _await_manifest(self, fingerprint) -> dict:
+        """A secondary adopts a plan and never makes one: poll until the
+        primary has published the manifest of these inputs."""
+        deadline = time.monotonic() + _SECONDARY_MANIFEST_WAIT_S
+        while True:
+            manifest = mf.load_manifest(self.work_dir)
+            if manifest is not None and \
+                    manifest["fingerprint"] == fingerprint:
+                return manifest
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"secondary worker {self.worker}: no manifest for "
+                    f"these inputs appeared in {self.work_dir} within "
+                    f"{_SECONDARY_MANIFEST_WAIT_S:.0f}s")
+            time.sleep(0.1)
 
     def _adopt_plan(self, manifest: dict) -> bool:
         """Adopt the stored shard plan (the one the parts were cut by);
@@ -465,6 +509,11 @@ class ShardRunner:
                         self._note_terminal(si, entry, beat)
                         continue
                     self._retry_quarantined.discard(si)
+                    if entry.get("status") == mf.QUARANTINED:
+                        # the retry goes back through pending: the shard
+                        # machine has no quarantined -> running edge
+                        entry["status"] = mf.PENDING
+                        self._save(entry, manifest)
                     if entry.get("status") == mf.RUNNING:
                         # an abandoned shard, taken over
                         metrics.inc("lease.reclaimed")

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import sys
 import threading
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Set, Union
 
 from .. import contracts
 
@@ -27,22 +27,35 @@ _lock = threading.Lock()
 _counters: Dict[str, Number] = {}
 _gauges: Dict[str, Number] = {}
 _timers: Dict[str, float] = {}
+# every name written this process (the exit audit's record; clear() and
+# clear_run() leave it)
+_seen: Set[str] = set()
 
 
 def inc(name: str, delta: Number = 1) -> None:
     """Add ``delta`` to counter ``name`` (created at 0)."""
     with _lock:
+        _seen.add(name)
         _counters[name] = _counters.get(name, 0) + delta
 
 
 def set_gauge(name: str, value: Number) -> None:
     with _lock:
+        _seen.add(name)
         _gauges[name] = value
 
 
 def add_time(name: str, seconds: float) -> None:
     with _lock:
+        _seen.add(name)
         _timers[name] = _timers.get(name, 0.0) + seconds
+
+
+def seen_names() -> Set[str]:
+    """Every metric name written this process, across run boundaries: the
+    contract audit's record of what was emitted."""
+    with _lock:
+        return set(_seen)
 
 
 def counter(name: str, default: Number = 0) -> Number:

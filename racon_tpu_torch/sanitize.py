@@ -15,19 +15,31 @@
   neither side moves for the timeout; given an ``escalate_cb`` (the shard
   runner's polishes) it also calls it once a stall outlasts
   ``escalate_after`` timeouts.
+- **Lock-order witness**: the named locks (:func:`named_lock`: the shard
+  index's and the heartbeat's) become :class:`WitnessedLock`, the
+  acquisition-order graph across threads is recorded (one stack per
+  first-seen edge), and every cycle, a potential deadlock even where this
+  run's interleaving never hung, is printed at process exit with the stack
+  of each edge on it. The metrics registry's own lock stays plain: the
+  witness publishes through it.
+- **Contract audit**: at process exit, the registered metrics this process
+  never wrote, and the report keys whose backing metric
+  (``contracts.REPORT_BACKING``) never fired, so the report carries a
+  default there (:func:`contract_audit`).
 """
 
 from __future__ import annotations
 
+import atexit
 import sys
 import threading
 import time
 import traceback
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import flags
+from . import contracts, flags
 from .obs import metrics
 from .utils.logger import warn
 
@@ -224,3 +236,225 @@ def queue_watchdog(name: str,
         return None
     return QueueWatchdog(flags.get_float("RACON_TPU_SANITIZE_WATCHDOG_S"),
                          name, escalate_cb=escalate_cb).start()
+
+
+# ----------------------------------------------------- lock-order witness
+
+class LockOrderWitness:
+    """The acquisition order of the named locks.
+
+    Every acquire of a :class:`WitnessedLock` while the thread holds
+    others adds the edges ``held -> acquired`` to one graph of the
+    process, each stamped with the acquiring stack the first time it is
+    seen (after that an acquire costs a list append). A cycle in the graph
+    is a potential deadlock: two threads can reach its two edges at once
+    and wait on each other, whether or not this run did. :meth:`report`
+    prints every cycle with the first stack of each edge on it; it runs
+    at process exit (:func:`lock_witness`).
+
+    Edges from a name to itself are skipped: instances of one lock class
+    share a name, and nesting two of them is ordered by something the
+    name does not record."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        # (held name, acquired name) -> first-seen acquiring stack
+        self._edges: Dict[Tuple[str, str], str] = {}
+        self._tls = threading.local()
+
+    def _held(self) -> List[str]:
+        held = getattr(self._tls, "held", None)
+        if held is None:
+            held = self._tls.held = []
+        return held
+
+    def note_acquire(self, name: str) -> None:
+        held = self._held()
+        if held:
+            fresh = [(p, name) for p in held
+                     if p != name and (p, name) not in self._edges]
+            if fresh:
+                stack = "".join(traceback.format_stack()[:-1])
+                with self._mu:
+                    for edge in fresh:
+                        self._edges.setdefault(edge, stack)
+        held.append(name)
+
+    def note_release(self, name: str) -> None:
+        held = self._held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i] == name:
+                del held[i]
+                return
+
+    def edges(self) -> Dict[Tuple[str, str], str]:
+        with self._mu:
+            return dict(self._edges)
+
+    def cycles(self) -> List[List[str]]:
+        """Every distinct simple cycle of the order graph as a name list
+        (``[a, b]`` is ``a -> b -> a``)."""
+        adj: Dict[str, List[str]] = {}
+        for a, b in self.edges():
+            adj.setdefault(a, []).append(b)
+        out: List[List[str]] = []
+        seen: set = set()
+
+        def dfs(node: str, path: List[str]) -> None:
+            if len(path) > 32:   # the graphs here are tiny
+                return
+            for nxt in adj.get(node, ()):
+                if nxt in path:
+                    cyc = path[path.index(nxt):]
+                    # a canonical rotation, not a set: A->B->C->A and its
+                    # reverse are different potential deadlocks
+                    k = cyc.index(min(cyc))
+                    key = tuple(cyc[k:] + cyc[:k])
+                    if key not in seen:
+                        seen.add(key)
+                        out.append(cyc)
+                else:
+                    dfs(nxt, path + [nxt])
+
+        for start in sorted(adj):
+            dfs(start, [start])
+        return out
+
+    def report(self, stream=None) -> int:
+        """Print every cycle, with each edge's first acquiring stack, to
+        ``stream`` (stderr); returns the number of cycles."""
+        cycles = self.cycles()
+        if not cycles:
+            return 0
+        stream = stream if stream is not None else sys.stderr
+        edges = self.edges()
+        lines: List[str] = []
+        for cyc in cycles:
+            ring = " -> ".join(cyc + [cyc[0]])
+            lines.append(f"[racon_tpu::sanitize] lock-order witness: "
+                         f"cycle {ring} (potential deadlock)")
+            for a, b in zip(cyc, cyc[1:] + [cyc[0]]):
+                lines.append(f"  edge {a} -> {b} first acquired at:")
+                lines.append(edges.get((a, b), "  <stack unavailable>")
+                             .rstrip("\n"))
+        print("\n".join(lines), file=stream)
+        stream.flush()
+        metrics.set_gauge("sanitize.lock_order_cycles", len(cycles))
+        return len(cycles)
+
+
+_witness: Optional[LockOrderWitness] = None
+_witness_mu = threading.Lock()
+
+
+def lock_witness() -> LockOrderWitness:
+    """The process's witness, made at first use; its cycle report is
+    registered to run at exit, once."""
+    global _witness
+    with _witness_mu:
+        if _witness is None:
+            _witness = LockOrderWitness()
+            atexit.register(_witness.report)
+    return _witness
+
+
+class WitnessedLock:
+    """A ``threading.Lock`` that reports its acquires and releases to a
+    :class:`LockOrderWitness` under the lock's name (one name a
+    coordination point, shared by the instances of one class).
+
+    It works under ``threading.Condition(lock)``: the Condition's
+    fallbacks drive ``acquire``/``release``, so a ``wait()`` drops and
+    restores the witness's record of the held lock around the sleep."""
+
+    def __init__(self, name: str,
+                 witness: Optional[LockOrderWitness] = None):
+        self.name = name
+        self._lock = threading.Lock()
+        self._witness = witness if witness is not None else lock_witness()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        ok = self._lock.acquire(blocking, timeout)
+        if ok:
+            self._witness.note_acquire(self.name)
+        return ok
+
+    def release(self) -> None:
+        self._witness.note_release(self.name)
+        self._lock.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __enter__(self) -> "WitnessedLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.release()
+        return False
+
+    def __repr__(self) -> str:
+        return f"<WitnessedLock {self.name!r} at {id(self):#x}>"
+
+
+def named_lock(name: str):
+    """The lock of a named coordination point: a :class:`WitnessedLock`
+    when the sanitizer is on at its creation, else a plain
+    ``threading.Lock``."""
+    if enabled():
+        return WitnessedLock(name)
+    return threading.Lock()
+
+
+# ------------------------------------------------------ contract audit
+
+def contract_audit(stream=None) -> Dict[str, List[str]]:
+    """The registry against what this process emitted: the registered
+    metrics no site wrote (``never_emitted``), and the report keys whose
+    backing metric or span timer never fired, so the section builder's
+    default filled them (``defaulted_keys``). Informational: a plain
+    polish never touches the shard runner's metrics. The two counts land
+    in the ``sanitize.contract_*`` gauges."""
+    seen = metrics.seen_names()
+    audit: Dict[str, List[str]] = {"never_emitted": [], "defaulted_keys": []}
+    if not seen:
+        return audit     # nothing ran: everything would be missing
+
+    def emitted(name: str) -> bool:
+        return name in seen or any(s.startswith(name + ".") for s in seen)
+
+    audit["never_emitted"] = sorted(
+        m for m in contracts.METRICS if m not in seen)
+    audit["defaulted_keys"] = sorted(
+        key for key, backing in contracts.REPORT_BACKING.items()
+        if not emitted(backing))
+    stream = stream if stream is not None else sys.stderr
+    ne, dk = audit["never_emitted"], audit["defaulted_keys"]
+    metrics.set_gauge("sanitize.contract_never_emitted", len(ne))
+    metrics.set_gauge("sanitize.contract_defaulted_keys", len(dk))
+    if ne:
+        print(f"[racon_tpu::sanitize] contract audit: "
+              f"{len(ne)} registered metric(s) never emitted this "
+              f"process: {', '.join(ne[:12])}"
+              + (" ..." if len(ne) > 12 else ""), file=stream)
+    if dk:
+        print(f"[racon_tpu::sanitize] contract audit: "
+              f"{len(dk)} report key(s) backed by silent metrics "
+              f"(validator defaults): {', '.join(dk[:12])}"
+              + (" ..." if len(dk) > 12 else ""), file=stream)
+    stream.flush()
+    return audit
+
+
+def _exit_contract_audit() -> None:
+    # the flag is read at exit, so a test that toggles it mid-process
+    # gets or loses the audit accordingly
+    if enabled():
+        try:
+            contract_audit()
+        except Exception:  # graftlint: disable=swallowed-exception (exit path: a closed stderr must not mask the exit status)
+            pass
+
+
+atexit.register(_exit_contract_audit)
