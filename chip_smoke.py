@@ -161,6 +161,37 @@ line each:
              K4, K2 and K3 on the card; the single shot's contig names, and
              its summed edit distance to the truth contigs under a quarter
              of the draft's); launches and shapes as in ``workers``;
+   serve   — the resident polishing service in child processes on the
+             card: ``python -m racon_tpu_torch --serve SOCK --serve-dir
+             DIR -t 8 -c 1 --cudaaligner-batches 1 --workers 2`` (the
+             seconds from its start to the first ``ping``); the main
+             phase's 1 Mbp PAF job twice, one after the other, through
+             ``python -m racon_tpu_torch --submit SOCK --run-report ...``
+             (each job's SHA-256 must be the main phase's; the server's
+             ``wall_s``, ``compile_s`` and build count and the client's
+             wall, job 2's wall over the main phase's in-process polish);
+             the 1 Mbp job and the shards phase's 4-contig genome at once
+             on the two slots (each its one-shot SHA-256; both walls,
+             ``nvidia-smi``'s memory in use, the server's peak device
+             bytes; these two and the next through a ``ServiceClient``
+             of the smoke, no client process); a ``-m 5`` job rejected
+             with the profile mismatch; a
+             server on a fresh directory with
+             ``RACON_TPU_FAULTS=server.kill:kill@1`` killed (-9) at the
+             start of a job submitted under an idempotency key, and the
+             server restarted on that directory without the fault: the
+             same key resumes the job, which comes back with the main
+             phase's SHA-256 and ``recovery.requeued_jobs`` 1 (the restart
+             to result wall); then ``shutdown {"mode": "drain"}``: exit 0
+             with the journal compacted to nothing. Every job's report
+             must show aligner chunks and consensus groups (K4, K2 and K3
+             launched for it) and 0 builds; each stopped server's exit
+             record must show K4, K2 and K3 launches, no child may build
+             a library, the server logs' ``device_mem=`` lines (the card's
+             allocated bytes after the warm pool and after each job) are
+             printed, and the shapes join the ``unheld`` check (the killed
+             server writes no record: its job runs again, whole, in the
+             restarted server);
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -179,9 +210,9 @@ line each:
              groups included, and the
              stream's 256 bp bucket, ``CONSENSUS_TAIL``, off the main path
              where the run did not launch it; each aligner (max_len,
-             band) at the main path's largest chunk, and at main_auto's
-             where that is larger or the bucket is main_auto's alone, then
-             at the shards phase's on the same rule,
+             band) at the main path's largest chunk, and once more at
+             the largest chunk any other path launched there where that
+             is larger or the bucket is not the main path's,
              band-ladder rungs included, on pairs drawn like the
              simulator's that the aligner seeds there), held
              bit-exact against its plain PyTorch version on the same card
@@ -236,8 +267,10 @@ line each:
              device's idle share;
 12. accuracy — the draft's and the main and main_auto polishes' edit
              distances to the truth, three native distances side by side
-             after every timed phase; each polish must cut the draft's
-             distance to under a quarter.
+             on three threads started before the kernels phase, once the
+             phases with child processes are over (each thread times its
+             own); each polish must cut the draft's distance to under a
+             quarter.
 
 Then the ``{"kernels": [...]}`` line (``on_main_path`` false for a kernel
 the engines give none of the main path's launches: K1 since K4's wide
@@ -258,6 +291,7 @@ import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -852,17 +886,17 @@ def unheld_shapes(path, held) -> list:
 
 
 def phase_kernels(dev, main, auto, shards, resident, resident_auto,
-                  workers, wrapper):
+                  workers, wrapper, serve):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
     shards phase (``shards``), the resident phases (``resident``,
-    ``resident_auto``) and the child processes of the workers and wrapper
-    phases (``workers``, ``wrapper``) launched: every consensus (Lq, band) of any
-    at its largest and smallest group (K3 at each; K2 at the largest
-    group's geometry, off the main path), and each aligner bucket at the
-    main path's largest chunk there, and again at the auto path's, then
-    the shards phase's and the resident phase's, where that is larger or
-    the bucket is new;
+    ``resident_auto``) and the child processes of the workers, wrapper and
+    serve phases (``workers``, ``wrapper``, ``serve``) launched: every
+    consensus (Lq, band) of any at its largest and smallest group (K3 at
+    each; K2 at the largest group's geometry, off the main path), and each
+    aligner bucket at the main path's largest chunk there, and once more
+    at the largest chunk of any other path where that is larger or the
+    bucket is new;
     then the forward kernels at
     ``WIDE_1024`` when the main path did not launch that bucket and at the
     consensus groups of ``CONSENSUS_OFF_PATH`` (K4's wide body on the
@@ -881,7 +915,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                                  + resident["consensus_group_shapes"]
                                  + resident_auto["consensus_group_shapes"]
                                  + workers["consensus_group_shapes"]
-                                 + wrapper["consensus_group_shapes"])
+                                 + wrapper["consensus_group_shapes"]
+                                 + serve["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -896,17 +931,23 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
     aligner = [((k, v[0], main["aligner_div_obs"], ""), 204 + i)
                for i, (k, v) in enumerate(sorted(chunks.items()))]
     largest = {k: v[0] for k, v in chunks.items()}
+    # beyond the main path's rows, one row a bucket: at the largest batch
+    # any other path launched there (a row held at B holds every smaller
+    # batch of its geometry), with that path's divergence observations
+    extra = {}
     for path, label in ((auto, " (auto path)"),
                         (shards, " (shards phase)"),
                         (resident, " (resident phase)"),
                         (resident_auto, " (resident auto phase)"),
                         (workers, " (workers phase)"),
-                        (wrapper, " (wrapper phase)")):
+                        (wrapper, " (wrapper phase)"),
+                        (serve, " (serve phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
-                aligner.append(((k, Bc, path["aligner_div_obs"], label),
-                                204 + len(aligner)))
+                extra[k] = (Bc, path["aligner_div_obs"], label)
                 largest[k] = Bc
+    for k, (Bc, div_obs, label) in sorted(extra.items()):
+        aligner.append(((k, Bc, div_obs, label), 204 + len(aligner)))
     for (k, Bc, _, _), _ in aligner:
         held[("aligner", *k)] = max(held.get(("aligner", *k), 0), Bc)
     shapes = ([("consensus", c, None) for c in consensus]
@@ -1545,20 +1586,35 @@ def phase_resident_auto(dev, paths, main_auto):
     return out
 
 
-def phase_accuracy(record, paths, main_seq, auto_seq) -> dict:
-    """The main and main_auto paths' edit distances to the truth, and the
-    draft's: three O(n^2 / 64) native distances side by side (ctypes drops
-    the GIL), after every timed phase. Each polish must cut the draft's
-    distance to under a quarter."""
+def start_accuracy(paths, main_seq, auto_seq) -> dict:
+    """Start the main and main_auto paths' edit distances to the truth,
+    and the draft's: three O(n^2 / 64) native distances on three threads
+    (ctypes drops the GIL), started once every child-process phase is over
+    so they share the host only with the kernels phase's single launching
+    thread (its CUDA events time the device). Each thread times its own
+    distance."""
     truth = fasta_seq(paths["truth"])
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        ed_draft, ed_main, ed_auto = pool.map(
-            lambda seq: native.edit_distance(seq, truth),
-            [fasta_seq(paths["draft"]), main_seq, auto_seq])
-    out = dict(phase="accuracy", truth_len=len(truth), ed_draft=ed_draft,
-               ed_polished=ed_main, ed_polished_auto=ed_auto,
-               edit_distance_s=time.perf_counter() - t0)
+
+    def timed(seq):
+        t0 = time.perf_counter()
+        return native.edit_distance(seq, truth), time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(3)
+    futures = [pool.submit(timed, seq) for seq in
+               (fasta_seq(paths["draft"]), main_seq, auto_seq)]
+    pool.shutdown(wait=False)
+    return dict(truth_len=len(truth), futures=futures)
+
+
+def phase_accuracy(record, started) -> dict:
+    """The three distances of :func:`start_accuracy`; each polish must cut
+    the draft's distance to under a quarter."""
+    (ed_draft, s_draft), (ed_main, s_main), (ed_auto, s_auto) = (
+        f.result() for f in started["futures"])
+    out = dict(phase="accuracy", truth_len=started["truth_len"],
+               ed_draft=ed_draft, ed_polished=ed_main,
+               ed_polished_auto=ed_auto,
+               edit_distance_s=max(s_draft, s_main, s_auto))
     record["main"].update(ed_draft=ed_draft, ed_polished=ed_main)
     record["main_auto"].update(ed_draft=ed_draft, ed_polished=ed_auto,
                                ed_polished_paf_path=ed_main)
@@ -2353,6 +2409,304 @@ def phase_wrapper(shards, workers):
     return out
 
 
+# ----------------------------------------------------- the resident service
+
+def _server_proc(sock, serve_dir, log_path, env):
+    """A ``python -m racon_tpu_torch --serve`` child on the card with two
+    slots; its stderr goes to ``log_path`` (the polisher's progress lines
+    would fill a pipe)."""
+    log = open(log_path, "ab")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "racon_tpu_torch", "--serve", str(sock),
+             "--serve-dir", str(serve_dir), "-t", "8", "-c", "1",
+             "--cudaaligner-batches", "1", "--workers", "2"],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log,
+            start_new_session=True)
+    finally:
+        log.close()
+
+
+def _await_ping(proc, sock, timeout=180.0) -> float:
+    """Seconds from now until the server answers ``ping``."""
+    from racon_tpu_torch.serve.client import ServiceClient
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"the server exited {proc.returncode} "
+                               f"before its first ping")
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError("the server did not answer ping in time")
+        try:
+            with ServiceClient(str(sock), timeout_s=10, retries=0) as c:
+                if c.ping().get("ok"):
+                    return time.perf_counter() - t0
+        except (OSError, ConnectionError):
+            time.sleep(0.2)
+
+
+def _stop_group(proc, log_path, timeout=120):
+    """Wait for a server child, then kill what is left of its session. A
+    child past ``timeout`` gets SIGABRT first, so its fault handler writes
+    every thread's stack to its log, whose tail the error carries."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.kill(proc.pid, signal.SIGABRT)
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            pass
+        tail = pathlib.Path(log_path).read_text(errors="replace")[-12000:]
+        raise RuntimeError(f"a server did not exit within {timeout} s; "
+                           f"its log ends:\n{tail}") from None
+    finally:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    return proc.returncode
+
+
+def phase_serve(main, shards, paths):
+    """The resident polishing service on the card (see the module
+    docstring)."""
+    import tempfile
+    from racon_tpu_torch.serve.client import ServiceClient
+    base = ROOT / "build" / "smoke_serve"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    hook = ROOT / "build" / "smoke_workers" / "hook"
+    hook.mkdir(parents=True, exist_ok=True)
+    (hook / "sitecustomize.py").write_text(HOOK_SOURCE)
+    _hook_records(hook)
+    libs = _libraries()
+    # AF_UNIX paths end near 107 bytes: the socket lives in a short
+    # temporary directory
+    sock_dir = pathlib.Path(tempfile.mkdtemp(prefix="rsv"))
+    sock = sock_dir / "s.sock"
+    if len(str(sock)) > 100:
+        raise RuntimeError(f"socket path too long for AF_UNIX: {sock}")
+    # a fault handler in each server: SIGABRT dumps every thread's stack
+    server_env = dict(_child_env(hook), PYTHONFAULTHANDLER="1")
+    client_env = {k: v for k, v in server_env.items()
+                  if k != "CHIP_SMOKE_HOOK_DIR"}
+    main_triple = [paths["reads"], paths["overlaps"], paths["draft"]]
+    inputs = shards["inputs"]
+    four_triple = [inputs["reads"], inputs["overlaps"], inputs["draft"]]
+    want_main, want_four = main["fasta_sha256"], shards["single_sha256"]
+    procs = []
+
+    def submit(name, triple):
+        with open(base / f"{name}.fasta", "wb") as out:
+            return subprocess.Popen(
+                [sys.executable, "-m", "racon_tpu_torch", "-t", "8",
+                 "--submit", str(sock), "--run-report",
+                 str(base / f"{name}.json"), *triple], cwd=ROOT,
+                env=client_env, stdout=out, stderr=subprocess.PIPE,
+                start_new_session=True)
+
+    def job_row(name, ok, fasta, wall, rep, want, detail=""):
+        """One job's row from its FASTA and its report; the job must give
+        its one-shot SHA-256, show aligner chunks and consensus groups (K4,
+        K2 and K3 launched for it) and build nothing."""
+        row = dict(client_wall_s=wall,
+                   sha256=hashlib.sha256(fasta).hexdigest())
+        if ok:
+            row.update(wall_s=rep["wall_s"],
+                       compile_s=rep["dispatch_fetch"]["compile_s"],
+                       builds=rep["compiles"]["count"],
+                       post_warm=rep["compiles"]["post_warm"],
+                       align_chunks=rep["pack"]["align_chunks"],
+                       consensus_groups=rep["pack"]["groups"],
+                       align_dispatch_s=rep["dispatch_fetch"][
+                           "align_dispatch_s"])
+        if (not ok or row["sha256"] != want or row["builds"]
+                or not row["align_chunks"]
+                or not row["consensus_groups"]):
+            raise RuntimeError(f"serve job {name} failed or differs from "
+                               f"its one-shot run: {row} {detail}")
+        return row
+
+    def finish(name, proc, t0, want):
+        """A ``--submit`` client's job."""
+        _, err = proc.communicate(timeout=300)
+        ok = proc.returncode == 0
+        return job_row(
+            name, ok, (base / f"{name}.fasta").read_bytes(),
+            time.perf_counter() - t0,
+            json.loads((base / f"{name}.json").read_text()) if ok
+            else None, want,
+            f"rc {proc.returncode}: {err.decode(errors='replace')[-1500:]}")
+
+    def direct(name, triple, want, t0):
+        """A job through a ``ServiceClient`` of this process."""
+        spec = {"sequences": triple[0], "overlaps": triple[1],
+                "target_sequences": triple[2], "threads": 8}
+        with ServiceClient(str(sock), timeout_s=600) as c:
+            sub = c.submit(spec)
+            header, payload = c.result(sub["job"], timeout_s=550) \
+                if sub.get("ok") else (sub, None)
+        return job_row(name, payload is not None, payload or b"",
+                       time.perf_counter() - t0, header.get("report"),
+                       want, str({k: v for k, v in header.items()
+                                  if k != "report"}))
+
+    def device_lines(log_path):
+        return [ln for ln in pathlib.Path(log_path).read_text(
+            errors="replace").splitlines() if "device_mem=" in ln]
+
+    try:
+        # 1. the server, two slots on the card
+        t0 = time.perf_counter()
+        server = _server_proc(sock, base / "sd1", base / "server_a.log",
+                              server_env)
+        procs.append(server)
+        _await_ping(server, sock)
+        start_s = time.perf_counter() - t0
+        # 2. two sequential jobs
+        jobs = {}
+        for name in ("job1", "job2"):
+            t0 = time.perf_counter()
+            jobs[name] = finish(name, submit(name, main_triple), t0,
+                                want_main)
+        # 3. two jobs at once on the two slots, from clients in this
+        # process (no client process start in the pair's wall)
+        mem = DeviceMemorySampler().start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            pair = [pool.submit(direct, "pair_main", main_triple,
+                                want_main, t0),
+                    pool.submit(direct, "pair_four", four_triple,
+                                want_four, t0)]
+            jobs["pair_main"], jobs["pair_four"] = (f.result()
+                                                    for f in pair)
+        pair_wall = time.perf_counter() - t0
+        pair_mem = mem.stop()
+        # 4. admission: scores the resident engines were not built for
+        with ServiceClient(str(sock), timeout_s=60) as c:
+            rej = c.submit({"sequences": main_triple[0],
+                            "overlaps": main_triple[1],
+                            "target_sequences": main_triple[2],
+                            "match": 5})
+            stats_a = c.stats()
+            c.shutdown(mode="now")
+        if rej.get("ok") or "engine profile mismatch" not in \
+                rej.get("error", ""):
+            raise RuntimeError(f"-m 5 was not rejected with the profile "
+                               f"mismatch: {rej}")
+        a_rc = _stop_group(server, base / "server_a.log")
+        server_a = _hook_records(hook)
+        a_mem_lines = device_lines(base / "server_a.log")
+        # 5. kill at the job's start, then restart on the same directory
+        kill_dir = base / "sd2"
+        spec = {"sequences": paths["reads"], "overlaps": paths["overlaps"],
+                "target_sequences": paths["draft"], "threads": 8}
+        server = _server_proc(sock, kill_dir, base / "server_b.log",
+                              dict(server_env,
+                                   RACON_TPU_FAULTS="server.kill:kill@1"))
+        procs.append(server)
+        _await_ping(server, sock)
+        with ServiceClient(str(sock), timeout_s=60) as c:
+            killed_job = c.submit(spec, key="smoke-kill")
+        b_rc = _stop_group(server, base / "server_b.log", timeout=300)
+        journal = [json.loads(ln) for ln in (kill_dir / "journal.jsonl")
+                   .read_text().splitlines() if ln.strip()]
+        if b_rc != -9 or [r["rec"] for r in journal] != ["submitted",
+                                                         "running"]:
+            raise RuntimeError(f"server.kill:kill@1 did not kill the "
+                               f"server at the job's start: rc {b_rc}, "
+                               f"{journal}")
+        if sock.exists():
+            sock.unlink()
+        t0 = time.perf_counter()
+        server = _server_proc(sock, kill_dir, base / "server_c.log",
+                              server_env)
+        procs.append(server)
+        restart_ping_s = _await_ping(server, sock)
+        with ServiceClient(str(sock), timeout_s=600) as c:
+            again = c.submit(spec, key="smoke-kill")
+            header, payload = c.result(again["job"], timeout_s=550)
+        restart_wall = time.perf_counter() - t0
+        recovered = dict(
+            job=killed_job.get("job"), existing=again.get("existing"),
+            ok=header.get("ok"), restart_to_result_s=restart_wall,
+            restart_ping_s=restart_ping_s, wall_s=header.get("wall_s"),
+            attempts=header.get("attempts"),
+            sha256=hashlib.sha256(payload or b"").hexdigest(),
+            recovery=(header.get("report") or {}).get("recovery"),
+            align_chunks=(header.get("report") or {}).get(
+                "pack", {}).get("align_chunks"),
+            consensus_groups=(header.get("report") or {}).get(
+                "pack", {}).get("groups"),
+            builds=(header.get("report") or {}).get(
+                "compiles", {}).get("count"))
+        if (not header.get("ok") or not again.get("existing")
+                or recovered["sha256"] != want_main
+                or (recovered["recovery"] or {}).get("requeued_jobs") != 1
+                or not recovered["align_chunks"]
+                or not recovered["consensus_groups"]
+                or recovered["builds"]):
+            raise RuntimeError(f"the restarted server did not recover the "
+                               f"killed job: {recovered}")
+        # 6. drain
+        with ServiceClient(str(sock), timeout_s=60) as c:
+            drain = c.shutdown(mode="drain")
+        c_rc = _stop_group(server, base / "server_c.log", timeout=300)
+        server_c = _hook_records(hook)
+        c_mem_lines = device_lines(base / "server_c.log")
+        left = (kill_dir / "journal.jsonl").read_bytes()
+        spool_left = sorted(os.listdir(kill_dir / "spool"))
+        if (a_rc != 0 or c_rc != 0 or drain.get("state") != "draining"
+                or left or spool_left):
+            raise RuntimeError(f"a server did not stop cleanly: rc "
+                               f"{a_rc}/{c_rc}, {drain}, journal "
+                               f"{left[:200]!r}, spool {spool_left}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, 9)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    path = _merge_children(server_a + server_c)
+    rebuilt = [k for k, v in _libraries().items() if libs.get(k) != v]
+    out = dict(phase="serve", card=gpu_line(), start_to_ping_s=start_s,
+               jobs=jobs, main_wall_s=main["wall_s"],
+               job2_over_main=jobs["job2"]["wall_s"] / main["wall_s"],
+               shards_single_wall_s=shards["single_wall_s"],
+               pair_wall_s=pair_wall, pair_device_memory=pair_mem,
+               stats=stats_a, rejected=rej.get("error"),
+               recovered=recovered,
+               server_device_lines=a_mem_lines + c_mem_lines,
+               launches=path["launches"], processes=path["processes"],
+               peak_device_bytes=path["peak_device_bytes"],
+               rebuilt_libraries=rebuilt,
+               child_nvcc_builds=path["nvcc_builds"],
+               child_compile_builds=path["compile_builds"],
+               **{k: path[k] for k in ("aligner_chunk_shapes",
+                                       "consensus_group_shapes",
+                                       "aligner_div_obs")})
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")})
+    if rebuilt or path["nvcc_builds"] or path["compile_builds"]:
+        raise RuntimeError(f"a server rebuilt a library: {rebuilt} "
+                           f"{path['nvcc_builds']}")
+    if path["processes"] != 2:
+        raise RuntimeError(f"expected the exit records of the two servers "
+                           f"that stopped, got {path['processes']}")
+    for rec in server_a + server_c:
+        if min(rec["launches"].get(k, 0) for k in ("nw_fwd_i16x2",
+                                                   "walk_ops",
+                                                   "walk_vote")) <= 0:
+            raise RuntimeError(f"a server missed a kernel: "
+                               f"{rec['launches']}")
+    return out
+
+
 def overlap_split(dev, paths) -> dict:
     """Where the overlapper's time goes on the main path's 1 Mbp inputs,
     on the card (each step ends in a synchronise): seeding the reads,
@@ -2767,12 +3121,17 @@ def main() -> int:
     record["wrapper"] = phase_wrapper(record["shards"], record["workers"])
     record["wrapper"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["serve"] = phase_serve(record["main"], record["shards"], paths)
+    record["serve"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     record["parse"] = phase_parse(dev, paths, zlib)
     record["parse"]["seconds"] = time.perf_counter() - t0
 
+    accuracy = start_accuracy(paths, main_seq, auto_seq)
+    del main_seq, auto_seq
     t0 = time.perf_counter()
     entries, drawn, held = phase_kernels(dev, record["main"],
                                          record["main_auto"],
@@ -2780,7 +3139,8 @@ def main() -> int:
                                          record["resident"],
                                          record["resident_auto"],
                                          record["workers"],
-                                         record["wrapper"])
+                                         record["wrapper"],
+                                         record["serve"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -2798,7 +3158,7 @@ def main() -> int:
     # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
               for p in ("main", "main_auto", "shards", "resident",
-                        "resident_auto", "workers", "wrapper")}
+                        "resident_auto", "workers", "wrapper", "serve")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -2808,8 +3168,7 @@ def main() -> int:
 
     record["agree"] = phase_agree(dev)
     record["profile"] = phase_profile(dev, paths)
-    record["accuracy"] = phase_accuracy(record, paths, main_seq, auto_seq)
-    del main_seq, auto_seq
+    record["accuracy"] = phase_accuracy(record, accuracy)
 
     kernels = []
     for name, e in entries.items():
@@ -2825,6 +3184,8 @@ def main() -> int:
             # the child processes of the workers and wrapper phases
             launches_workers=record["workers"]["launches"][name],
             launches_wrapper=record["wrapper"]["launches"][name],
+            # the two servers of the serve phase that stopped
+            launches_serve=record["serve"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -26,6 +26,16 @@ a shard. ``--workers N`` starts N-1 secondary processes of this CLI on
 the same device (``--exec-secondary``, hidden), which drain the same
 work dir and write no FASTA; this process merges, reaps them, and then
 removes a derived work dir and writes its trace and report.
+
+The resident polishing service (``racon_tpu_torch.serve``): ``--serve
+SOCK`` runs this process as a server on the unix socket SOCK (no
+positional inputs; ``-m/-x/-g/-b`` fix its engine profile, ``-c`` and
+``--cudaaligner-batches`` put its engines on ``--device``, ``--workers N``
+sizes its slot pool, ``--serve-budget`` bounds the in-flight footprint,
+``--serve-dir`` makes it crash-safe); ``--submit SOCK`` sends this
+command's polish to such a server and streams the FASTA to stdout as the
+one-shot run would print it (the device is the server's, so the client
+never touches CUDA).
 """
 
 from __future__ import annotations
@@ -46,16 +56,19 @@ def build_parser() -> argparse.ArgumentParser:
         prog="racon",
         description="consensus module for raw de novo DNA assembly of long "
                     "uncorrected reads (PyTorch/CUDA implementation)")
-    p.add_argument("sequences",
+    # the positionals are optional only because --serve runs without them;
+    # every polishing mode (one-shot, sharded, --submit) still requires all
+    # three, enforced in main() with argparse's own error text
+    p.add_argument("sequences", nargs="?", default=None,
                    help="FASTA/FASTQ file (may be gzipped) with sequences "
                         "used for correction")
-    p.add_argument("overlaps",
+    p.add_argument("overlaps", nargs="?", default=None,
                    help="MHAP/PAF/SAM file (may be gzipped) with overlaps "
                         "between sequences and targets, or the literal "
                         "'auto' to compute overlaps in-process with the "
                         "first-party minimizer-chain overlapper (on "
                         "--device)")
-    p.add_argument("target_sequences",
+    p.add_argument("target_sequences", nargs="?", default=None,
                    help="FASTA/FASTQ file (may be gzipped) with targets to "
                         "correct")
     p.add_argument("-u", "--include-unpolished", action="store_true",
@@ -129,7 +142,42 @@ def build_parser() -> argparse.ArgumentParser:
                         "reclaimed, and the output stays byte-identical "
                         "to a single-shot run; independently launched "
                         "processes sharing one --shard-dir cooperate the "
-                        "same way (implies the streaming shard runner)")
+                        "same way (implies the streaming shard runner; "
+                        "with --serve it instead sizes the resident "
+                        "worker-slot pool)")
+    # the resident polishing service (racon_tpu_torch.serve): one warm
+    # engine pool serves every job it runs
+    p.add_argument("--serve", metavar="SOCK", default=None,
+                   help="run as a resident polishing service on the "
+                        "unix socket SOCK (no positional inputs): a "
+                        "warm engine pool on --device executes submitted "
+                        "jobs through the normal pipeline, so a job's "
+                        "latency is compute, not the one-shot start; "
+                        "-m/-x/-g/-b fix the resident engine profile, "
+                        "--serve-budget bounds the in-flight job "
+                        "footprint (see README 'Polishing as a "
+                        "service')")
+    p.add_argument("--submit", metavar="SOCK", default=None,
+                   help="submit this invocation as a job to the "
+                        "resident service listening on SOCK and stream "
+                        "the polished FASTA to stdout — byte-identical "
+                        "to running the same command one-shot")
+    p.add_argument("--serve-budget", metavar="SIZE", default=None,
+                   help="admission budget for --serve: the summed "
+                        "resident-footprint estimate of running jobs "
+                        "stays under SIZE (plain number = MB; K/M/G/T "
+                        "suffixes; default RACON_TPU_SERVE_BUDGET)")
+    p.add_argument("--serve-dir", metavar="DIR", default=None,
+                   help="durable directory for --serve (crash-safe "
+                        "serving): every job lifecycle transition is "
+                        "journaled (append-only, fsync'd) and results "
+                        "spool to CRC-verified files, so a server "
+                        "killed mid-batch restarts from the same DIR "
+                        "with no lost or duplicated work — completed "
+                        "jobs serve from the spool, queued/running "
+                        "jobs re-run down the crash ladder "
+                        "(RACON_TPU_SERVE_DIR is the env equivalent; "
+                        "unset = in-memory only)")
     # internal: a spawned cooperating worker, which adopts the primary's
     # manifest, polishes shards and emits no merged FASTA
     p.add_argument("--exec-secondary", action="store_true",
@@ -289,14 +337,76 @@ def _run_sharded(args, argv, trace_path, report_path, t_start, t0) -> int:
     return 0
 
 
+def _serve(args) -> int:
+    """``--serve``: run the resident polishing service until it stops."""
+    from .exec import parse_ram
+    from .serve.service import PolishServer
+    server = None
+    try:
+        server = PolishServer(
+            args.serve,
+            match=args.match, mismatch=args.mismatch, gap=args.gap,
+            banded=args.cuda_banded_alignment,
+            num_threads=args.threads,
+            aligner_backend="cuda" if args.cudaaligner_batches > 0
+            else "native",
+            consensus_backend="cuda" if args.cudapoa_batches > 0
+            else "native",
+            aligner_batches=max(1, args.cudaaligner_batches),
+            consensus_batches=max(1, args.cudapoa_batches),
+            # --workers N with --serve: N slots in the pool
+            workers=args.workers if args.workers > 1 else 0,
+            budget_bytes=parse_ram(args.serve_budget)
+            if args.serve_budget else 0,
+            serve_dir=args.serve_dir, device=args.device)
+        return server.serve_forever()
+    except KeyboardInterrupt:
+        if server is not None:
+            server.shutdown()
+        return 0
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"[racon_tpu::serve] error: {e}", file=sys.stderr)
+        return 1
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    args = build_parser().parse_args(_preprocess_argv(list(argv)))
+    parser = build_parser()
+    args = parser.parse_args(_preprocess_argv(list(argv)))
     trace_path, report_path = _obs_paths(args)
     obs.begin(trace_path, report_path)
     t_start = time.time()
     t0 = time.perf_counter()
+
+    if args.serve_dir and not args.serve:
+        parser.error("--serve-dir only makes sense with --serve "
+                     "(the shard runner's checkpoint directory is "
+                     "--shard-dir)")
+    if args.serve:
+        if args.sequences or args.overlaps or args.target_sequences:
+            parser.error("--serve takes no positional inputs (jobs "
+                         "submit theirs over the socket)")
+        if args.submit:
+            parser.error("--serve and --submit are mutually exclusive")
+        return _serve(args)
+
+    # every polishing mode (one-shot, sharded, --submit) needs the input
+    # triple; only --serve runs without it
+    if not (args.sequences and args.overlaps and args.target_sequences):
+        parser.error("the following arguments are required: sequences, "
+                     "overlaps, target_sequences")
+
+    if args.submit:
+        from .serve import client as serve_client
+        try:
+            return serve_client.submit_and_stream(
+                args.submit, serve_client.spec_from_args(args),
+                sys.stdout.buffer, report_path=report_path)
+        except (ValueError, RuntimeError, OSError) as e:
+            print(f"[racon_tpu::serve] error: {e}", file=sys.stderr)
+            return 1
+
     if args.shards or args.max_ram or args.resume or args.shard_dir \
             or args.workers > 1 or args.exec_secondary:
         return _run_sharded(args, list(argv), trace_path, report_path,

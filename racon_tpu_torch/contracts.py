@@ -1,10 +1,12 @@
 """The port's contract registry (counterpart of ``racon_tpu/contracts.py``,
 trimmed to what the port emits): the metric names, the span names, the
 fault-injection sites, the run report's schema, which metric backs each
-report key, and the shard and lease lifecycle machines, declared once.
+report key, the job, shard and lease lifecycle machines and the service
+journal's record alphabet, declared once.
 
 The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`,
-:mod:`.exec.manifest`) import their sets from here, and
+:mod:`.exec.manifest`, :mod:`.serve.journal`, :mod:`.serve.service`)
+import their sets from here, and
 ``tests/test_torch_obs.py`` holds the registry to a traced run in both
 directions: every name a run emits is declared, and every declared span
 is opened by the PAF path, the auto path, the device engines or the
@@ -69,6 +71,14 @@ METRICS: FrozenSet[str] = frozenset((
     # contract audit)
     "sanitize.contract_defaulted_keys", "sanitize.contract_never_emitted",
     "sanitize.lock_order_cycles",
+    # the resident service's journal and recovery (server-level, unscoped)
+    "serve.journal_compactions", "serve.journal_records",
+    "serve.journal_replayed", "serve.recovered_jobs",
+    "serve.requeued_jobs", "serve.spool_corrupt", "serve.spool_served",
+    # the service's slot supervision (server-level, unscoped)
+    "slot.deaths", "slot.quarantined", "slot.restarts",
+    # the admission cost model's fingerprint cache (exec/planner.py)
+    "fleet.cost_cache_hits", "fleet.cost_cache_misses",
     # the span rings' overflow; the torch profile's stop and export
     "trace.dropped_events", "trace.profile_stop_s",
 ))
@@ -81,8 +91,13 @@ DYNAMIC_METRIC_PREFIXES: Tuple[str, ...] = (
     "swallowed.",        # swallowed.<context>|<exception type>
 )
 
+# a service job's thread-local write scope (obs.metrics.set_scope)
+# prefixes every write with job.<id>.: a scope root, never a literal name
+JOB_SCOPE_ROOT = "job."
+
 # every name under these prefixes describes one run: obs.begin() clears
-# them (span timers are keyed by the span name, hence the phase prefixes)
+# them (span timers are keyed by the span name, hence the phase prefixes;
+# "serve." and "slot." are server-level and stay)
 RUN_PREFIXES: Tuple[str, ...] = (
     "align.", "aligner.", "poa.", "consensus.", "queue.", "retrace.",
     "retrace_total.", "swallowed.", "trace.", "parse.", "overlap.",
@@ -117,7 +132,9 @@ SPANS: FrozenSet[str] = frozenset((
 FAULT_SITES: Tuple[str, ...] = ("consensus.dispatch", "align.dispatch",
                                 "align.fetch", "part.write",
                                 "manifest.write", "worker.kill",
-                                "exec.polish")
+                                "exec.polish", "serve.polish",
+                                "serve.journal", "serve.socket",
+                                "serve.slot", "server.kill")
 
 FAULT_KINDS: Tuple[str, ...] = ("io", "enospc", "oom", "err", "stall",
                                 "kill")
@@ -204,14 +221,13 @@ def schema_keys() -> Dict[str, FrozenSet[str]]:
 
 # which function emits each section (module path, function name): the
 # ``top`` keys and ``dispatch_fetch`` are assembled inline by
-# build_report, and so are ``recovery`` and ``fleet``, as zeros, until
-# the service and the fleet come
+# build_report, and so is ``fleet``, as zeros, until the fleet comes
 SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
     "top": ("racon_tpu_torch/obs/report.py", "build_report"),
     "dispatch_fetch": ("racon_tpu_torch/obs/report.py", "build_report"),
     "queue": ("racon_tpu_torch/obs/metrics.py", "queue_summary"),
     "pack": ("racon_tpu_torch/obs/metrics.py", "pack_summary"),
-    "recovery": ("racon_tpu_torch/obs/report.py", "build_report"),
+    "recovery": ("racon_tpu_torch/obs/metrics.py", "recovery_summary"),
     "compiles": ("racon_tpu_torch/obs/buildwatch.py", "summary"),
     "dataflow": ("racon_tpu_torch/obs/metrics.py", "dataflow_summary"),
     "overlap": ("racon_tpu_torch/obs/metrics.py", "overlap_summary"),
@@ -222,8 +238,7 @@ SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
 # RACON_TPU_SANITIZE=1 exit audit uses it to tell a real zero (the metric
 # fired and summed to 0) from a default (it never fired, and the section
 # builder's .get() default filled the key). The JAX package's map less
-# the keys the port does not back: ``recovery.*`` and ``fleet.*`` (the
-# service's and the fleet's metrics) and
+# the keys the port does not back: ``fleet.*`` (the fleet's metrics) and
 # ``dataflow.ins_overflow_windows`` (the per-window attribution of
 # ``consensus.ins_overflow``, which the port does not emit); and
 # ``compile_s`` reads the port's library builds.
@@ -246,6 +261,15 @@ REPORT_BACKING: Dict[str, str] = {
     "pack.align_pad_fraction": "align.lanes_total",
     "pack.align_chunks": "align.chunks",
     "pack.align_steps_wasted": "align.steps_wasted",
+    "recovery.recovered_jobs": "serve.recovered_jobs",
+    "recovery.requeued_jobs": "serve.requeued_jobs",
+    "recovery.served_from_spool": "serve.spool_served",
+    "recovery.spool_corrupt": "serve.spool_corrupt",
+    "recovery.journal_replayed": "serve.journal_replayed",
+    "recovery.journal_records": "serve.journal_records",
+    "recovery.journal_compactions": "serve.journal_compactions",
+    "recovery.slot_restarts": "slot.restarts",
+    "recovery.slot_quarantined": "slot.quarantined",
     "dataflow.resident": "dataflow.resident",
     "dataflow.bytes_fetched": "dataflow.bytes_fetched",
     "dataflow.bytes_avoided": "dataflow.bytes_avoided",
@@ -308,6 +332,44 @@ class StateMachine:
         return state in self.states
 
 
+# the job states' one spelling (serve/service.py binds its job states and
+# serve/journal.py its record types to these)
+JOB_SUBMITTED = "submitted"
+JOB_QUEUED = "queued"
+JOB_RUNNING = "running"
+JOB_DONE = "done"
+JOB_FAILED = "failed"
+JOB_CANCELLED = "cancelled"
+JOB_COLLECTED = "collected"
+
+# the resident service's job machine. "submitted" is the journal's
+# admission record; a job in memory starts "queued". running->queued is
+# the crash re-queue (a server or slot death), running->running a new
+# incarnation after a crash (the journal's count of running records is the
+# crash ladder's input), done->queued the corrupt-spool re-queue, and
+# done->collected retires the job after its one fetch.
+JOB_MACHINE = StateMachine(
+    "job",
+    states=(JOB_SUBMITTED, JOB_QUEUED, JOB_RUNNING, JOB_DONE,
+            JOB_FAILED, JOB_CANCELLED, JOB_COLLECTED),
+    edges=(
+        (JOB_SUBMITTED, JOB_QUEUED), (JOB_SUBMITTED, JOB_FAILED),
+        (JOB_QUEUED, JOB_RUNNING), (JOB_QUEUED, JOB_FAILED),
+        (JOB_QUEUED, JOB_CANCELLED),
+        (JOB_RUNNING, JOB_RUNNING), (JOB_RUNNING, JOB_QUEUED),
+        (JOB_RUNNING, JOB_DONE), (JOB_RUNNING, JOB_FAILED),
+        (JOB_RUNNING, JOB_CANCELLED),
+        (JOB_DONE, JOB_COLLECTED), (JOB_DONE, JOB_QUEUED),
+    ),
+    initial=(JOB_SUBMITTED, JOB_QUEUED),
+)
+
+# the journal's record types (the "rec" field): the job machine's
+# observable alphabet
+JOURNAL_RECORDS: Tuple[str, ...] = (JOB_SUBMITTED, JOB_RUNNING, JOB_DONE,
+                                    JOB_FAILED, JOB_CANCELLED,
+                                    JOB_COLLECTED)
+
 # the shard states' one spelling (exec/manifest.py binds its names to
 # these)
 SHARD_PENDING = "pending"
@@ -345,14 +407,16 @@ LEASE_MACHINE = StateMachine(
     initial=("free",),
 )
 
-MACHINES: Tuple[StateMachine, ...] = (SHARD_MACHINE, LEASE_MACHINE)
+MACHINES: Tuple[StateMachine, ...] = (JOB_MACHINE, SHARD_MACHINE,
+                                      LEASE_MACHINE)
 
 
 def selfcheck() -> list:
     """The registry's audit of itself: every metric, span and fault-site
     name parses under the grammar, every :data:`REPORT_BACKING` key is a
-    schema key backed by a registered metric or span timer, and every
-    emitter section is declared. Returns the violations ([] = clean)."""
+    schema key backed by a registered metric or span timer, every journal
+    record is a job state, and every emitter section is declared. Returns
+    the violations ([] = clean)."""
     errors = []
     for name in sorted(METRICS):
         if not METRIC_NAME_RE.match(name):
@@ -375,6 +439,9 @@ def selfcheck() -> list:
             errors.append(f"REPORT_BACKING {key!r} -> {metric!r}: "
                           f"backing metric is neither a registered "
                           f"metric nor a span timer")
+    for rec in JOURNAL_RECORDS:
+        if rec not in JOB_MACHINE:
+            errors.append(f"journal record {rec!r} is not a job state")
     for section in SECTION_EMITTERS:
         if section != "top" and section not in SECTION_KEYS:
             errors.append(f"SECTION_EMITTERS {section!r}: no key set")

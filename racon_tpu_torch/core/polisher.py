@@ -461,6 +461,12 @@ class Polisher:
             feed = None
         need = [o for o in overlaps
                 if not o.cigar and o.breaking_points is None]
+        # the dispatch/fetch split of this run from the span timers: the
+        # calling thread's metric scope (a service job's) keeps concurrent
+        # runs of one process apart
+        scope = metrics.get_scope() or ""
+        t_disp0 = metrics.timer_s(scope + "align.dispatch")
+        t_fetch0 = metrics.timer_s(scope + "align.fetch")
         with obs.span("align", pairs=len(need)):
             if feed is not None:
                 self._align_feed(feed, overlaps, need, log, msg)
@@ -479,6 +485,10 @@ class Polisher:
                         o.cigar = cigar
                     log.bar_to(msg, begin + len(part), len(need))
         self.timings["align_s"] = time.perf_counter() - t0
+        self.timings["align_dispatch_s"] = round(
+            metrics.timer_s(scope + "align.dispatch") - t_disp0, 3)
+        self.timings["align_fetch_s"] = round(
+            metrics.timer_s(scope + "align.fetch") - t_fetch0, 3)
 
         # the host CIGARs only (host aligner, SAM input): the device path's
         # breaking points came off the card above
@@ -987,7 +997,13 @@ class Polisher:
                              time.perf_counter() - t_put)
             metrics.set_gauge("queue.depth", ranges.qsize())
 
+        # the metric scope is thread-local: the producer re-applies the
+        # caller's, so a service job's queue and layer telemetry lands in
+        # the job's scope
+        job_scope = metrics.get_scope()
+
         def produce():
+            metrics.set_scope(job_scope)
             try:
                 t_cpu = time.thread_time()
                 with obs.span("build.windows"):

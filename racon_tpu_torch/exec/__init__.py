@@ -24,8 +24,11 @@ once. This package streams the target contigs through it in shards:
 
 The contract, held by ``tests/test_torch_exec*.py``: sharded, resumed and
 faulted-then-recovered runs, and runs of several workers, write the
-single-shot run's bytes. Left out (the JAX package keeps them): the chip
-scheduler and mesh shards, and the service's cost helpers.
+single-shot run's bytes. The resident service takes its admission cost
+model (:func:`.planner.cached_job_cost`), its journal append
+(:func:`.manifest.append_durable`) and its slot type
+(:class:`.runner._ChipWorker`) from here. Left out (the JAX package keeps
+them): the chip scheduler and mesh shards.
 """
 
 from .index import RunIndex, build_index  # noqa: F401

@@ -7,7 +7,9 @@ seconds (0 turns the timer off), and the runner prints one more at every
 shard's end, so the log of a killed run ends on its true position. Every
 field is read from the metrics registry: occupancy from the ``align.*``
 and ``consensus.*`` counters the engines publish, the queue from the
-``queue.*`` metrics of ``Polisher.run()``.
+``queue.*`` metrics of ``Polisher.run()``. The resident service's
+heartbeat renders the same fields per running job (their ``scope``
+argument reads one job's metric scope).
 """
 
 from __future__ import annotations
@@ -21,10 +23,17 @@ from .. import flags, sanitize
 from ..obs import metrics
 
 
-def pack_summary_str() -> str:
+def retrace_summary(scope: str = "") -> str:
+    """The JAX heartbeat's per-phase jit retraces: the port traces
+    nothing, so the field is empty."""
+    return ""
+
+
+def pack_summary_str(scope: str = "") -> str:
     """Lane occupancy of the consensus groups and the aligner chunks, and
-    the overlapper's chain arenas (``o:``); ``-`` before any launch."""
-    pack = metrics.pack_summary()
+    the overlapper's chain arenas (``o:``); ``-`` before any launch
+    (``scope``: one service job's numbers)."""
+    pack = metrics.pack_summary(scope)
     parts = []
     if pack["groups"]:
         parts.append(f"{pack['pack_efficiency']:.2f}eff,"
@@ -33,17 +42,18 @@ def pack_summary_str() -> str:
     if pack["align_chunks"]:
         parts.append(f"a:{pack['align_pack_efficiency']:.2f}eff,"
                      f"{pack['align_chunks']}c")
-    o_total = metrics.counter("overlap.lanes_total")
+    o_total = metrics.counter(scope + "overlap.lanes_total")
     if o_total:
-        o_eff = metrics.counter("overlap.lanes_occupied") / o_total
+        o_eff = metrics.counter(scope + "overlap.lanes_occupied") / o_total
         parts.append(f"o:{o_eff:.2f}eff")
     return ";".join(parts) if parts else "-"
 
 
-def queue_summary_str() -> str:
+def queue_summary_str(scope: str = "") -> str:
     """The pipelined polish's queue: its depth and the stall seconds of
-    both sides (``-`` before a pipelined run)."""
-    q = metrics.queue_summary()
+    both sides (``-`` before a pipelined run; ``scope``: one service
+    job's numbers)."""
+    q = metrics.queue_summary(scope)
     if not q["stall_s"] and not q["depth"]:
         return "-"
     return f"d={int(q['depth'])},stall={q['stall_s']:.1f}s"
@@ -86,6 +96,12 @@ class Heartbeat:
                 self._done = done
             if phase is not None:
                 self._phase = phase
+
+    @staticmethod
+    def _short(key: str) -> str:
+        """A worker id for display: the slot suffix of an in-process slot
+        (``host:123#w1`` -> ``w1``), the whole id otherwise."""
+        return key.rsplit("#", 1)[-1]
 
     def add_mbp(self, mbp: float) -> None:
         """Credit polished megabases (a re-queued shard's retraction is

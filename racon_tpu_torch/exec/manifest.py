@@ -71,6 +71,16 @@ def atomic_write(path: str, data: bytes) -> None:
     fsync_dir(os.path.dirname(path) or ".")
 
 
+def append_durable(f, blob: bytes) -> None:
+    """The append half of the durable writes: one record onto an open
+    append-mode binary stream, flushed and fsync'd before return (the
+    service's job journal appends through this, so a crash can tear at
+    most the record after the last one acknowledged)."""
+    f.write(blob)
+    f.flush()
+    os.fsync(f.fileno())
+
+
 def durable_write(path: str, data: bytes, retries: int = 3) -> None:
     """:func:`atomic_write` with a short retry of transient I/O faults
     (EINTR, a passing ENOSPC, an injected ``manifest.write`` fault): a

@@ -14,7 +14,10 @@ The cost model is a resident-footprint estimate per contig, in bytes:
   copies.
 
 It errs high on purpose: ``--max-ram`` is a promise, so it splits one
-shard too many rather than overrunning with one too few.
+shard too many rather than overrunning with one too few. The resident
+service's admission (``racon_tpu_torch.serve``) applies the same weights
+to a job's whole files (:func:`estimate_job_cost`, behind the fingerprint
+cache of :func:`cached_job_cost`).
 
 Three sizing modes, the first that applies wins: a shard count
 (``--shards N``, clamped to the number of contigs), a process RAM budget
@@ -27,15 +30,86 @@ break its window stitching.
 
 from __future__ import annotations
 
+import os
+import threading
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 
+from ..io import parsers
+from ..obs import metrics
 from ..utils.logger import warn
 from .index import RunIndex
 
 _MIN_AVAIL = 64 << 20  # floor of budget - base_rss before the warning
+
+# a .gz input's resident cost follows its inflated bytes; genomic FASTA,
+# FASTQ and PAF compress about 4:1, so admission multiplies a gzipped
+# file's size by this (erring high, as the shard cost model does)
+GZ_INFLATE_FACTOR = 4
+
+
+def input_cost_bytes(path: str) -> int:
+    """The approximate inflated size of one input file."""
+    size = os.path.getsize(path)
+    return size * GZ_INFLATE_FACTOR if path.endswith(".gz") else size
+
+
+def estimate_job_cost(sequences: str, overlaps: str,
+                      target_sequences: str) -> int:
+    """The resident-footprint estimate, in bytes, of polishing one input
+    triple as one service job: the per-contig cost model applied to the
+    whole files, with its deliberate over-estimate (reject one job too
+    many rather than run one into an OOM). An ``--overlaps auto`` job has
+    no overlaps file; its rows live in memory at about the reads' scale,
+    so the reads count once more instead."""
+    base = (2 * input_cost_bytes(target_sequences)
+            + 3 * input_cost_bytes(sequences))
+    if parsers.is_auto_overlaps(overlaps):
+        return base + input_cost_bytes(sequences)
+    return base + 2 * input_cost_bytes(overlaps)
+
+
+# the admission estimate's cache, keyed by the inputs' stat fingerprint
+# (absolute path, size, mtime_ns: a rewrite in place misses). Bounded; a
+# full cache is dropped whole.
+_COST_CACHE: dict = {}
+_COST_CACHE_LOCK = threading.Lock()
+_COST_CACHE_MAX = 1024
+
+
+def _spec_fingerprint(sequences: str, overlaps: str,
+                      target_sequences: str) -> tuple:
+    """The stat fingerprint of one job's inputs (never their bytes). A
+    vanished input raises the ``OSError`` the estimate would."""
+    auto = parsers.is_auto_overlaps(overlaps)
+    paths = [sequences, target_sequences] + ([] if auto else [overlaps])
+    key = ["auto" if auto else "paf"]
+    for p in paths:
+        st = os.stat(p)
+        key.append((os.path.abspath(p), st.st_size, st.st_mtime_ns))
+    return tuple(key)
+
+
+def cached_job_cost(sequences: str, overlaps: str,
+                    target_sequences: str) -> int:
+    """:func:`estimate_job_cost` behind the fingerprint cache (admission
+    calls this): hits and misses count in ``fleet.cost_cache_hits`` and
+    ``fleet.cost_cache_misses``."""
+    key = _spec_fingerprint(sequences, overlaps, target_sequences)
+    with _COST_CACHE_LOCK:
+        hit = _COST_CACHE.get(key)
+    if hit is not None:
+        metrics.inc("fleet.cost_cache_hits")
+        return hit
+    cost = estimate_job_cost(sequences, overlaps, target_sequences)
+    metrics.inc("fleet.cost_cache_misses")
+    with _COST_CACHE_LOCK:
+        if len(_COST_CACHE) >= _COST_CACHE_MAX:
+            _COST_CACHE.clear()
+        _COST_CACHE[key] = cost
+    return cost
 
 
 def parse_ram(text: str) -> int:

@@ -86,6 +86,77 @@ def _terminal(entry: dict) -> bool:
     return entry.get("status") in (mf.DONE, mf.QUARANTINED)
 
 
+class _ChipWorker:
+    """One executor slot: a worker identity, the primary engine pair on
+    the profile's ``device`` and the ladder's host pair, each built at
+    first use and reused by every shard or job the slot runs.
+
+    ``profile`` is duck-typed: anything carrying the engine recipe
+    (``num_threads``, ``match``/``mismatch``/``gap``, ``banded``,
+    ``aligner_backend``/``consensus_backend``, ``aligner_batches``/
+    ``consensus_batches``, ``device``) and a ``worker`` identity.
+    :class:`ShardRunner` passes itself; the resident polishing service
+    (``racon_tpu_torch.serve``) passes its ``PolishServer``, one slot per
+    concurrent job, each with its own engine pair. Unpinned: every slot
+    runs on the profile's one device (pinned per-chip slots and mesh
+    engines come with multi-GPU)."""
+
+    def __init__(self, profile, ordinal: int = 0):
+        self.profile = profile
+        self.ordinal = ordinal
+        self.worker = profile.worker
+        self.engines = None
+        self.cpu_engines = None
+        # the service's supervision handle: the job this slot runs (set
+        # by the scheduler under its lock, read by the supervisor when the
+        # slot's thread dies)
+        self.current_job = None
+
+    def get_engines(self, cpu: bool):
+        """The primary pair (``aligner``/``consensus`` on the profile's
+        ``device``), or with ``cpu`` the ladder's native host pair. One
+        thread drives a slot, so the caches take no lock."""
+        r = self.profile
+        if cpu:
+            if self.cpu_engines is None:
+                self.cpu_engines = (
+                    make_aligner("native", r.num_threads),
+                    make_consensus("native", r.match, r.mismatch, r.gap,
+                                   r.num_threads))
+            return self.cpu_engines
+        if self.engines is None:
+            self.engines = (
+                make_aligner(r.aligner_backend, r.num_threads,
+                             num_batches=r.aligner_batches,
+                             device=r.device),
+                make_consensus(r.consensus_backend, r.match, r.mismatch,
+                               r.gap, r.num_threads,
+                               num_batches=r.consensus_batches,
+                               banded=r.banded, device=r.device))
+        return self.engines
+
+    def primary_on_card(self) -> bool:
+        """Whether the primary pair launches kernels on the card. Then the
+        ladder has no CPU rung: the card's work never moves to the host
+        engines."""
+        r = self.profile
+        return "cuda" in (r.aligner_backend, r.consensus_backend) \
+            and resolve(r.device).type == "cuda"
+
+    def reduce_capacity(self) -> bool:
+        """Device-OOM backpressure on this slot's primary engines only:
+        each that has the knob halves its capacity. False when none could
+        (not built, host engines, or both at their floor)."""
+        if self.engines is None:
+            return False
+        reduced = False
+        for eng in self.engines:
+            shrink = getattr(eng, "reduce_capacity", None)
+            if shrink is not None and shrink():
+                reduced = True
+        return reduced
+
+
 class ShardRunner:
     """The bounded-memory, checkpointed drive of the polishing pipeline.
 
@@ -149,10 +220,9 @@ class ShardRunner:
         self.plan: Optional[ShardPlan] = None
         self.summary: Dict = {}
         self.report: Dict = {}     # the run report (also in work_dir)
-        # the primary engine pair and the CPU rung's, built at first use
-        # and reused by every shard
-        self.engines = None
-        self.cpu_engines = None
+        # the slot holding the primary engine pair and the CPU rung's,
+        # built at first use and reused by every shard
+        self._slot = _ChipWorker(self)
         self._retry_quarantined: set = set()  # resume: claimable again
         self._initially_done: set = set()
         self._announced: set = set()
@@ -184,45 +254,32 @@ class ShardRunner:
 
     # ------------------------------------------------------------- engines
 
+    @property
+    def engines(self):
+        return self._slot.engines
+
+    @property
+    def cpu_engines(self):
+        return self._slot.cpu_engines
+
     def get_engines(self, cpu: bool):
         """The primary pair (``aligner``/``consensus`` on ``device``), or
-        with ``cpu`` the ladder's native host pair."""
-        if cpu:
-            if self.cpu_engines is None:
-                self.cpu_engines = (
-                    make_aligner("native", self.num_threads),
-                    make_consensus("native", self.match, self.mismatch,
-                                   self.gap, self.num_threads))
-            return self.cpu_engines
-        if self.engines is None:
-            self.engines = (
-                make_aligner(self.aligner_backend, self.num_threads,
-                             num_batches=self.aligner_batches,
-                             device=self.device),
-                make_consensus(self.consensus_backend, self.match,
-                               self.mismatch, self.gap, self.num_threads,
-                               num_batches=self.consensus_batches,
-                               banded=self.banded, device=self.device))
-        return self.engines
+        with ``cpu`` the ladder's native host pair (the slot's)."""
+        return self._slot.get_engines(cpu)
 
     def primary_on_card(self) -> bool:
         """Whether the primary pair launches kernels on the card. Then the
         ladder has no CPU rung: a fault there quarantines the shard rather
         than move the card's work to the host engines."""
-        return "cuda" in (self.aligner_backend, self.consensus_backend) \
-            and resolve(self.device).type == "cuda"
+        return self._slot.primary_on_card()
 
     def reduce_capacity(self) -> bool:
         """Device-OOM backpressure on the primary engines (built first if
         the fault came before the first polish): each that has the knob
         halves its capacity. False when none could (host engines, or both
         at their floor)."""
-        reduced = False
-        for eng in self.get_engines(cpu=False):
-            shrink = getattr(eng, "reduce_capacity", None)
-            if shrink is not None and shrink():
-                reduced = True
-        return reduced
+        self._slot.get_engines(cpu=False)
+        return self._slot.reduce_capacity()
 
     # ----------------------------------------------------------------- run
 

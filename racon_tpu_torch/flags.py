@@ -63,8 +63,10 @@ REGISTRY: Dict[str, Flag] = _declare([
     Flag("RACON_TPU_FAULTS", "", "str",
          "Seeded site-addressed fault injection: 'site:kind[@N][*][%P],...' "
          "with sites consensus.dispatch / align.dispatch / align.fetch / "
-         "part.write / manifest.write / worker.kill / exec.polish and "
-         "kinds io, enospc, oom, err, stall, kill (see faults.py)."),
+         "part.write / manifest.write / worker.kill / exec.polish / "
+         "serve.polish / serve.journal / serve.socket / serve.slot / "
+         "server.kill and kinds io, enospc, oom, err, stall, kill (see "
+         "faults.py)."),
     Flag("RACON_TPU_FAULTS_SEED", "0", "int",
          "Seed of the probabilistic (%P) fault draws."),
     # ------------------------------------------ the resident dataflow
@@ -132,6 +134,46 @@ REGISTRY: Dict[str, Flag] = _declare([
     Flag("RACON_TPU_EXEC_BACKOFF_S", "0.5", "float",
          "Base of the transient-fault backoff (doubled each retry, with a "
          "deterministic jitter)."),
+    # ------------------------------------- the resident polishing service
+    Flag("RACON_TPU_SERVE_WARM_SHAPES", "500:131072:8192:8", "str",
+         "Expected-shape profile of the resident service (racon --serve): "
+         "comma-separated 'window_length:pairs:windows[:contigs]' entries. "
+         "Parsed and counted at startup (a malformed entry fails it); the "
+         "port compiles nothing per shape, so the shapes drive no "
+         "compile (empty = no profile)."),
+    Flag("RACON_TPU_SERVE_BUDGET", "8G", "str",
+         "Resident service admission budget: the summed resident-"
+         "footprint estimate (the exec planner's cost model) of "
+         "running jobs is kept under this size, and a single job "
+         "estimated over it is rejected with the reason instead of "
+         "OOMing the server (plain number = MB; K/M/G/T suffixes; "
+         "the CLI --serve-budget flag overrides)."),
+    Flag("RACON_TPU_SERVE_QUEUE", "64", "int",
+         "Maximum queued (admitted, not yet running) jobs the "
+         "resident service holds before rejecting submissions with "
+         "'queue full'."),
+    Flag("RACON_TPU_SERVE_DIR", "", "path",
+         "Durable serve directory (equivalent to the CLI --serve-dir "
+         "flag): the append-only fsync'd job journal and the "
+         "CRC-verified result spool live here, so a server killed "
+         "mid-batch restarts with no lost or duplicated work — "
+         "completed jobs serve from the spool, queued/running jobs "
+         "re-admit down the crash ladder (empty = in-memory only)."),
+    Flag("RACON_TPU_SERVE_DRAIN_S", "600", "float",
+         "Bound on the graceful-drain wait (SIGTERM or the protocol's "
+         "shutdown mode=drain): the server stops admission and "
+         "finishes queued + in-flight jobs, but exits anyway after "
+         "this many seconds (0 = wait forever)."),
+    Flag("RACON_TPU_CLIENT_RETRIES", "5", "int",
+         "Bounded retry budget for ServiceClient / racon --submit: "
+         "failed connects and connections lost mid-job reconnect this "
+         "many times with exponential backoff, resubmitting under the "
+         "same idempotency key so a server restart never duplicates "
+         "compute."),
+    Flag("RACON_TPU_CLIENT_BACKOFF_S", "0.25", "float",
+         "Base of the client reconnect exponential backoff (doubled "
+         "per attempt, deterministic CRC32 jitter added — the shared "
+         "faults.backoff_s formula the exec ladder uses)."),
 ])
 
 

@@ -1,6 +1,5 @@
 """The process-wide metrics registry (counterpart of
-``racon_tpu/obs/metrics.py`` without job scopes): one store of counters,
-gauges and timers.
+``racon_tpu/obs/metrics.py``): one store of counters, gauges and timers.
 
 - counters: monotone sums (:func:`inc`);
 - gauges: last-written values (:func:`set_gauge`);
@@ -11,6 +10,17 @@ The module is the registry (state in module globals under one lock), so
 any module publishes with ``metrics.inc(...)``. A write is one dict add
 under the lock. The run report reads the registry through the summaries
 below. No torch, no numpy.
+
+**Job scopes** (the resident polishing service, ``racon_tpu_torch.serve``):
+a thread may declare a scope prefix (:func:`set_scope`, thread-local), and
+every write it makes lands under ``<scope><name>`` (``job.j7.align.dispatch``
+rather than ``align.dispatch``). Concurrent service jobs share the one
+registry that way: each job's worker thread, and the layer-producer thread
+``Polisher.run`` starts for it (which re-applies the scope), write into the
+job's namespace; its report reads the scope back (``snapshot(scope)``, the
+summaries' ``scope`` argument); :func:`clear_run`, whose prefixes never
+match a ``job.`` name, cannot wipe another job's numbers; and
+:func:`clear_job` drops the scope when the job retires.
 """
 
 from __future__ import annotations
@@ -27,28 +37,58 @@ _lock = threading.Lock()
 _counters: Dict[str, Number] = {}
 _gauges: Dict[str, Number] = {}
 _timers: Dict[str, float] = {}
-# every name written this process (the exit audit's record; clear() and
-# clear_run() leave it)
+# every name written this process, unscoped (the exit audit's record;
+# clear(), clear_run() and clear_job() leave it)
 _seen: Set[str] = set()
+
+# the thread-local write scope (reads always take explicit names)
+_tls = threading.local()
+
+JOB_SCOPE_ROOT = contracts.JOB_SCOPE_ROOT
+
+
+def job_scope(job_id) -> str:
+    """The scope prefix of one service job (``job.<id>.``)."""
+    return f"{JOB_SCOPE_ROOT}{job_id}."
+
+
+def set_scope(prefix: Optional[str]) -> None:
+    """Prefix every metric write of the current thread with ``prefix``
+    (None or "" clears). Not inherited by threads it starts: a parent
+    that fans work out re-applies its scope on the child."""
+    _tls.scope = prefix or None
+
+
+def get_scope() -> Optional[str]:
+    """The current thread's write scope (None when unscoped)."""
+    return getattr(_tls, "scope", None)
+
+
+def _scoped(name: str) -> str:
+    s = getattr(_tls, "scope", None)
+    return s + name if s else name
 
 
 def inc(name: str, delta: Number = 1) -> None:
     """Add ``delta`` to counter ``name`` (created at 0)."""
+    scoped = _scoped(name)
     with _lock:
         _seen.add(name)
-        _counters[name] = _counters.get(name, 0) + delta
+        _counters[scoped] = _counters.get(scoped, 0) + delta
 
 
 def set_gauge(name: str, value: Number) -> None:
+    scoped = _scoped(name)
     with _lock:
         _seen.add(name)
-        _gauges[name] = value
+        _gauges[scoped] = value
 
 
 def add_time(name: str, seconds: float) -> None:
+    scoped = _scoped(name)
     with _lock:
         _seen.add(name)
-        _timers[name] = _timers.get(name, 0.0) + seconds
+        _timers[scoped] = _timers.get(scoped, 0.0) + seconds
 
 
 def seen_names() -> Set[str]:
@@ -99,31 +139,51 @@ def clear(prefix: Optional[str] = None) -> None:
 def clear_run() -> None:
     """Drop every per-run metric (``contracts.RUN_PREFIXES``): a run
     boundary, so back-to-back runs in one process report their own
-    numbers."""
+    numbers. Job-scoped names (``job.<id>.*``) are left alone: a run
+    boundary in one thread must not wipe a concurrent job's numbers
+    (:func:`clear_job` retires those)."""
     for prefix in contracts.RUN_PREFIXES:
         clear(prefix)
 
 
-def snapshot() -> Dict[str, Dict[str, Number]]:
-    """A copy of the registry (the run report embeds it)."""
+def clear_job(job_id) -> None:
+    """Drop every metric one service job wrote under its scope."""
+    clear(job_scope(job_id))
+
+
+def snapshot(scope: Optional[str] = None) -> Dict[str, Dict[str, Number]]:
+    """A copy of the registry (the run report embeds it); with ``scope``,
+    that scope's metrics only, under their unscoped names."""
     with _lock:
+        if scope:
+            n = len(scope)
+            return {
+                "counters": {k[n:]: v for k, v in _counters.items()
+                             if k.startswith(scope)},
+                "gauges": {k[n:]: v for k, v in _gauges.items()
+                           if k.startswith(scope)},
+                "timers": {k[n:]: round(v, 6) for k, v in _timers.items()
+                           if k.startswith(scope)},
+            }
         return {"counters": dict(_counters), "gauges": dict(_gauges),
                 "timers": {k: round(v, 6) for k, v in _timers.items()}}
 
 
 # ------------------------------------------------------------ derived views
 
-def pack_summary() -> Dict[str, Number]:
-    """Lane occupancy of the consensus groups and the aligner chunks."""
+def pack_summary(scope: str = "") -> Dict[str, Number]:
+    """Lane occupancy of the consensus groups and the aligner chunks
+    (``scope``: one job's numbers)."""
     with _lock:
-        tot = _counters.get("consensus.lanes_total", 0)
-        occ = _counters.get("consensus.lanes_occupied", 0)
-        grp = _counters.get("consensus.groups", 0)
-        wins = _counters.get("consensus.group_windows", 0)
-        a_tot = _counters.get("align.lanes_total", 0)
-        a_occ = _counters.get("align.lanes_occupied", 0)
-        a_chunks = _counters.get("align.chunks", 0)
-        a_wasted = _counters.get("align.steps_wasted", 0)
+        c = _counters.get
+        tot = c(scope + "consensus.lanes_total", 0)
+        occ = c(scope + "consensus.lanes_occupied", 0)
+        grp = c(scope + "consensus.groups", 0)
+        wins = c(scope + "consensus.group_windows", 0)
+        a_tot = c(scope + "align.lanes_total", 0)
+        a_occ = c(scope + "align.lanes_occupied", 0)
+        a_chunks = c(scope + "align.chunks", 0)
+        a_wasted = c(scope + "align.steps_wasted", 0)
     eff = occ / tot if tot else 0.0
     a_eff = a_occ / a_tot if a_tot else 0.0
     return {"pack_efficiency": round(eff, 4),
@@ -136,28 +196,35 @@ def pack_summary() -> Dict[str, Number]:
             "align_steps_wasted": a_wasted}
 
 
-def queue_summary() -> Dict[str, Number]:
+def queue_summary(scope: str = "") -> Dict[str, Number]:
     """The pipelined polish's bounded queue: its last depth and the
-    producer's and consumer's accumulated blocking time."""
+    producer's and consumer's accumulated blocking time (``scope``: one
+    job's numbers)."""
     with _lock:
-        depth = _gauges.get("queue.depth", 0)
-        put_s = _timers.get("queue.producer_wait_s", 0.0)
-        get_s = _timers.get("queue.consumer_wait_s", 0.0)
+        depth = _gauges.get(scope + "queue.depth", 0)
+        put_s = _timers.get(scope + "queue.producer_wait_s", 0.0)
+        get_s = _timers.get(scope + "queue.consumer_wait_s", 0.0)
     return {"depth": depth,
             "producer_wait_s": round(put_s, 3),
             "consumer_wait_s": round(get_s, 3),
             "stall_s": round(put_s + get_s, 3)}
 
 
-def overlap_summary() -> Dict[str, Number]:
+def overlap_summary(scope: str = "") -> Dict[str, Number]:
     """The first-party overlapper: mode ``auto`` when it produced the
     overlaps (else ``paf``, with zeros), its volumes, and the seed, join
-    and chain dispatch/fetch seconds from their span timers."""
+    and chain dispatch/fetch seconds from their span timers (``scope``:
+    one job's numbers)."""
     with _lock:
-        c = _counters.get
-        t = _timers.get
+        def c(name, default):
+            return _counters.get(scope + name, default)
+
+        def t(name, default):
+            return _timers.get(scope + name, default)
+
         return {
-            "mode": "auto" if _gauges.get("overlap.mode_auto", 0) else "paf",
+            "mode": ("auto" if _gauges.get(scope + "overlap.mode_auto", 0)
+                     else "paf"),
             "minimizers": c("overlap.minimizers", 0),
             "candidate_pairs": c("overlap.candidate_pairs", 0),
             "freq_capped_buckets": c("overlap.freq_capped_buckets", 0),
@@ -178,7 +245,7 @@ def overlap_summary() -> Dict[str, Number]:
         }
 
 
-def dataflow_summary() -> Dict[str, Number]:
+def dataflow_summary(scope: str = "") -> Dict[str, Number]:
     """The resident dataflow (``RACON_TPU_RESIDENT``): whether it ran
     this run (gauge ``dataflow.resident``; 0 with the flag off or after a
     bail-out), the bytes fetched from the device and the bytes whose fetch
@@ -187,11 +254,13 @@ def dataflow_summary() -> Dict[str, Number]:
     consensus groups whose lanes were gathered on the device.
     ``ins_overflow_windows`` is the JAX package's per-window attribution
     of ``consensus.ins_overflow``, which the port does not emit, so it
-    reads 0."""
+    reads 0. ``scope``: one job's numbers."""
     with _lock:
-        c = _counters.get
+        def c(name, default):
+            return _counters.get(scope + name, default)
+
         return {
-            "resident": _gauges.get("dataflow.resident", 0),
+            "resident": _gauges.get(scope + "dataflow.resident", 0),
             "bytes_fetched": c("dataflow.bytes_fetched", 0),
             "bytes_avoided": c("dataflow.bytes_avoided", 0),
             "fallback_pairs": c("dataflow.fallback_pairs", 0),
@@ -200,6 +269,25 @@ def dataflow_summary() -> Dict[str, Number]:
             "ins_overflow_windows": c(
                 "consensus.ins_overflow_windows", 0),
         }
+
+
+def recovery_summary() -> Dict[str, Number]:
+    """The report's ``recovery`` section: the service's journal replay,
+    append and compaction counts, jobs restored across a restart, spool
+    verification outcomes and slot supervision. Server-level facts written
+    unscoped (``serve.*`` and ``slot.*`` are not run prefixes), so a job's
+    report shows its server's totals, and a CLI or shard run zeros."""
+    return {
+        "recovered_jobs": counter("serve.recovered_jobs"),
+        "requeued_jobs": counter("serve.requeued_jobs"),
+        "served_from_spool": counter("serve.spool_served"),
+        "spool_corrupt": counter("serve.spool_corrupt"),
+        "journal_replayed": counter("serve.journal_replayed"),
+        "journal_records": counter("serve.journal_records"),
+        "journal_compactions": counter("serve.journal_compactions"),
+        "slot_restarts": counter("slot.restarts"),
+        "slot_quarantined": counter("slot.quarantined"),
+    }
 
 
 def peak_rss_bytes() -> int:

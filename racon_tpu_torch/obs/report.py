@@ -1,6 +1,6 @@
-"""Run reports: one schema-versioned ``run_report.json`` per CLI run or
-shard run (counterpart of ``racon_tpu/obs/report.py`` for the kinds
-``cli`` and ``exec``).
+"""Run reports: one schema-versioned ``run_report.json`` per CLI run,
+shard run or service job (counterpart of ``racon_tpu/obs/report.py`` for
+the kinds ``cli``, ``exec`` and ``job``).
 
 The report is built from the metrics registry and the polisher's
 ``timings`` at the end of the run: per-phase wall clock, the
@@ -8,7 +8,9 @@ dispatch/fetch split from the span timers, lane occupancy, queue stalls,
 swallowed faults, injected faults and the ladder's fault classes, lease
 counters, kernel-library builds, the overlapper's counters, peak RSS, the
 registry's snapshot and, for a shard run, one row per shard
-(:func:`shard_row`). The schema is the JAX
+(:func:`shard_row`). A service job's report reads its job's metric scope
+only (``scope``), so concurrent jobs report disjoint numbers. The schema
+is the JAX
 package's version 11 with every section present (sections the port has no
 subsystem for read zeros or ``{}``); :func:`validate_report` checks it,
 ``python -m racon_tpu_torch.obs check FILE`` from the shell.
@@ -92,11 +94,15 @@ def _zeros(section: str) -> Dict[str, int]:
 def build_report(kind: str = "cli", *, argv: Optional[list] = None,
                  started_unix: float = 0.0, wall_s: float = 0.0,
                  phases: Optional[Dict[str, float]] = None,
-                 shards: Optional[List[dict]] = None) -> dict:
+                 shards: Optional[List[dict]] = None,
+                 scope: str = "") -> dict:
     """Assemble a report from the registry and the caller's phase
     timings (``Polisher.timings``) and, for a shard run, the manifest's
-    shard entries."""
-    t = metrics.timer_s
+    shard entries. ``scope`` (a service job's ``job.<id>.``) reads that
+    scope's metrics only, under their unscoped names."""
+    def t(name):
+        return metrics.timer_s(scope + name)
+
     rep = {
         "schema_version": SCHEMA_VERSION,
         "kind": kind,
@@ -114,30 +120,32 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
             # nvcc and g++ library builds of this run
             "compile_s": round(t("compile.build_s"), 3),
         },
-        "pack": metrics.pack_summary(),
+        "pack": metrics.pack_summary(scope),
         # the port traces nothing, so no phase ever retraces
         "retrace": {},
-        "queue": metrics.queue_summary(),
+        "queue": metrics.queue_summary(scope),
         "swallowed": {k: int(v) for k, v in
-                      metrics.group("swallowed.").items()},
+                      metrics.group(scope + "swallowed.").items()},
         # the ladder's fault classes, injected sites and backpressure
         # halvings, and the lease lifecycle
         "faults": {
-            **{k: int(v) for k, v in metrics.group("faults.").items()},
+            **{k: int(v)
+               for k, v in metrics.group(scope + "faults.").items()},
             **{f"lease.{k}": int(v)
-               for k, v in metrics.group("lease.").items()},
+               for k, v in metrics.group(scope + "lease.").items()},
         },
-        # zeros: the port has no polishing service and no fleet gateway
-        # (the JAX package's numbers outside those modes), and one
-        # device (no per-chip rows)
-        "recovery": _zeros("recovery"),
-        "compiles": buildwatch.summary(),
-        "dataflow": metrics.dataflow_summary(),
-        "overlap": metrics.overlap_summary(),
+        # the service's journal and slot counters: server-level, so zeros
+        # outside a server and the server's totals in a job's report
+        "recovery": metrics.recovery_summary(),
+        "compiles": buildwatch.summary(scope),
+        "dataflow": metrics.dataflow_summary(scope),
+        "overlap": metrics.overlap_summary(scope),
+        # zeros: the port has no fleet gateway (the JAX package's numbers
+        # outside that mode), and one device (no per-chip rows)
         "fleet": _zeros("fleet"),
         "devices": {},
         "peak_rss_bytes": metrics.peak_rss_bytes(),
-        "metrics": metrics.snapshot(),
+        "metrics": metrics.snapshot(scope or None),
     }
     if shards is not None:
         rep["shards"] = [shard_row(e) for e in shards]

@@ -153,7 +153,7 @@ def chain_dp(ts: torch.Tensor, qs: torch.Tensor, ns: torch.Tensor, *,
     fn = _build.function("rt_chain_dp")
     err = fn(ts_t.data_ptr(), qs_t.data_ptr(), ns.data_ptr(),
              parent.data_ptr(), out.data_ptr(), B, S, k, cuda_nw._stream(ts))
-    cuda_nw.LAUNCHES["chain_dp"] += 1
+    cuda_nw.count_launch("chain_dp")
     cuda_nw._check_launch("chain_dp", err)
     return out
 

@@ -20,11 +20,14 @@ Layouts are the JAX package's, bit for bit:
 - vote stream ``idx`` int32 / ``w`` uint8 ``[B, S]`` as
   ``racon_tpu.ops.poa._vote_from_ops`` emits it.
 
-``LAUNCHES`` counts kernel launches per kernel (plain calls do not count).
+``LAUNCHES`` counts kernel launches per kernel (plain calls do not count),
+through :func:`count_launch`, under a lock: the resident service's job
+threads launch concurrently.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -52,12 +55,22 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    BODY_LAUNCHES.clear()
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        BODY_LAUNCHES.clear()
+
+
+def count_launch(name: str, body: Optional[str] = None) -> None:
+    """One launch of kernel ``name`` (and of its forward ``body``)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
+        if body is not None:
+            BODY_LAUNCHES[body] = BODY_LAUNCHES.get(body, 0) + 1
 
 
 def _check_launch(fn: str, err: int) -> None:
@@ -229,8 +242,7 @@ def _launch_fwd(entry: str, qrp, tp, n, m, *, max_len: int, band: int,
     else:
         err = fn(*head, width, steps, _stream(qrp))
         key = entry
-    LAUNCHES[name] += 1
-    BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
+    count_launch(name, key)
     _check_launch(name, err)
     return dirs, score
 
@@ -386,7 +398,7 @@ def _launch_walk(entry: str, dirs, n, m, *, band: int):
     fn = _build.function(entry)
     err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(), ops.data_ptr(),
              fi.data_ptr(), fj.data_ptr(), B, S, band, _stream(dirs))
-    LAUNCHES["walk_ops"] += 1
+    count_launch("walk_ops")
     _check_launch("walk_ops", err)
     return ops, fi, fj
 
@@ -473,7 +485,7 @@ def walk_vote(dirs: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
              qpw.data_ptr(), idx.data_ptr(), w.data_ptr(), fi.data_ptr(),
              fj.data_ptr(), B, S, band, qpw.shape[1], L, K, CH, DEL,
              _stream(dirs))
-    LAUNCHES["walk_vote"] += 1
+    count_launch("walk_vote")
     _check_launch("walk_vote", err)
     return idx, w, fi, fj
 

@@ -72,9 +72,15 @@ for _i, _b in enumerate(b"acgt"):
 # this dict; this module counts ``cache_hits``, ``chain`` the rest.
 # ``chunk_shapes`` lists the (S, B) of every chain launch.
 STATS: dict = {}
+_stats_lock = threading.Lock()   # the service's job threads count at once
 
 
 def reset_stats() -> None:
+    with _stats_lock:
+        _reset_stats_locked()
+
+
+def _reset_stats_locked() -> None:
     STATS.clear()
     STATS.update(freq_capped_buckets=0, join_bailouts=0, candidate_pairs=0,
                  chains_kept=0, chains_dropped=0, lanes_occupied=0,
@@ -87,7 +93,8 @@ reset_stats()
 
 def count(key: str, n: int = 1) -> None:
     """Add ``n`` to ``STATS[key]`` and to the metric ``overlap.<key>``."""
-    STATS[key] += n
+    with _stats_lock:
+        STATS[key] += n
     metrics.inc(f"overlap.{key}", n)
 
 

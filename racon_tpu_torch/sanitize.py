@@ -26,6 +26,9 @@
   never wrote, and the report keys whose backing metric
   (``contracts.REPORT_BACKING``) never fired, so the report carries a
   default there (:func:`contract_audit`).
+- **Warm-path assert**: :func:`check_post_warm_compiles` fails a
+  resident-service job that built a kernel or host library after the
+  server sealed its warm path (``obs.buildwatch``).
 """
 
 from __future__ import annotations
@@ -57,9 +60,27 @@ class CanaryError(SanitizerError):
     """A fetched kernel output broke a value-range invariant."""
 
 
+class CompileAfterWarmError(SanitizerError):
+    """A library was built after the resident server sealed its warm path:
+    the claim that every job after the warm pool builds nothing is
+    broken."""
+
+
 def enabled() -> bool:
     """The master switch, read on every call (tests toggle it)."""
     return flags.get_bool("RACON_TPU_SANITIZE")
+
+
+def check_post_warm_compiles(scope=None) -> list:
+    """The warm-path assert: raise :class:`CompileAfterWarmError` when the
+    build watch recorded a build after its seal (``scope``: one job's).
+    Armed under ``RACON_TPU_SANITIZE=1``; otherwise returns the records, so
+    the caller can count them."""
+    from .obs import buildwatch
+    builds = buildwatch.post_warm(scope)
+    if builds and enabled():
+        raise CompileAfterWarmError(buildwatch.describe(builds))
+    return builds
 
 
 # ------------------------------------------------------ shadow execution

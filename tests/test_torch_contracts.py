@@ -39,15 +39,10 @@ from racon_tpu_torch.utils.simulate import simulate
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# the JAX REPORT_BACKING entries the port leaves out: the service's and
-# the fleet's (ROADMAP Queue 1 items 5-6), and the per-window
-# ins-overflow attribution the port does not emit
+# the JAX REPORT_BACKING entries the port leaves out: the fleet's (ROADMAP
+# Queue 1 item 6), and the per-window ins-overflow attribution the port
+# does not emit
 LEFT_OUT_BACKING = frozenset((
-    "recovery.recovered_jobs", "recovery.requeued_jobs",
-    "recovery.served_from_spool", "recovery.spool_corrupt",
-    "recovery.journal_replayed", "recovery.journal_records",
-    "recovery.journal_compactions", "recovery.slot_restarts",
-    "recovery.slot_quarantined",
     "fleet.jobs_accepted", "fleet.jobs_rejected", "fleet.jobs_placed",
     "fleet.jobs_migrated", "fleet.jobs_preempted", "fleet.hosts_alive",
     "fleet.hosts_dead", "fleet.cost_cache_hits", "fleet.cost_cache_misses",
