@@ -192,6 +192,31 @@ line each:
              printed, and the shapes join the ``unheld`` check (the killed
              server writes no record: its job runs again, whole, in the
              restarted server);
+   fleet   — two card hosts behind one gateway, in child processes:
+             ``python -m racon_tpu_torch --gateway 127.0.0.1:PORT
+             --fleet-dir D`` (``RACON_TPU_FLEET_TENANTS=alpha:3,beta:1``,
+             a 3 s host TTL, a 0.1 s poll) and two ``--serve SOCK
+             --fleet-dir D --workers 1 -t 8 -c 1 --cudaaligner-batches 1``
+             hosts, started together (the seconds until the gateway's
+             ``ping`` counts both alive); the 1 Mbp job (tenant alpha) and
+             the shards phase's 4-contig genome (tenant beta) at once
+             through ``ServiceClient``s of the smoke on the TCP address,
+             one on each host (each its one-shot SHA-256, a host named in
+             its header, K4/K2/K3 work and 0 builds in its report); a
+             third host wedged by ``RACON_TPU_FAULTS=serve.polish:io@1*``
+             and a 120 s backoff; h0 stopped by SIGTERM (drain, exit 0);
+             the 1 Mbp job placed on the wedged host (its name sorts
+             first), which is SIGKILLed once the gateway holds the
+             placement: the job comes back from h1 with the main phase's
+             SHA-256 (the seconds from the kill to the result), and
+             ``stats`` counts the migration and the dead host; then
+             SIGTERM on the gateway and h1 (drain, exit 0).
+             ``nvidia-smi``'s compute apps before the first job and after
+             the last (the gateway's pid must not be among them, and its
+             exit record must show CUDA never initialised), the hosts'
+             ``device_mem=`` lines, no host builds a library, and each
+             stopped host's exit record must show K4, K2 and K3 launches
+             (``launches_fleet``; its shapes join the ``unheld`` check);
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -886,12 +911,13 @@ def unheld_shapes(path, held) -> list:
 
 
 def phase_kernels(dev, main, auto, shards, resident, resident_auto,
-                  workers, wrapper, serve):
+                  workers, wrapper, serve, fleet):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
     shards phase (``shards``), the resident phases (``resident``,
-    ``resident_auto``) and the child processes of the workers, wrapper and
-    serve phases (``workers``, ``wrapper``, ``serve``) launched: every
+    ``resident_auto``) and the child processes of the workers, wrapper,
+    serve and fleet phases (``workers``, ``wrapper``, ``serve``,
+    ``fleet``) launched: every
     consensus (Lq, band) of any at its largest and smallest group (K3 at
     each; K2 at the largest group's geometry, off the main path), and each
     aligner bucket at the main path's largest chunk there, and once more
@@ -916,7 +942,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                                  + resident_auto["consensus_group_shapes"]
                                  + workers["consensus_group_shapes"]
                                  + wrapper["consensus_group_shapes"]
-                                 + serve["consensus_group_shapes"])
+                                 + serve["consensus_group_shapes"]
+                                 + fleet["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -941,7 +968,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                         (resident_auto, " (resident auto phase)"),
                         (workers, " (workers phase)"),
                         (wrapper, " (wrapper phase)"),
-                        (serve, " (serve phase)")):
+                        (serve, " (serve phase)"),
+                        (fleet, " (fleet phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 extra[k] = (Bc, path["aligner_div_obs"], label)
@@ -2015,6 +2043,8 @@ def _dump():
     met = mods.get("racon_tpu_torch.obs.metrics")
     rec["compile_builds"] = met.counter("compile.builds") if met else 0
     torch = mods.get("torch")
+    rec["cuda_initialized"] = bool(torch is not None
+                                   and torch.cuda.is_initialized())
     try:
         if torch is not None and torch.cuda.is_initialized():
             rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
@@ -2411,16 +2441,19 @@ def phase_wrapper(shards, workers):
 
 # ----------------------------------------------------- the resident service
 
-def _server_proc(sock, serve_dir, log_path, env):
-    """A ``python -m racon_tpu_torch --serve`` child on the card with two
-    slots; its stderr goes to ``log_path`` (the polisher's progress lines
-    would fill a pipe)."""
+def _server_proc(sock, serve_dir, log_path, env,
+                 extra=("--workers", "2")):
+    """A ``python -m racon_tpu_torch --serve`` child on the card: crash-safe
+    in ``serve_dir`` when one is given, with ``extra``'s options (two
+    slots unless they say otherwise); its stderr goes to ``log_path`` (the
+    polisher's progress lines would fill a pipe)."""
+    args = ["--serve-dir", str(serve_dir), *extra] if serve_dir \
+        else list(extra)
     log = open(log_path, "ab")
     try:
         return subprocess.Popen(
             [sys.executable, "-m", "racon_tpu_torch", "--serve", str(sock),
-             "--serve-dir", str(serve_dir), "-t", "8", "-c", "1",
-             "--cudaaligner-batches", "1", "--workers", "2"],
+             "-t", "8", "-c", "1", "--cudaaligner-batches", "1", *args],
             cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log,
             start_new_session=True)
     finally:
@@ -2703,6 +2736,295 @@ def phase_serve(main, shards, paths):
                                                    "walk_ops",
                                                    "walk_vote")) <= 0:
             raise RuntimeError(f"a server missed a kernel: "
+                               f"{rec['launches']}")
+    return out
+
+
+# ------------------------------------------------------------- the fleet
+
+def _compute_apps() -> list:
+    """``nvidia-smi``'s processes holding a context on the card, as
+    ``pid, used_memory`` lines."""
+    return [ln.strip() for ln in subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout.splitlines() if ln.strip()]
+
+
+def phase_fleet(main, shards, paths):
+    """Two card hosts behind one gateway (see the module docstring)."""
+    import socket
+    import tempfile
+    from racon_tpu_torch.serve.client import ServiceClient
+    base = ROOT / "build" / "smoke_fleet"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    fleet_dir = base / "fleet"
+    hook = ROOT / "build" / "smoke_workers" / "hook"
+    hook.mkdir(parents=True, exist_ok=True)
+    (hook / "sitecustomize.py").write_text(HOOK_SOURCE)
+    _hook_records(hook)
+    libs = _libraries()
+    # member names come from the sockets' basenames; AF_UNIX paths end
+    # near 107 bytes, so the sockets live in a short temporary directory
+    sock_dir = pathlib.Path(tempfile.mkdtemp(prefix="rfl"))
+    socks = {name: sock_dir / f"{name}.sock"
+             for name in ("h0", "h1", "a_wedged")}
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{probe.getsockname()[1]}"
+    ttl = dict(RACON_TPU_FLEET_HOST_TTL_S="3")
+    host_env = dict(_child_env(hook, **ttl), PYTHONFAULTHANDLER="1")
+    gateway_env = dict(_child_env(hook, **ttl), PYTHONFAULTHANDLER="1",
+                       RACON_TPU_FLEET_TENANTS="alpha:3,beta:1",
+                       RACON_TPU_FLEET_POLL_S="0.1")
+    member = ("--fleet-dir", str(fleet_dir), "--workers", "1")
+    inputs = shards["inputs"]
+    jobs_in = {"main": ([paths["reads"], paths["overlaps"], paths["draft"]],
+                        "alpha", main["fasta_sha256"]),
+               "four": ([inputs["reads"], inputs["overlaps"],
+                         inputs["draft"]], "beta", shards["single_sha256"])}
+    procs, logs = {}, {}
+
+    def client(timeout_s=60):
+        return ServiceClient(address, timeout_s=timeout_s, retries=0)
+
+    def alive_hosts():
+        with client() as c:
+            return c.ping()["hosts"]["alive"]
+
+    def wait_alive(n, timeout=300.0):
+        t0 = time.perf_counter()
+        while True:
+            for name, proc in procs.items():
+                if proc.poll() is not None and name not in stopped:
+                    raise RuntimeError(f"fleet process {name} exited "
+                                       f"{proc.returncode}: "
+                                       + logs[name].read_text(
+                                           errors="replace")[-3000:])
+            try:
+                if alive_hosts() == n:
+                    return time.perf_counter() - t0
+            except (OSError, ConnectionError):
+                pass
+            if time.perf_counter() - t0 > timeout:
+                raise RuntimeError(f"the gateway never saw {n} hosts")
+            time.sleep(0.2)
+
+    def run_job(name, t0):
+        """One job through the gateway from a client of this process; its
+        SHA-256 must be its one-shot run's, its header must name a host,
+        and its report show K4, K2 and K3 work and no build."""
+        triple, tenant, want = jobs_in[name.split("_")[0]]
+        spec = {"sequences": triple[0], "overlaps": triple[1],
+                "target_sequences": triple[2], "threads": 8,
+                "tenant": tenant}
+        with ServiceClient(address, timeout_s=600) as c:
+            sub = c.submit(spec)
+            header, payload = c.result(sub["job"], timeout_s=550) \
+                if sub.get("ok") else (sub, None)
+        rep = header.get("report") or {}
+        row = dict(job=sub.get("job"), tenant=tenant,
+                   host=header.get("host"), wall_s=header.get("wall_s"),
+                   client_wall_s=time.perf_counter() - t0,
+                   migrations=header.get("migrations", 0),
+                   sha256=hashlib.sha256(payload or b"").hexdigest(),
+                   builds=rep.get("compiles", {}).get("count"),
+                   post_warm=rep.get("compiles", {}).get("post_warm"),
+                   align_chunks=rep.get("pack", {}).get("align_chunks"),
+                   consensus_groups=rep.get("pack", {}).get("groups"))
+        if (payload is None or row["sha256"] != want or not row["host"]
+                or row["builds"] or not row["align_chunks"]
+                or not row["consensus_groups"]):
+            raise RuntimeError(f"fleet job {name} failed or differs from "
+                               f"its one-shot run: {row} "
+                               f"{ {k: v for k, v in header.items() if k != 'report'} }")
+        return row
+
+    stopped = set()
+    try:
+        # 1. the gateway and two card hosts, started together
+        t0 = time.perf_counter()
+        for name in ("h0", "h1"):
+            logs[name] = base / f"{name}.log"
+            procs[name] = _server_proc(socks[name], None, logs[name],
+                                       host_env, member)
+        logs["gateway"] = base / "gateway.log"
+        with open(logs["gateway"], "ab") as log:
+            procs["gateway"] = subprocess.Popen(
+                [sys.executable, "-m", "racon_tpu_torch", "--gateway",
+                 address, "--fleet-dir", str(fleet_dir)],
+                cwd=ROOT, env=gateway_env, stdout=subprocess.DEVNULL,
+                stderr=log, start_new_session=True)
+        wait_alive(2)
+        start_s = time.perf_counter() - t0
+        apps_before = _compute_apps()
+        # 2. the 1 Mbp genome (tenant alpha) and the 4-contig genome
+        # (tenant beta) at once, one on each host
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(run_job, name, t0)
+                    for name in ("main", "four")]
+            jobs = {name: f.result() for name, f in zip(("main", "four"),
+                                                        futs)}
+        pair_wall = time.perf_counter() - t0
+        if {jobs["main"]["host"], jobs["four"]["host"]} != {"h0", "h1"}:
+            raise RuntimeError(f"the two jobs did not go one to each "
+                               f"host: {jobs}")
+        # 3. a third host, wedged: every polish attempt faults into a
+        # 120 s backoff. Its name sorts before h1's, so with one free slot
+        # each it takes the next job
+        t0 = time.perf_counter()
+        logs["a_wedged"] = base / "a_wedged.log"
+        procs["a_wedged"] = _server_proc(
+            socks["a_wedged"], None, logs["a_wedged"],
+            dict(host_env, RACON_TPU_FAULTS="serve.polish:io@1*",
+                 RACON_TPU_EXEC_BACKOFF_S="120"), member)
+        wait_alive(3)
+        wedged_start_s = time.perf_counter() - t0
+        # 4. h0 stops by drain (SIGTERM): its beacon is withdrawn
+        t0 = time.perf_counter()
+        procs["h0"].send_signal(signal.SIGTERM)
+        h0_rc = _stop_group(procs["h0"], logs["h0"], timeout=120)
+        h0_drain_s = time.perf_counter() - t0
+        stopped.add("h0")
+        wait_alive(2)
+        # 5. the 1 Mbp job goes to the wedged host; once the gateway's
+        # journal shows it running there the host is SIGKILLed, and the
+        # job comes back from h1
+        box = {}
+
+        def migrate_job():
+            box["row"] = run_job("main_migrated", time.perf_counter())
+
+        submit_t = time.perf_counter()
+        worker = ThreadPoolExecutor(1)
+        fut = worker.submit(migrate_job)
+        journal = fleet_dir / "journal.jsonl"
+        while True:
+            recs = [json.loads(ln) for ln in journal.read_text()
+                    .splitlines() if ln.strip()] if journal.exists() \
+                else []
+            if any(r.get("rec") == "running"
+                   and r.get("host") == "a_wedged" for r in recs):
+                break
+            if fut.done() or time.perf_counter() - submit_t > 120:
+                worker.shutdown(wait=True)
+                raise RuntimeError(f"the job was never placed on the "
+                                   f"wedged host: {recs[-4:]} "
+                                   f"{fut.exception() if fut.done() else ''}")
+            time.sleep(0.1)
+        while True:
+            # the host acknowledged the placement (the journal's record
+            # comes before the submit)
+            with client() as c:
+                if c.stats().get("placed"):
+                    break
+            if fut.done() or time.perf_counter() - submit_t > 120:
+                worker.shutdown(wait=True)
+                raise RuntimeError("the wedged host never took the job")
+            time.sleep(0.1)
+        placed_s = time.perf_counter() - submit_t
+        time.sleep(0.5)   # its first attempt faults into the backoff
+        kill_t = time.perf_counter()
+        os.killpg(procs["a_wedged"].pid, signal.SIGKILL)
+        wedged_rc = procs["a_wedged"].wait(timeout=60)
+        stopped.add("a_wedged")
+        fut.result(timeout=600)
+        worker.shutdown(wait=True)
+        migrated = box["row"]
+        migration_s = time.perf_counter() - kill_t
+        if migrated["host"] != "h1" or migrated["migrations"] < 1:
+            raise RuntimeError(f"the job did not migrate to h1: "
+                               f"{migrated}")
+        with client() as c:
+            stats = c.stats()
+        fleet = stats.get("fleet", {})
+        if fleet.get("jobs_migrated", 0) < 1 or \
+                fleet.get("hosts_dead", 0) < 1:
+            raise RuntimeError(f"stats do not show the migration: "
+                               f"{stats}")
+        recs = [json.loads(ln) for ln in journal.read_text().splitlines()
+                if ln.strip()]
+        kinds = {}
+        for r in recs:
+            if r.get("job") == migrated["job"]:
+                kinds[r["rec"]] = kinds.get(r["rec"], 0) + 1
+        if kinds.get("submitted") != 1 or kinds.get("done") != 1 or \
+                kinds.get("running", 0) < 2:
+            raise RuntimeError(f"the migrated job's journal: {kinds}")
+        apps_after = _compute_apps()
+        # 6. SIGTERM: the gateway and h1 drain and exit 0
+        t0 = time.perf_counter()
+        for name in ("gateway", "h1"):
+            procs[name].send_signal(signal.SIGTERM)
+        rcs = {name: _stop_group(procs[name], logs[name], timeout=120)
+               for name in ("gateway", "h1")}
+        final_drain_s = time.perf_counter() - t0
+        stopped.update(rcs)
+        rcs.update(h0=h0_rc, a_wedged=wedged_rc)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                try:
+                    os.killpg(proc.pid, 9)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    recs = _hook_records(hook)
+    gateway_pid = procs["gateway"].pid
+    gw_recs = [r for r in recs if r["pid"] == gateway_pid]
+    host_recs = [r for r in recs if r["pid"] != gateway_pid]
+    path = _merge_children(host_recs)
+    rebuilt = [k for k, v in _libraries().items() if libs.get(k) != v]
+    logs_text = {n: p.read_text(errors="replace") for n, p in logs.items()}
+    out = dict(phase="fleet", card=gpu_line(), start_to_alive_s=start_s,
+               jobs=dict(jobs, migrated=migrated), pair_wall_s=pair_wall,
+               wedged_start_s=wedged_start_s,
+               placed_on_wedged_s=placed_s, migration_s=migration_s,
+               h0_drain_s=h0_drain_s, final_drain_s=final_drain_s,
+               stats=stats, rcs=rcs, gateway_pid=gateway_pid,
+               compute_apps_before=apps_before,
+               compute_apps_after=apps_after,
+               gateway_cuda_initialized=[r.get("cuda_initialized")
+                                         for r in gw_recs],
+               host_device_lines={n: [ln for ln in t.splitlines()
+                                      if "device_mem=" in ln]
+                                  for n, t in logs_text.items()},
+               launches=path["launches"], processes=path["processes"],
+               peak_device_bytes=path["peak_device_bytes"],
+               rebuilt_libraries=rebuilt,
+               child_nvcc_builds=path["nvcc_builds"],
+               child_compile_builds=path["compile_builds"],
+               **{k: path[k] for k in ("aligner_chunk_shapes",
+                                       "consensus_group_shapes",
+                                       "aligner_div_obs")})
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")})
+    if rcs != {"gateway": 0, "h1": 0, "h0": 0, "a_wedged": -9}:
+        raise RuntimeError(f"a fleet process did not stop as it should: "
+                           f"{rcs}")
+    if "fleet member a_wedged registered" not in logs_text["a_wedged"]:
+        raise RuntimeError("the wedged host never registered")
+    if rebuilt or path["nvcc_builds"] or path["compile_builds"]:
+        raise RuntimeError(f"a fleet host rebuilt a library: {rebuilt} "
+                           f"{path['nvcc_builds']}")
+    if len(gw_recs) != 1 or gw_recs[0].get("cuda_initialized") is not \
+            False or any(sum(r["launches"].values()) for r in gw_recs):
+        raise RuntimeError(f"the gateway touched the card: {gw_recs}")
+    if any(ln.split(",")[0].strip() == str(gateway_pid)
+           for ln in apps_before + apps_after):
+        raise RuntimeError(f"the gateway holds a CUDA context: "
+                           f"{apps_before} {apps_after}")
+    if path["processes"] != 2:
+        raise RuntimeError(f"expected the exit records of the two hosts "
+                           f"that stopped, got {path['processes']}")
+    for rec in host_recs:
+        if min(rec["launches"].get(k, 0) for k in ("nw_fwd_i16x2",
+                                                   "walk_ops",
+                                                   "walk_vote")) <= 0:
+            raise RuntimeError(f"a fleet host missed a kernel: "
                                f"{rec['launches']}")
     return out
 
@@ -3124,6 +3446,9 @@ def main() -> int:
     record["serve"] = phase_serve(record["main"], record["shards"], paths)
     record["serve"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    record["fleet"] = phase_fleet(record["main"], record["shards"], paths)
+    record["fleet"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3140,7 +3465,8 @@ def main() -> int:
                                          record["resident_auto"],
                                          record["workers"],
                                          record["wrapper"],
-                                         record["serve"])
+                                         record["serve"],
+                                         record["fleet"])
     entries["chain_dp"] = chain_entry(launched)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -3158,7 +3484,8 @@ def main() -> int:
     # every shape any path launched, held at a batch at least as large
     unheld = {p: unheld_shapes(record[p], held)
               for p in ("main", "main_auto", "shards", "resident",
-                        "resident_auto", "workers", "wrapper", "serve")}
+                        "resident_auto", "workers", "wrapper", "serve",
+                        "fleet")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -3186,6 +3513,8 @@ def main() -> int:
             launches_wrapper=record["wrapper"]["launches"][name],
             # the two servers of the serve phase that stopped
             launches_serve=record["serve"]["launches"][name],
+            # the two card hosts of the fleet phase that stopped
+            launches_fleet=record["fleet"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -32,10 +32,16 @@ SOCK`` runs this process as a server on the unix socket SOCK (no
 positional inputs; ``-m/-x/-g/-b`` fix its engine profile, ``-c`` and
 ``--cudaaligner-batches`` put its engines on ``--device``, ``--workers N``
 sizes its slot pool, ``--serve-budget`` bounds the in-flight footprint,
-``--serve-dir`` makes it crash-safe); ``--submit SOCK`` sends this
-command's polish to such a server and streams the FASTA to stdout as the
-one-shot run would print it (the device is the server's, so the client
-never touches CUDA).
+``--serve-dir`` makes it crash-safe, ``--fleet-dir`` registers it with a
+fleet); ``--submit SOCK`` sends this command's polish to such a server
+and streams the FASTA to stdout as the one-shot run would print it (the
+device is the server's, so the client never touches CUDA).
+
+The fleet (``racon_tpu_torch.fleet``): ``--gateway HOST:PORT
+--fleet-dir DIR`` runs a TCP gateway that places jobs on the ``--serve
+--fleet-dir DIR`` hosts under per-job leases and moves a dead host's
+jobs to survivors; it does no device work. ``--submit HOST:PORT
+[--tenant NAME] [--priority N]`` submits through it.
 """
 
 from __future__ import annotations
@@ -159,9 +165,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "service')")
     p.add_argument("--submit", metavar="SOCK", default=None,
                    help="submit this invocation as a job to the "
-                        "resident service listening on SOCK and stream "
-                        "the polished FASTA to stdout — byte-identical "
-                        "to running the same command one-shot")
+                        "resident service listening on SOCK (or a "
+                        "fleet gateway's HOST:PORT) and stream the "
+                        "polished FASTA to stdout — byte-identical to "
+                        "running the same command one-shot")
     p.add_argument("--serve-budget", metavar="SIZE", default=None,
                    help="admission budget for --serve: the summed "
                         "resident-footprint estimate of running jobs "
@@ -178,6 +185,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "jobs re-run down the crash ladder "
                         "(RACON_TPU_SERVE_DIR is the env equivalent; "
                         "unset = in-memory only)")
+    # fleet serving (racon_tpu_torch.fleet): a TCP gateway places jobs
+    # on registered --serve hosts under per-job leases
+    p.add_argument("--gateway", metavar="HOST:PORT", default=None,
+                   help="run the fleet gateway: a TCP front door "
+                        "speaking the serve protocol verbatim that "
+                        "journals every accepted job durably (same "
+                        "machinery as --serve-dir) before "
+                        "acknowledging, schedules tenants "
+                        "weighted-fair (RACON_TPU_FLEET_TENANTS), and "
+                        "places jobs across the hosts registered in "
+                        "--fleet-dir under per-job leases — a host "
+                        "dead past RACON_TPU_FLEET_HOST_TTL_S has its "
+                        "jobs re-placed on survivors; it does no "
+                        "device work")
+    p.add_argument("--fleet-dir", metavar="DIR", default=None,
+                   help="fleet membership + durable gateway state "
+                        "directory: with --serve the host registers a "
+                        "heartbeat beacon under DIR/hosts/ so the "
+                        "gateway can place work on it; with --gateway "
+                        "it holds the fleet journal, result spool, "
+                        "and per-job leases")
+    p.add_argument("--tenant", metavar="NAME", default=None,
+                   help="tenant to submit under (--submit only): the "
+                        "gateway schedules tenants weighted-fair and "
+                        "enforces per-tenant cost budgets "
+                        "(RACON_TPU_FLEET_TENANTS); unset = 'default'")
+    p.add_argument("--priority", metavar="N", type=int, default=None,
+                   help="job priority for --submit (higher first "
+                        "within a tenant; default 0): at the gateway "
+                        "a high-priority job may preempt a running "
+                        "lower-priority one, draining it back to the "
+                        "queue at a ladder boundary — never killing "
+                        "it mid-window")
     # internal: a spawned cooperating worker, which adopts the primary's
     # manifest, polishes shards and emits no merged FASTA
     p.add_argument("--exec-secondary", action="store_true",
@@ -358,7 +398,8 @@ def _serve(args) -> int:
             workers=args.workers if args.workers > 1 else 0,
             budget_bytes=parse_ram(args.serve_budget)
             if args.serve_budget else 0,
-            serve_dir=args.serve_dir, device=args.device)
+            serve_dir=args.serve_dir, fleet_dir=args.fleet_dir,
+            device=args.device)
         return server.serve_forever()
     except KeyboardInterrupt:
         if server is not None:
@@ -366,6 +407,23 @@ def _serve(args) -> int:
         return 0
     except (ValueError, RuntimeError, OSError) as e:
         print(f"[racon_tpu::serve] error: {e}", file=sys.stderr)
+        return 1
+
+
+def _gateway(args) -> int:
+    """``--gateway``: run the fleet gateway until it stops. It does no
+    device work, whatever ``--device`` says."""
+    from .fleet.gateway import Gateway
+    gateway = None
+    try:
+        gateway = Gateway(args.gateway, args.fleet_dir)
+        return gateway.serve_forever()
+    except KeyboardInterrupt:
+        if gateway is not None:
+            gateway.shutdown()
+        return 0
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"[racon_tpu::fleet] error: {e}", file=sys.stderr)
         return 1
 
 
@@ -383,6 +441,22 @@ def main(argv=None) -> int:
         parser.error("--serve-dir only makes sense with --serve "
                      "(the shard runner's checkpoint directory is "
                      "--shard-dir)")
+    if args.fleet_dir and not (args.serve or args.gateway):
+        parser.error("--fleet-dir only makes sense with --serve (to "
+                     "register the host) or --gateway (to hold the "
+                     "fleet journal and host registry)")
+    if args.gateway:
+        if args.serve or args.submit:
+            parser.error("--gateway is mutually exclusive with "
+                         "--serve and --submit")
+        if args.sequences or args.overlaps or args.target_sequences:
+            parser.error("--gateway takes no positional inputs (jobs "
+                         "submit theirs over the socket)")
+        if not args.fleet_dir:
+            parser.error("--gateway requires --fleet-dir (the fleet "
+                         "journal, host registry, and leases live "
+                         "there)")
+        return _gateway(args)
     if args.serve:
         if args.sequences or args.overlaps or args.target_sequences:
             parser.error("--serve takes no positional inputs (jobs "

@@ -1,22 +1,22 @@
 """The port's contract registry (counterpart of ``racon_tpu/contracts.py``,
 trimmed to what the port emits): the metric names, the span names, the
 fault-injection sites, the run report's schema, which metric backs each
-report key, the job, shard and lease lifecycle machines and the service
-journal's record alphabet, declared once.
+report key, the job, shard, lease, tenant and placement lifecycle
+machines and the service journal's record alphabet, declared once.
 
 The consumers (:mod:`.obs.metrics`, :mod:`.obs.report`, :mod:`.faults`,
-:mod:`.exec.manifest`, :mod:`.serve.journal`, :mod:`.serve.service`)
-import their sets from here, and
+:mod:`.exec.manifest`, :mod:`.serve.journal`, :mod:`.serve.service`,
+:mod:`.fleet.gateway`) import their sets from here, and
 ``tests/test_torch_obs.py`` holds the registry to a traced run in both
 directions: every name a run emits is declared, and every declared span
-is opened by the PAF path, the auto path, the device engines or the
-shard runner. The report schema is the JAX package's (version 11, every
-section), so a port report passes the JAX validator and a JAX CLI report
-passes the port's. :func:`selfcheck` audits the registry itself; the
-runtime half (``RACON_TPU_SANITIZE=1``) is the exit audit in
-:mod:`.sanitize`, which reads :data:`REPORT_BACKING`. The job, tenant
-and placement machines and the journal's record alphabet come with the
-service and the fleet. Stdlib only.
+is opened by the PAF path, the auto path, the device engines, the shard
+runner or the fleet gateway. The report schema is the JAX package's
+(version 11, every section), so a port report passes the JAX validator
+and a JAX CLI report passes the port's. :func:`selfcheck` audits the
+registry itself; the runtime half (``RACON_TPU_SANITIZE=1``) is the exit
+audit in :mod:`.sanitize`, which reads :data:`REPORT_BACKING`. The job,
+tenant and placement machines and the journal's record alphabet come
+with the service and the fleet. Stdlib only.
 """
 
 from __future__ import annotations
@@ -77,8 +77,13 @@ METRICS: FrozenSet[str] = frozenset((
     "serve.requeued_jobs", "serve.spool_corrupt", "serve.spool_served",
     # the service's slot supervision (server-level, unscoped)
     "slot.deaths", "slot.quarantined", "slot.restarts",
-    # the admission cost model's fingerprint cache (exec/planner.py)
+    # the fleet gateway and its placement (gateway-process lifetime,
+    # unscoped), and the admission cost model's fingerprint cache
+    # (exec/planner.py)
     "fleet.cost_cache_hits", "fleet.cost_cache_misses",
+    "fleet.hosts_alive", "fleet.hosts_dead", "fleet.migrated",
+    "fleet.placed", "fleet.preempted", "fleet.reject_requeued",
+    "gateway.accepted", "gateway.rejected",
     # the span rings' overflow; the torch profile's stop and export
     "trace.dropped_events", "trace.profile_stop_s",
 ))
@@ -88,6 +93,7 @@ DYNAMIC_METRIC_PREFIXES: Tuple[str, ...] = (
     "compile.",          # compile.<library> builds per library
     "faults.",           # faults.<class> counts of the runner's ladder
     "faults.injected.",  # faults.injected.<site>
+    "fleet.tenant.",     # fleet.tenant.<name>.placed/.done/...
     "swallowed.",        # swallowed.<context>|<exception type>
 )
 
@@ -97,7 +103,8 @@ JOB_SCOPE_ROOT = "job."
 
 # every name under these prefixes describes one run: obs.begin() clears
 # them (span timers are keyed by the span name, hence the phase prefixes;
-# "serve." and "slot." are server-level and stay)
+# "serve.", "slot.", "fleet." and "gateway." are server- or gateway-level
+# and stay)
 RUN_PREFIXES: Tuple[str, ...] = (
     "align.", "aligner.", "poa.", "consensus.", "queue.", "retrace.",
     "retrace_total.", "swallowed.", "trace.", "parse.", "overlap.",
@@ -116,6 +123,7 @@ SPANS: FrozenSet[str] = frozenset((
     "consensus", "consensus.feed", "consensus.finish", "consensus.run",
     "exec.extract", "exec.index", "exec.merge", "exec.plan",
     "exec.shard",
+    "fleet.place", "gateway.admit",
     "overlap.chain", "overlap.chain.dispatch", "overlap.chain.fetch",
     "overlap.filter", "overlap.join.dispatch", "overlap.join.fetch",
     "overlap.match", "overlap.seed", "overlap.seed.dispatch",
@@ -134,7 +142,8 @@ FAULT_SITES: Tuple[str, ...] = ("consensus.dispatch", "align.dispatch",
                                 "manifest.write", "worker.kill",
                                 "exec.polish", "serve.polish",
                                 "serve.journal", "serve.socket",
-                                "serve.slot", "server.kill")
+                                "serve.slot", "server.kill",
+                                "fleet.place", "gateway.accept")
 
 FAULT_KINDS: Tuple[str, ...] = ("io", "enospc", "oom", "err", "stall",
                                 "kill")
@@ -221,7 +230,7 @@ def schema_keys() -> Dict[str, FrozenSet[str]]:
 
 # which function emits each section (module path, function name): the
 # ``top`` keys and ``dispatch_fetch`` are assembled inline by
-# build_report, and so is ``fleet``, as zeros, until the fleet comes
+# build_report
 SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
     "top": ("racon_tpu_torch/obs/report.py", "build_report"),
     "dispatch_fetch": ("racon_tpu_torch/obs/report.py", "build_report"),
@@ -231,14 +240,13 @@ SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
     "compiles": ("racon_tpu_torch/obs/buildwatch.py", "summary"),
     "dataflow": ("racon_tpu_torch/obs/metrics.py", "dataflow_summary"),
     "overlap": ("racon_tpu_torch/obs/metrics.py", "overlap_summary"),
-    "fleet": ("racon_tpu_torch/obs/report.py", "build_report"),
+    "fleet": ("racon_tpu_torch/obs/metrics.py", "fleet_summary"),
 }
 
 # report key -> the metric or span timer whose emission backs it. The
 # RACON_TPU_SANITIZE=1 exit audit uses it to tell a real zero (the metric
 # fired and summed to 0) from a default (it never fired, and the section
 # builder's .get() default filled the key). The JAX package's map less
-# the keys the port does not back: ``fleet.*`` (the fleet's metrics) and
 # ``dataflow.ins_overflow_windows`` (the per-window attribution of
 # ``consensus.ins_overflow``, which the port does not emit); and
 # ``compile_s`` reads the port's library builds.
@@ -293,6 +301,15 @@ REPORT_BACKING: Dict[str, str] = {
     "overlap.join_fetch_s": "overlap.join.fetch",
     "overlap.chain_dispatch_s": "overlap.chain.dispatch",
     "overlap.chain_fetch_s": "overlap.chain.fetch",
+    "fleet.jobs_accepted": "gateway.accepted",
+    "fleet.jobs_rejected": "gateway.rejected",
+    "fleet.jobs_placed": "fleet.placed",
+    "fleet.jobs_migrated": "fleet.migrated",
+    "fleet.jobs_preempted": "fleet.preempted",
+    "fleet.hosts_alive": "fleet.hosts_alive",
+    "fleet.hosts_dead": "fleet.hosts_dead",
+    "fleet.cost_cache_hits": "fleet.cost_cache_hits",
+    "fleet.cost_cache_misses": "fleet.cost_cache_misses",
 }
 
 # -------------------------------------------------------- state machines
@@ -407,8 +424,66 @@ LEASE_MACHINE = StateMachine(
     initial=("free",),
 )
 
+# the fleet job machine, as the gateway sees it. A job is "accepted" once
+# its admission record is journaled, "queued" in its tenant's FIFO,
+# "placed" while an incarnation runs on a member host. placed->queued is
+# the drain shared by preemption (a higher-priority job needs the host)
+# and migration (the host went silent past its TTL): the job re-enters
+# its tenant queue and is placed again under a new incarnation key.
+# done->collected retires the job after its one fetch.
+TENANT_ACCEPTED = "accepted"
+TENANT_QUEUED = "queued"
+TENANT_PLACED = "placed"
+TENANT_DONE = "done"
+TENANT_FAILED = "failed"
+TENANT_CANCELLED = "cancelled"
+TENANT_COLLECTED = "collected"
+
+TENANT_MACHINE = StateMachine(
+    "tenant",
+    states=(TENANT_ACCEPTED, TENANT_QUEUED, TENANT_PLACED, TENANT_DONE,
+            TENANT_FAILED, TENANT_CANCELLED, TENANT_COLLECTED),
+    edges=(
+        (TENANT_ACCEPTED, TENANT_QUEUED),
+        (TENANT_ACCEPTED, TENANT_FAILED),
+        (TENANT_QUEUED, TENANT_PLACED), (TENANT_QUEUED, TENANT_FAILED),
+        (TENANT_QUEUED, TENANT_CANCELLED),
+        (TENANT_PLACED, TENANT_QUEUED),   # preempt / migrate drain
+        (TENANT_PLACED, TENANT_PLACED),   # re-place incarnation
+        (TENANT_PLACED, TENANT_DONE), (TENANT_PLACED, TENANT_FAILED),
+        (TENANT_PLACED, TENANT_CANCELLED),
+        (TENANT_DONE, TENANT_COLLECTED),
+    ),
+    initial=(TENANT_ACCEPTED,),
+)
+
+# the member host's liveness machine (beacon files under --fleet-dir,
+# refreshed like lease keepers). "registered" is the beacon's first
+# write; "silent" a missed refresh inside the TTL's grace; silent->dead
+# fires past the TTL (the gateway breaks the host's job leases and places
+# its jobs on survivors); dead->alive is a host restarted under the same
+# name. registered->dead: the gateway's first sight of a beacon may
+# already be stale (the host died before the gateway started).
+HOST_REGISTERED = "registered"
+HOST_ALIVE = "alive"
+HOST_SILENT = "silent"
+HOST_DEAD = "dead"
+
+PLACEMENT_MACHINE = StateMachine(
+    "placement",
+    states=(HOST_REGISTERED, HOST_ALIVE, HOST_SILENT, HOST_DEAD),
+    edges=(
+        (HOST_REGISTERED, HOST_ALIVE), (HOST_REGISTERED, HOST_DEAD),
+        (HOST_ALIVE, HOST_SILENT),
+        (HOST_SILENT, HOST_ALIVE), (HOST_SILENT, HOST_DEAD),
+        (HOST_DEAD, HOST_ALIVE),
+    ),
+    initial=(HOST_REGISTERED,),
+)
+
 MACHINES: Tuple[StateMachine, ...] = (JOB_MACHINE, SHARD_MACHINE,
-                                      LEASE_MACHINE)
+                                      LEASE_MACHINE, TENANT_MACHINE,
+                                      PLACEMENT_MACHINE)
 
 
 def selfcheck() -> list:

@@ -12,14 +12,16 @@ protocol uses only portable filesystem atomics:
 - **expiry**: a lease whose mtime is older than
   ``RACON_TPU_EXEC_LEASE_TTL_S`` marks a dead worker. A claimant breaks
   it by renaming it to a unique tombstone first (one of several racing
-  claimants wins the rename), then claims afresh with O_EXCL. A lease
-  whose owner ran on this host and whose pid is gone is broken at once;
+  claimants wins the rename), then claims afresh with O_EXCL. A claimant
+  whose rename took a fresh lease (another claimant's, made after the
+  stale one was seen) links it back and backs off. A lease whose owner
+  ran on this host and whose pid is gone is broken at once;
 - **release**: unlink on the shard's completion or quarantine.
 
-A worker presumed dead but only slow finds out at its next heartbeat
-(``utime`` -> ENOENT) and stops treating the shard as its own; its part
-write stays harmless, since parts are written tmp -> rename and every
-worker writes the same bytes for a shard.
+A worker presumed dead but only slow finds out at its next heartbeat (the
+file is gone, or is the reclaimer's: another inode) and stops treating
+the shard as its own; its part write stays harmless, since parts are
+written tmp -> rename and every worker writes the same bytes for a shard.
 
 Every transition counts in the registry: ``lease.claimed``,
 ``lease.expired``, ``lease.lost``.
@@ -53,29 +55,39 @@ def lease_ttl_s() -> float:
     return max(0.05, flags.get_float("RACON_TPU_EXEC_LEASE_TTL_S"))
 
 
-def lease_path(work_dir: str, shard_id: int) -> str:
-    return os.path.join(work_dir, f"{LEASE_PREFIX}{shard_id:04d}.json")
+def lease_path(work_dir: str, shard_id) -> str:
+    """The lease file of one work item: an integer id is a shard ordinal
+    (zero-padded, so ``ls`` sorts), a string id a fleet job lease
+    (``job_<id>``); the protocol is the same for both."""
+    tag = f"{shard_id:04d}" if isinstance(shard_id, int) else str(shard_id)
+    return os.path.join(work_dir, f"{LEASE_PREFIX}{tag}.json")
 
 
 class Lease:
     """An owned shard lease: refresh it with :meth:`heartbeat` (or its
     :class:`LeaseKeeper`), drop it with :meth:`release`."""
 
-    def __init__(self, work_dir: str, shard_id: int, worker: str,
-                 claimed_unix: float = 0.0):
+    def __init__(self, work_dir: str, shard_id, worker: str,
+                 claimed_unix: float = 0.0, inode: Optional[int] = None):
         self.work_dir = work_dir
         self.shard_id = shard_id
         self.worker = worker
         self.claimed_unix = claimed_unix
+        # the claimed file's inode: a reclaimer's lease at the same path is
+        # another file
+        self.inode = inode
         self.path = lease_path(work_dir, shard_id)
         self.lost = threading.Event()
         self._keeper: Optional["LeaseKeeper"] = None
 
     def heartbeat(self) -> bool:
         """Refresh the lease's mtime; False (and ``lost`` set) when the
-        file is gone: another worker broke it after a missed TTL, and
-        this worker no longer owns the shard."""
+        file is gone or is another claimant's: another worker broke it
+        after a missed TTL, and this worker no longer owns the shard."""
         try:
+            if self.inode is not None and \
+                    os.stat(self.path).st_ino != self.inode:
+                raise FileNotFoundError(self.path)
             os.utime(self.path)
             return True
         except FileNotFoundError:
@@ -140,7 +152,7 @@ class LeaseKeeper:
                 return
 
 
-def read_lease(work_dir: str, shard_id: int) -> Optional[dict]:
+def read_lease(work_dir: str, shard_id) -> Optional[dict]:
     """The lease payload (None when absent or torn); a claim never trusts
     it, only O_EXCL and the mtime."""
     try:
@@ -164,12 +176,16 @@ def _pid_alive(pid) -> bool:
         return True
 
 
-def try_claim(work_dir: str, shard_id: int, worker: str,
-              ttl_s: Optional[float] = None) -> Optional[Lease]:
+def try_claim(work_dir: str, shard_id, worker: str,
+              ttl_s: Optional[float] = None,
+              keeper: bool = True) -> Optional[Lease]:
     """Claim a shard: an owned :class:`Lease` with its keeper running, or
     None while another worker holds a live lease. A lease past its TTL,
     or a same-host lease whose pid is gone, is broken (renamed to a
-    tombstone: atomic, one winner) and claimed afresh."""
+    tombstone: atomic, one winner) and claimed afresh. With
+    ``keeper=False`` no keeper starts: the fleet gateway heartbeats its
+    job leases by hand, only while the owning host's beacon is fresh, so
+    a dead host's leases age out and a claimant must break them."""
     ttl = lease_ttl_s() if ttl_s is None else ttl_s
     path = lease_path(work_dir, shard_id)
     try:
@@ -188,10 +204,24 @@ def try_claim(work_dir: str, shard_id: int, worker: str,
             os.rename(path, tomb)
         except OSError:
             return None  # a racing claimant broke it first
+        # the rename took whatever lay at the path: a claimant that broke
+        # the stale lease and claimed afresh after our stat put its live
+        # lease there. Give that one back (a link replaces no newer
+        # claim) and back off
+        try:
+            taken = os.stat(tomb)
+            stolen = (taken.st_ino, taken.st_mtime_ns) != \
+                (st.st_ino, st.st_mtime_ns)
+            if stolen:
+                os.link(tomb, path)
+        except OSError:  # graftlint: disable=swallowed-exception (the owner finds the loss at its next heartbeat)
+            stolen = True
         try:
             os.unlink(tomb)
         except OSError:  # graftlint: disable=swallowed-exception (the tombstone's removal is best-effort)
             pass
+        if stolen:
+            return None
         metrics.inc("lease.expired")
         warn(f"lease on shard {shard_id} expired "
              f"(no heartbeat for > {ttl:.1f}s) — {worker} is breaking "
@@ -209,8 +239,10 @@ def try_claim(work_dir: str, shard_id: int, worker: str,
     try:
         os.write(fd, payload)
         os.fsync(fd)
+        inode = os.fstat(fd).st_ino
     finally:
         os.close(fd)
     metrics.inc("lease.claimed")
-    return Lease(work_dir, shard_id, worker,
-                 claimed_unix=claimed_unix).start_keeper()
+    lease = Lease(work_dir, shard_id, worker, claimed_unix=claimed_unix,
+                  inode=inode)
+    return lease.start_keeper() if keeper else lease

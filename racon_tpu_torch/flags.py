@@ -174,6 +174,24 @@ REGISTRY: Dict[str, Flag] = _declare([
          "Base of the client reconnect exponential backoff (doubled "
          "per attempt, deterministic CRC32 jitter added — the shared "
          "faults.backoff_s formula the exec ladder uses)."),
+    # ------------------------------------------------------- fleet serving
+    Flag("RACON_TPU_FLEET_TENANTS", "", "str",
+         "Fleet tenant configuration for the gateway (racon --gateway): "
+         "comma-separated 'name:weight:budget' entries. The weight is the "
+         "stride-scheduling share (higher drains faster), the budget "
+         "bounds the tenant's summed in-flight cost estimate (plain "
+         "number = MB; K/M/G/T suffixes; 0 or empty = unbounded). "
+         "Unknown tenants get weight 1 and no budget; empty = every "
+         "tenant equal."),
+    Flag("RACON_TPU_FLEET_HOST_TTL_S", "10", "float",
+         "Member-host heartbeat time-to-live in seconds: a serve host "
+         "whose beacon file (under --fleet-dir) goes unrefreshed for "
+         "longer is declared dead, its job leases are broken and its "
+         "jobs are re-placed on surviving hosts."),
+    Flag("RACON_TPU_FLEET_POLL_S", "0.2", "float",
+         "Gateway placement-loop poll interval in seconds: how often "
+         "the fleet scheduler re-scans tenant queues, host beacons and "
+         "in-flight job status between placement events."),
 ])
 
 

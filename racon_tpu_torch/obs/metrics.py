@@ -290,6 +290,26 @@ def recovery_summary() -> Dict[str, Number]:
     }
 
 
+def fleet_summary() -> Dict[str, Number]:
+    """The report's ``fleet`` section: admissions at the gateway's front
+    door, placements, migrations and preemptions, the host registry's
+    liveness and the admission cost cache. Gateway-level facts written
+    unscoped (``fleet.`` and ``gateway.`` are not run prefixes), so a
+    report built in a gateway shows its lifetime totals, and a CLI, shard
+    or job run zeros."""
+    return {
+        "jobs_accepted": counter("gateway.accepted"),
+        "jobs_rejected": counter("gateway.rejected"),
+        "jobs_placed": counter("fleet.placed"),
+        "jobs_migrated": counter("fleet.migrated"),
+        "jobs_preempted": counter("fleet.preempted"),
+        "hosts_alive": gauge("fleet.hosts_alive"),
+        "hosts_dead": counter("fleet.hosts_dead"),
+        "cost_cache_hits": counter("fleet.cost_cache_hits"),
+        "cost_cache_misses": counter("fleet.cost_cache_misses"),
+    }
+
+
 def peak_rss_bytes() -> int:
     """Lifetime peak RSS of this process (ru_maxrss is KiB on Linux,
     bytes on macOS)."""

@@ -87,10 +87,6 @@ _SHARD_ROW = {
 }
 
 
-def _zeros(section: str) -> Dict[str, int]:
-    return {k: 0 for k in sorted(_SCHEMA_KEYS[section])}
-
-
 def build_report(kind: str = "cli", *, argv: Optional[list] = None,
                  started_unix: float = 0.0, wall_s: float = 0.0,
                  phases: Optional[Dict[str, float]] = None,
@@ -140,9 +136,9 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
         "compiles": buildwatch.summary(scope),
         "dataflow": metrics.dataflow_summary(scope),
         "overlap": metrics.overlap_summary(scope),
-        # zeros: the port has no fleet gateway (the JAX package's numbers
-        # outside that mode), and one device (no per-chip rows)
-        "fleet": _zeros("fleet"),
+        # the gateway's counters: zeros outside a gateway process; one
+        # device (no per-chip rows)
+        "fleet": metrics.fleet_summary(),
         "devices": {},
         "peak_rss_bytes": metrics.peak_rss_bytes(),
         "metrics": metrics.snapshot(scope or None),

@@ -56,8 +56,12 @@ How it departs from the JAX service, on purpose:
   ``ShardRunner.primary_on_card``). With host primary engines the ladder
   is JAX's.
 - **Slots.** No ``--chips``: the slots are unpinned on one device; pinned
-  per-chip slots come with multi-GPU. No fleet membership (``fleet_dir``
-  and its beacon) until the fleet is ported.
+  per-chip slots come with multi-GPU.
+- **Fleet membership.** With ``fleet_dir`` (``--fleet-dir``) the server
+  registers a beacon under ``<fleet-dir>/hosts/`` once its socket is
+  bound (:class:`racon_tpu_torch.fleet.registry.HostBeacon`) and
+  withdraws it at shutdown, as JAX's does; a ``racon --gateway`` places
+  jobs on it.
 
 A server asked for ``cuda`` on a machine without a card raises in its
 constructor, before it binds its socket: it never serves from the CPU
@@ -236,6 +240,7 @@ class PolishServer:
                  budget_bytes: int = 0, max_queue: int = 0,
                  autostart: bool = True,
                  serve_dir: Optional[str] = None,
+                 fleet_dir: Optional[str] = None,
                  device="cuda"):
         # before anything binds: no card for a cuda server raises here
         self._device = resolve(device)
@@ -294,6 +299,12 @@ class PolishServer:
         self._quarantined: set = set()
         self._supervisor: Optional[threading.Thread] = None
         self._warm_shapes: List[Tuple[int, int, int, int]] = []
+        # fleet membership: a --fleet-dir host advertises itself to the
+        # gateway with a beacon file; a beacon stale past
+        # RACON_TPU_FLEET_HOST_TTL_S is how the gateway declares this host
+        # dead and moves its jobs
+        self.fleet_dir = os.path.abspath(fleet_dir) if fleet_dir else None
+        self._beacon = None
 
     # ------------------------------------------------------- engine pool
 
@@ -1451,6 +1462,17 @@ class PolishServer:
                                  name="racon-serve-heartbeat",
                                  daemon=True)
             t.start()
+        if self.fleet_dir:
+            # registered after the bind: the beacon advertises a listener
+            # the gateway can reach
+            from ..fleet import registry as fleet_registry
+            beacon = fleet_registry.HostBeacon(
+                self.fleet_dir, socket_path=self.socket_path).start()
+            # written once before the accept loop; shutdown reads it only
+            # after _stop is set
+            self._beacon = beacon  # graftlint: disable=lock-discipline (pre-accept-loop write)
+            _eprint(f"fleet member {self._beacon.name} registered "
+                    f"in {self.fleet_dir}")
         _eprint(f"listening on {self.socket_path} "
                 f"(server {self.worker})")
         self.started.set()
@@ -1525,6 +1547,11 @@ class PolishServer:
         if self._stop.is_set():
             return
         self._stop.set()
+        if self._beacon is not None:
+            # a clean goodbye: the gateway sees the beacon withdrawn
+            # instead of waiting out a TTL
+            self._beacon.stop()
+            self._beacon = None  # graftlint: disable=lock-discipline (_stop-gated shutdown)
         with self._cond:
             for job in self._queue:
                 job.state = FAILED

@@ -1,8 +1,9 @@
 """The port's lifecycle machines, report backing, lock-order witness and
 contract audit, against the JAX package's.
 
-- ``SHARD_MACHINE`` and ``LEASE_MACHINE`` equal JAX's in name, states,
-  edges and initial states; ``exec/manifest.py`` binds its shard states to
+- ``SHARD_MACHINE``, ``LEASE_MACHINE``, ``TENANT_MACHINE`` and
+  ``PLACEMENT_MACHINE`` equal JAX's in name, states, edges and initial
+  states; ``exec/manifest.py`` binds its shard states to
   them; ``selfcheck()`` is clean; ``REPORT_BACKING`` is JAX's less the
   entries listed here, and each section emitter returns its section's
   keys;
@@ -39,15 +40,9 @@ from racon_tpu_torch.utils.simulate import simulate
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# the JAX REPORT_BACKING entries the port leaves out: the fleet's (ROADMAP
-# Queue 1 item 6), and the per-window ins-overflow attribution the port
-# does not emit
-LEFT_OUT_BACKING = frozenset((
-    "fleet.jobs_accepted", "fleet.jobs_rejected", "fleet.jobs_placed",
-    "fleet.jobs_migrated", "fleet.jobs_preempted", "fleet.hosts_alive",
-    "fleet.hosts_dead", "fleet.cost_cache_hits", "fleet.cost_cache_misses",
-    "dataflow.ins_overflow_windows",
-))
+# the JAX REPORT_BACKING entry the port leaves out: the per-window
+# ins-overflow attribution the port does not emit
+LEFT_OUT_BACKING = frozenset(("dataflow.ins_overflow_windows",))
 
 
 @pytest.fixture(autouse=True)
@@ -83,7 +78,8 @@ def test_selfcheck_is_clean():
     assert contracts.selfcheck() == []
 
 
-@pytest.mark.parametrize("name", ["SHARD_MACHINE", "LEASE_MACHINE"])
+@pytest.mark.parametrize("name", ["SHARD_MACHINE", "LEASE_MACHINE",
+                                  "TENANT_MACHINE", "PLACEMENT_MACHINE"])
 def test_machines_equal_jax(name):
     port, jax = getattr(contracts, name), getattr(jax_contracts, name)
     assert port.name == jax.name

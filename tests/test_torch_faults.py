@@ -4,9 +4,8 @@ faults.py``) against the JAX package's ``racon_tpu/faults.py``, on the CPU:
 - ``classify`` gives the JAX class on a list of exceptions, a
   ``torch.cuda.OutOfMemoryError`` (``device-oom``) among them;
 - ``parse_spec`` parses the grammar of ``tests/test_faults.py`` as JAX
-  does at the port's three engine sites and its five service sites,
-  rejects the same malformed entries, and rejects the JAX package's fleet
-  sites as unknown;
+  does at the port's three engine sites, its five service sites and its
+  two fleet sites, and rejects the same malformed entries;
 - one-shot, persistent and seeded-probability specs fire at the same calls
   in both packages;
 - ``align.dispatch``, ``align.fetch`` and ``consensus.dispatch`` injected
@@ -114,16 +113,10 @@ def test_parse_spec_rejects_like_jax(raw, match):
             mod.parse_spec(raw)
 
 
-@pytest.mark.parametrize("site", ["fleet.place", "gateway.accept"])
-def test_jax_only_sites_are_unknown_to_the_port(site):
-    jax_faults.parse_spec(f"{site}:io")
-    with pytest.raises(ValueError, match="unknown"):
-        faults.parse_spec(f"{site}:io")
-
-
 @pytest.mark.parametrize("site", ["serve.journal", "server.kill",
                                   "serve.socket", "serve.polish",
-                                  "serve.slot"])
+                                  "serve.slot", "fleet.place",
+                                  "gateway.accept"])
 def test_service_sites_parse_like_jax(site):
     raw = f"{site}:io@2*"
     assert _specs(faults, raw) == _specs(jax_faults, raw)

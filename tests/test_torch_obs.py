@@ -15,9 +15,10 @@
   and ``flags.py`` is the port's only reader of the environment;
 - the contract in both directions: every metric and span name that traced
   polisher runs emit (the PAF path on the device engines, the auto path,
-  a consensus stream forced through stage B, a shard runner's run) is
-  declared in ``racon_tpu_torch/contracts.py``, and every declared span
-  is emitted.
+  a consensus stream forced through stage B, a shard runner's run, a
+  job through the fleet gateway and a host, the host's job scope taken
+  off) is declared in ``racon_tpu_torch/contracts.py``, and every
+  declared span is emitted.
 
 The counters' equality with the JAX engines' is in
 ``test_torch_obs_counters.py``.
@@ -360,8 +361,11 @@ def traced_runs(tmp_path_factory):
     with 0.7-1.3 kbp reads: the PAF path on the device engines, the auto
     path (device aligner, host consensus, so the consensus takes the
     per-range run), and a device consensus stream forced through stage
-    B, and a shard runner's run on the host engines (its ``exec.*``
-    spans). Returns (names per run, the exported trace events)."""
+    B, a shard runner's run on the host engines (its ``exec.*`` spans),
+    and a job through a fleet gateway and one host on the host engines
+    (``gateway.admit``, ``fleet.place``; the host's ``job.<id>.`` scope
+    taken off its names). Returns (names per run, the exported trace
+    events)."""
     saved = torch.get_num_threads()
     torch.set_num_threads(2)
     d = tmp_path_factory.mktemp("traced")
@@ -411,8 +415,54 @@ def traced_runs(tmp_path_factory):
                 num_threads=2, work_dir=str(d / "exec")).run(io.BytesIO())
     names["exec"] = _emitted_names()
     trace.deactivate()
+    obs.begin(None, str(d / "r.json"))
+    names["fleet"] = _fleet_run_names(d)
+    trace.deactivate()
     torch.set_num_threads(saved)
     return names, events
+
+
+def _fleet_run_names(d):
+    """One job through an in-process gateway and host (the host engines,
+    ``device="cpu"``): the names emitted, a job scope's prefix removed."""
+    import tempfile
+
+    from racon_tpu_torch.fleet.gateway import Gateway
+    from racon_tpu_torch.obs import buildwatch
+    from racon_tpu_torch.serve.client import ServiceClient
+    from racon_tpu_torch.serve.service import PolishServer
+    mp = pytest.MonkeyPatch()
+    mp.setenv("RACON_TPU_SERVE_WARM_SHAPES", "")
+    mp.setenv("RACON_TPU_FLEET_POLL_S", "0.05")
+    sock_dir = tempfile.mkdtemp(dir="/tmp", prefix="tob")
+    fleet_dir = str(d / "fleet")
+    host = PolishServer(os.path.join(sock_dir, "h0.sock"), num_threads=2,
+                        fleet_dir=fleet_dir, device="cpu")
+    gateway = Gateway("127.0.0.1:0", fleet_dir)
+    threads = [threading.Thread(target=t.serve_forever, daemon=True)
+               for t in (host, gateway)]
+    try:
+        for t in threads:
+            t.start()
+        assert host.started.wait(60) and gateway.started.wait(60)
+        with ServiceClient(f"127.0.0.1:{gateway.port}",
+                           timeout_s=300) as c:
+            sub = c.submit({"sequences": str(d / "r.fastq"),
+                            "overlaps": str(d / "o.paf"),
+                            "target_sequences": str(d / "d.fasta"),
+                            "threads": 2})
+            assert sub["ok"], sub
+            header, payload = c.result(sub["job"], timeout_s=240)
+            assert header["ok"] and payload, header
+    finally:
+        gateway.shutdown("now")
+        host.shutdown()
+        for t in threads:
+            t.join(timeout=60)
+        buildwatch.reset()
+        mp.undo()
+    scope = re.compile("^" + re.escape(contracts.JOB_SCOPE_ROOT) + r"[^.]+\.")
+    return {scope.sub("", n, count=1) for n in _emitted_names()}
 
 
 def test_every_emitted_name_is_declared(traced_runs):
