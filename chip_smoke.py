@@ -4,8 +4,9 @@
 Run from the root of a checkout, with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA device, ``nvcc``, ``nvidia-smi`` and a
 ``g++`` that finds zlib's header, and it exits non-zero (printing no
-result) when any of them is missing or any phase fails. Phases, one JSON
-line each:
+result) when any of them is missing or any phase fails. (``python3
+chip_smoke.py --chain-ab SRC`` runs only :func:`chain_ab`, which times
+another ``chain_dp.cu`` against this tree's.) Phases, one JSON line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
@@ -271,18 +272,24 @@ line each:
              (``RUNG_OFF_PATH``: 64, 96, 192, 256, 768); K3 on
              ``VOTE_PAIRS`` pairs (a partial last warp) at the consensus
              geometry; ``chain_dp`` at every (S, B) the main_auto run
-             launched it at, on the lanes that run gave it, bit-exact
-             against ``chain.chain_dp_plain`` on the same card tensors.
+             launched it at, on the lanes that run gave it, and on the
+             synthetic adversarial arenas of ``CHAIN_ADVERSARIAL`` (ties,
+             ``ns`` of 0, 1, 15, 16, 17 and S, the gap limits; an arena
+             past the shared-memory parents), bit-exact against
+             ``chain.chain_dp_plain`` on the same card tensors.
              It fails when a launch of any of them falls on a geometry
              not held at a batch at least as large (``unheld``);
-9. bp      — at every aligner (max_len, band) of the main path, then at
-             main_auto's own buckets, on its
-             kernels-phase pairs: ``breaking_points`` rows from the card
-             (``CudaAligner._launch_chunk`` + ``_finish_chunk_bp``) equal
-             to the host decode of the same walk (``ops_to_cigar`` +
-             ``decode_breaking_points_batch``), the card's tables equal to
-             ``breaking_points`` on the CPU from the same op stream, and
-             its time (CUDA events);
+9. bp      — at every aligner (max_len, band) any path launched, on the
+             pairs of its largest kernels row: ``breaking_points`` rows
+             from the card (``CudaAligner._launch_chunk`` +
+             ``_finish_chunk_bp``) equal to the host decode of the same
+             walk (``ops_to_cigar`` + ``decode_breaking_points_batch``);
+             the CUDA kernel ``breaking_points`` equal bit for bit to
+             ``breaking_points_plain`` on the same card tensors and to
+             ``breaking_points`` on the CPU from the same op stream, one
+             launch a call; the kernel's and the plain version's time
+             (CUDA events) beside the bound. Every path's aligner chunks
+             join ``unheld`` under ``breaking_points``;
 10. agree  — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card through the consensus stream and through the padded path
              (``use_ragged=False``), and with the plain PyTorch kernels on
@@ -297,9 +304,10 @@ line each:
              own); each polish must cut the draft's distance to under a
              quarter.
 
-Then the ``{"kernels": [...]}`` line (``on_main_path`` false for a kernel
-the engines give none of the main path's launches: K1 since K4's wide
-body measured faster at every band the 1 Mbp run launches), the
+Then the ``{"kernels": [...]}`` line (``breaking_points`` from the bp
+phase; ``on_main_path`` false for a kernel the engines give none of the
+main path's launches: K1 since K4's wide body measured faster at every
+band the 1 Mbp run launches), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 """
@@ -307,6 +315,7 @@ too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import gzip
 import hashlib
@@ -336,13 +345,15 @@ from racon_tpu_torch.ops import poa as poa_ops
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.obs import metrics
-from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points, build_rows,
+from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points,
+                                    breaking_points_plain, build_rows,
                                     sweep_bound, window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
                                      T_PAD, CudaPoaConsensus, bucket_geometry,
                                      sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
-from racon_tpu_torch.utils.simulate import _mutate, write_inputs
+from racon_tpu_torch.utils.simulate import (_mutate, adversarial_chain_arena,
+                                            write_inputs)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -376,11 +387,14 @@ OPS_PER_CELL = 6.75
 # move is one sector of device memory.
 OPS_PER_STEP = {"walk_ops": 12, "walk_vote": 24}
 SECTOR = 32
-# operations a step of breaking_points does: decode the 2-bit code (2), the
-# two position prefix sums (2), the interval index (subtract, divide, clamp
-# = 3), the validity test (2), the packed coordinates (2) and the two
-# reductions (2)
-OPS_PER_BP_STEP = 13
+# operations a step of breaking_points needs: decode the 2-bit code (2),
+# the two position updates (2), the match test (1), the boundary compare
+# (1), the packed coordinates (shift, or = 2) and the interval's min and
+# max (2) = 10. Positions only fall along a row, so the interval index
+# changes, and the tpos < 0 and qpos < 0 tails begin, only where a
+# position crosses a boundary known in advance: one compare a step stands
+# for the divide, the clamp and the sign tests, which run once a crossing.
+OPS_PER_BP_STEP = 10
 # The chain DP, per predecessor a live seed is scored against: the two
 # coordinate deltas (2), the drift and its absolute value (2), five range
 # tests and their four ands (9), the span min(k, dq, dt) (2), the score
@@ -932,9 +946,10 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
     headline row is the first shape at which the engines pick it
     (``swar.use_packed16``), K2's is the bucket with the most chunks, K3's
     the consensus group; the other rows go to ``other_shapes``. Returns
-    the entries, the main path's drawn aligner pairs by bucket (and the
-    auto path's at its own buckets), and the largest batch held at each
-    on-path geometry (``("aligner" | "consensus", dims...) -> B``)."""
+    the entries, the drawn aligner pairs by bucket, and the largest batch
+    held at each
+    on-path geometry (``("aligner" | "consensus", dims...) -> B``); the
+    drawn pairs are those of each bucket's largest row."""
     consensus = consensus_shapes(main["consensus_group_shapes"]
                                  + auto["consensus_group_shapes"]
                                  + shards["consensus_group_shapes"]
@@ -947,8 +962,11 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
-    rows = {name: [] for name in cuda_nw.KERNELS if name != "chain_dp"}
-    drawn = {}    # aligner shape -> the pairs its rows were built from
+    rows = {name: [] for name in cuda_nw.KERNELS
+            if name not in ("chain_dp", "breaking_points")}
+    # aligner shape -> the pairs of its largest row (the bp phase holds
+    # breaking_points there)
+    drawn = {}
     held = {("consensus", *c[:2]): max(b[2] for b in consensus
                                        if b[:2] == c[:2])
             for c in consensus}
@@ -1010,8 +1028,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
             inp = aligner_bucket_inputs(dev, bucket, Bc, seed, div_obs)
             inp["shape"] += label
             pairs = inp.pop("pairs")
-            if not label or bucket not in chunks:
-                drawn[bucket] = pairs
+            # rows come in order of growing batch a bucket
+            drawn[bucket] = pairs
             del pairs
             reps = 3
         (dirs, _), k1, k4 = fwd_rows(inp, reps, BPT_LADDER)
@@ -1090,9 +1108,9 @@ def kernel_name(mangled: str) -> str:
     name of this repo's kernels."""
     head, _, rest = mangled.partition("kernel")
     at = max(head.rfind("nw_fwd_"), head.rfind("walk_"),
-             head.rfind("chain_dp_"))
-    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
-    targs = re.findall(r"Li(-?\d+)E", args.group(1)) if args else []
+             head.rfind("chain_dp_"), head.rfind("breaking_points_"))
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
+    targs = re.findall(r"L[ib](-?\d+)E", args.group(1)) if args else []
     return head[at:] + "kernel" + (f"<{','.join(targs)}>" if targs else "")
 
 
@@ -1165,12 +1183,13 @@ def phase_sass() -> dict:
 def main_path_kernels(main) -> set:
     """The kernels the engines route the main path's launches to: the
     forward kernel ``swar.use_packed16`` picks at each aligner chunk's and
-    consensus group's (max_len, band), then K2 (the aligner's walk) and K3
-    (the consensus engine's walk + vote)."""
+    consensus group's (max_len, band), then K2 (the aligner's walk),
+    ``breaking_points`` (its per-window tables) and K3 (the consensus
+    engine's walk + vote)."""
     shapes = [s[:2] for s in main["aligner_chunk_shapes"]
               + main["consensus_group_shapes"]]
     return {"nw_fwd_i16x2" if use_packed16(*s) else "nw_fwd_i32"
-            for s in shapes} | {"walk_ops", "walk_vote"}
+            for s in shapes} | {"walk_ops", "breaking_points", "walk_vote"}
 
 
 def phase_main(dev, mbp=1.0):
@@ -3112,13 +3131,35 @@ def chain_bound(ns: np.ndarray, n_chained: np.ndarray):
     return bound(ops, nbytes)
 
 
-def chain_entry(launched) -> dict:
-    """``chain_dp`` at every (S, B) of the auto path, on its own lanes:
-    bit-exact against ``chain_dp_plain`` on the same card tensors, timed
-    with CUDA events. The headline shape is the one with the most live
+# chain_dp's synthetic adversarial arenas (simulate.adversarial_chain_arena),
+# (S, B, k): the auto path's widest arena, one past chain.CHAIN_SMEM_SLOTS
+# (its parent offsets spill to device memory), one whose S and B are not
+# multiples of 16 (k None: the run's k), and one whose scores need the
+# kernel's 64-bit keys ((S + 1) k GAP_UNIT >= 2^26)
+CHAIN_ADVERSARIAL = ((256, 4096, None), (4096, 512, None), (40, 999, None),
+                     (1024, 64, 4096))
+
+
+def chain_arena_tensors(dev, seed, S, B):
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 adversarial_chain_arena(np.random.default_rng(seed), S, B))
+
+
+def chain_entry(launched, dev) -> dict:
+    """``chain_dp`` at every (S, B) of the auto path, on its own lanes,
+    then on the synthetic arenas of ``CHAIN_ADVERSARIAL``: bit-exact
+    against ``chain_dp_plain`` on the same card tensors, timed with CUDA
+    events. The headline shape is the auto path's with the most live
     seeds."""
     rows = []
-    for ts, qs, ns, k in launched:
+    run_k = chain.resolve_params().k
+    arenas = [(ts, qs, ns, kk, "") for ts, qs, ns, kk in launched]
+    for seed, (S, B, k) in enumerate(CHAIN_ADVERSARIAL, 707):
+        arenas.append((*chain_arena_tensors(dev, seed, S, B),
+                       run_k if k is None else k,
+                       " (synthetic adversarial arena"
+                       + ("" if k is None else f", k={k}") + ")"))
+    for ts, qs, ns, k, label in arenas:
         B, S = ts.shape
         got = chain.chain_dp(ts, qs, ns, k=k)
         want, plain_ms = timed_once(
@@ -3127,14 +3168,70 @@ def chain_entry(launched) -> dict:
         ms = time_ms(lambda: chain.chain_dp(ts, qs, ns, k=k), 20)
         ns_np = ns.cpu().numpy()
         bound_ms, bound_by = chain_bound(ns_np, got[:, 1].cpu().numpy())
-        rows.append(dict(shape=f"S={S}, B={B}", S=S, B=B,
+        rows.append(dict(shape=f"S={S}, B={B}{label}", S=S, B=B,
                          live_seeds=int(ns_np.sum()), max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
-    head = max(rows, key=lambda r: r["live_seeds"])
+                         bound_by=bound_by, library_ms=None,
+                         synthetic=bool(label)))
+    head = max((r for r in rows if not r["synthetic"]),
+               key=lambda r: r["live_seeds"])
     entry = dict(head, other_shapes=[r for r in rows if r is not head])
     entry["ok"] = all(r["max_abs_err"] == 0 for r in rows)
+    entry["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return entry
+
+
+def chain_ab(dev, src: pathlib.Path) -> int:
+    """``python3 chip_smoke.py --chain-ab SRC``: ``rt_chain_dp`` built from
+    SRC (another ``chain_dp.cu`` with this tree's C entry, such as an
+    earlier version unpacked under ``build/``) against this tree's, on the
+    arenas of ``CHAIN_ADVERSARIAL``: both held bit for bit against
+    ``chain_dp_plain``, their C entries timed with CUDA events in turns
+    (other, this, this, other). One JSON line an arena, then the
+    ``nvidia-smi`` line; non-zero when either disagrees. No other phase
+    runs."""
+    emit(dict(phase="device", nvidia_smi=gpu_line()))
+    this = _build.function("rt_chain_dp")
+    lib = ROOT / "build" / "chain_ab" / "libchain_dp_other.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", str(src),
+                    "-o", str(lib)], check=True)
+    other = ctypes.CDLL(str(lib)).rt_chain_dp
+    other.restype = ctypes.c_int
+    other.argtypes = _build.SIGNATURES["rt_chain_dp"][1]
+    run_k = chain.resolve_params().k
+    ok = True
+    for seed, (S, B, k) in enumerate(CHAIN_ADVERSARIAL, 707):
+        k = run_k if k is None else k
+        ts, qs, ns = chain_arena_tensors(dev, seed, S, B)
+        want = chain.chain_dp_plain(ts, qs, ns, k=k)
+        parent = (torch.empty((S, B), dtype=torch.uint8, device=dev)
+                  if S > chain.CHAIN_SMEM_SLOTS else None)
+        outs = {n: torch.empty((B, 6), dtype=torch.int32, device=dev)
+                for n in ("other", "this")}
+
+        def run(fn, out):
+            err = fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
+                     None if parent is None else parent.data_ptr(),
+                     out.data_ptr(), B, S, k, chain.CHAIN_SMEM_SLOTS,
+                     cuda_nw._stream(ts))
+            if err:
+                raise RuntimeError(f"rt_chain_dp: CUDA error {err}")
+
+        fns = {"other": other, "this": this}
+        for n, fn in fns.items():
+            run(fn, outs[n])
+        errs = {n: int((o.to(torch.int64) - want.to(torch.int64))
+                       .abs().max()) for n, o in outs.items()}
+        ms = [time_ms(lambda n=n: run(fns[n], outs[n]), 50)
+              for n in ("other", "this", "this", "other")]
+        ok = ok and not any(errs.values())
+        emit(dict(phase="chain_ab", S=S, B=B, k=k,
+                  live_seeds=int(ns.sum()), max_abs_err=errs,
+                  other_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]]))
+    print(gpu_line(), flush=True)
+    return 0 if ok else 1
 
 
 def zlib_check() -> dict:
@@ -3201,18 +3298,22 @@ def phase_parse(dev, paths, zlib):
 
 
 def phase_bp(dev, drawn, w=500):
-    """Breaking points on the card at every aligner shape of the main path,
-    then at the auto path's own, on the pairs its kernels rows were drawn
-    from (its largest chunk), with
+    """Breaking points on the card at every aligner bucket any path
+    launched, on the pairs of its largest kernels row (``drawn``), with
     metas of a 1 Mbp draft: one launch in breaking-points mode
     (``CudaAligner._launch_chunk``: forward pass, K2, ``breaking_points``)
     finished by ``_finish_chunk_bp``, one in CIGAR mode for the same walk's
     op stream. Every accepted pair's rows must equal the host decode of
     that walk (``ops_to_cigar`` + ``decode_breaking_points_batch``), the
-    accept set must be the CIGAR mode's, and ``breaking_points`` on the CPU
-    must give the card's tables from the same op stream. Timed with CUDA
-    events (``ms``) and on the CPU (``cpu_ms``)."""
-    rows = []
+    accept set must be the CIGAR mode's, the kernel's tables must equal
+    ``breaking_points_plain`` on the same card tensors bit for bit, and
+    ``breaking_points`` on the CPU must give them too. One call of the
+    wrapper must count one launch. Timed with CUDA events (``ms``, the
+    plain version's ``plain_ms``) and on the CPU (``cpu_ms``). Returns the
+    phase record with the kernel's entry for the kernels line (``entry``:
+    the row with the most steps, the others under ``other_shapes``) and
+    the largest batch held at each bucket (``held``)."""
+    rows, held = [], {}
     for seed, (shape, drawn_pairs) in enumerate(drawn.items(), 505):
         max_len, band = shape
         rng = np.random.default_rng(seed)
@@ -3241,41 +3342,57 @@ def phase_bp(dev, drawn, w=500):
             [metas[k][0] + len(pairs[k][1]) for k in accepted], w, 8)
         decode_s = time.perf_counter() - t0
         ok &= all(np.array_equal(got[k], h) for k, h in zip(accepted, host))
-        # the same op stream through breaking_points on the card and on
-        # the CPU
+        # the same op stream through the kernel and the plain version on
+        # the card, and the plain version on the CPU
         first_rel, nb = window_geometry(
             np.array([mt[0] for mt in metas]), m, w)
         NW = max_len // w + 2
         host_in = [torch.from_numpy(a) for a in (n, m, first_rel, nb)]
         dev_in = [a.to(dev) for a in host_in]
+        before = cuda_nw.LAUNCHES["breaking_points"]
         card = breaking_points(ops_d, *dev_in, w=w, NW=NW)
+        torch.cuda.synchronize()
+        launches = cuda_nw.LAUNCHES["breaking_points"] - before
+        plain, plain_ms = timed_once(
+            lambda: breaking_points_plain(ops_d, *dev_in, w=w, NW=NW))
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(card, plain))
         ops_h = ops_d.cpu()
         t0 = time.perf_counter()
         cpu = breaking_points(ops_h, *host_in, w=w, NW=NW)
         cpu_ms = (time.perf_counter() - t0) * 1e3
         same_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
-        ms = time_ms(lambda: breaking_points(ops_d, *dev_in, w=w, NW=NW), 5)
+        ms = time_ms(lambda: breaking_points(ops_d, *dev_in, w=w, NW=NW), 20)
         B, S4 = ops_d.shape
+        held[shape] = max(held.get(shape, 0), B)
         steps_all = B * S4 * 4
         bms, by = bound(steps_all * OPS_PER_BP_STEP,
                         B * S4 + 16 * B + 8 * B * NW)
         rows.append(dict(
             shape=f"aligner ({max_len}, {band}) B={B} steps={4 * S4}",
-            pairs=C, accepted=len(accepted), rows=sum(len(h) for h in host),
-            rows_equal_host_decode=ok, cpu_tables_equal=same_cpu, ms=ms,
-            cpu_ms=cpu_ms, bound_ms=bms, bound_by=by,
+            B=B, steps=4 * S4, NW=NW, pairs=C, accepted=len(accepted),
+            rows=sum(len(h) for h in host), rows_equal_host_decode=ok,
+            cpu_tables_equal=same_cpu, launches_per_call=launches,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, cpu_ms=cpu_ms,
             host_cigar_decode_s=decode_s,
             fetched_bytes=al.stats["fetched_bytes"],
             op_stream_bytes=C * S4))
-        del launched, walked, ops_d, card
+        del launched, walked, ops_d, card, plain
         torch.cuda.empty_cache()
+    head = max(rows, key=lambda r: r["B"] * r["steps"])
+    entry = dict(head, other_shapes=[r for r in rows if r is not head])
+    entry["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    entry["ok"] = all(r["max_abs_err"] == 0 and r["launches_per_call"] == 1
+                      for r in rows)
     out = dict(phase="bp", window_length=w, shapes=rows,
                ok=all(r["rows_equal_host_decode"] and r["cpu_tables_equal"]
-                      for r in rows))
+                      for r in rows) and entry["ok"])
     emit(out)
+    out["entry"], out["held"] = entry, held
     if not out["ok"]:
         raise RuntimeError("device breaking points disagree with the host "
-                           "decode or the CPU")
+                           "decode, the plain version or the CPU")
     return out
 
 
@@ -3385,6 +3502,8 @@ def main() -> int:
               "script needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--chain-ab"] and len(sys.argv) == 3:
+        return chain_ab(dev, pathlib.Path(sys.argv[2]))
     record = {}
     t_start = time.perf_counter()
 
@@ -3467,13 +3586,12 @@ def main() -> int:
                                          record["wrapper"],
                                          record["serve"],
                                          record["fleet"])
-    entries["chain_dp"] = chain_entry(launched)
+    entries["chain_dp"] = chain_entry(launched, dev)
     del launched
     record["kernels"] = dict(phase="kernels",
                              seconds=time.perf_counter() - t0,
                              kernels=entries)
     emit(record["kernels"])
-    bad = [k for k, e in entries.items() if not e["ok"]]
     on_path = main_path_kernels(record["main"])
     missing = [k for k in on_path if record["main"]["launches"][k] <= 0]
     # the auto path: the chain DP, then the kernels its aligner and
@@ -3492,6 +3610,14 @@ def main() -> int:
     record["bp"] = phase_bp(dev, drawn)
     record["bp"]["seconds"] = time.perf_counter() - t0
     del drawn
+    entries["breaking_points"] = record["bp"].pop("entry")
+    held_bp = record["bp"].pop("held")
+    # every path's aligner chunks run breaking_points at their shape
+    unheld["breaking_points"] = {
+        p: [sh for sh in record[p]["aligner_chunk_shapes"]
+            if held_bp.get(tuple(sh[:2]), 0) < sh[3]]
+        for p in unheld}
+    bad = [k for k, e in entries.items() if not e["ok"]]
 
     record["agree"] = phase_agree(dev)
     record["profile"] = phase_profile(dev, paths)
@@ -3532,9 +3658,10 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
-    if any(unheld.values()):
-        raise RuntimeError(f"launched shapes the kernels phase did not "
-                           f"hold against the plain versions: {unheld}")
+    if any(v for k, v in unheld.items() if k != "breaking_points") or \
+            any(unheld["breaking_points"].values()):
+        raise RuntimeError(f"launched shapes the kernels and bp phases did "
+                           f"not hold against the plain versions: {unheld}")
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")

@@ -51,8 +51,9 @@ METRICS: FrozenSet[str] = frozenset((
     # consensus groups, and the sanitizer's K1 shadows of them
     "consensus.dropped_layers", "consensus.fallback_windows",
     "consensus.group_windows", "consensus.groups", "consensus.ins_overflow",
-    "consensus.lanes_occupied", "consensus.lanes_total",
-    "consensus.shadow_groups", "consensus.sweep_truncated",
+    "consensus.ins_overflow_windows", "consensus.lanes_occupied",
+    "consensus.lanes_total", "consensus.shadow_groups",
+    "consensus.sweep_truncated",
     "consensus.wavefront_steps",
     # the shard runner's ladder, part verification and leases
     "exec.backoff_s", "faults.part_corrupt", "faults.stall_escalations",
@@ -246,10 +247,8 @@ SECTION_EMITTERS: Dict[str, Tuple[str, str]] = {
 # report key -> the metric or span timer whose emission backs it. The
 # RACON_TPU_SANITIZE=1 exit audit uses it to tell a real zero (the metric
 # fired and summed to 0) from a default (it never fired, and the section
-# builder's .get() default filled the key). The JAX package's map less
-# ``dataflow.ins_overflow_windows`` (the per-window attribution of
-# ``consensus.ins_overflow``, which the port does not emit); and
-# ``compile_s`` reads the port's library builds.
+# builder's .get() default filled the key). The JAX package's map, except
+# that ``compile_s`` reads the port's library builds.
 REPORT_BACKING: Dict[str, str] = {
     "dispatch_fetch.align_dispatch_s": "align.dispatch",
     "dispatch_fetch.align_fetch_s": "align.fetch",
@@ -284,6 +283,7 @@ REPORT_BACKING: Dict[str, str] = {
     "dataflow.fallback_pairs": "dataflow.fallback_pairs",
     "dataflow.resident_bailouts": "dataflow.resident_bailouts",
     "dataflow.lanes_device_groups": "dataflow.lanes_device_groups",
+    "dataflow.ins_overflow_windows": "consensus.ins_overflow_windows",
     "overlap.minimizers": "overlap.minimizers",
     "overlap.candidate_pairs": "overlap.candidate_pairs",
     "overlap.freq_capped_buckets": "overlap.freq_capped_buckets",

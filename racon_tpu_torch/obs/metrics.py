@@ -251,10 +251,9 @@ def dataflow_summary(scope: str = "") -> Dict[str, Number]:
     bail-out), the bytes fetched from the device and the bytes whose fetch
     it avoided (the overlapper's join and table cache count theirs with
     the flag off too), the pairs decoded on the host, the bail-outs, the
-    consensus groups whose lanes were gathered on the device.
-    ``ins_overflow_windows`` is the JAX package's per-window attribution
-    of ``consensus.ins_overflow``, which the port does not emit, so it
-    reads 0. ``scope``: one job's numbers."""
+    consensus groups whose lanes were gathered on the device, and the
+    windows the consensus engine's insertion overflow was attributed to
+    (``consensus.ins_overflow_windows``). ``scope``: one job's numbers."""
     with _lock:
         def c(name, default):
             return _counters.get(scope + name, default)

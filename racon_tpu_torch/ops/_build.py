@@ -32,6 +32,7 @@ SOURCES = {
     "walk_ops": "walk_ops.cu",
     "walk_vote": "walk_vote.cu",
     "chain_dp": "chain_dp.cu",
+    "breaking_points": "breaking_points.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -49,8 +50,10 @@ SIGNATURES = {
     "rt_walk_ops": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_ops_thread": ("walk_ops", [_P] * 6 + [_I] * 3 + [_P]),
     "rt_walk_vote": ("walk_vote", [_P] * 9 + [_I] * 8 + [_P]),
-    # ts_t, qs_t, ns, parent, out, B, S, k, stream
-    "rt_chain_dp": ("chain_dp", [_P] * 5 + [_I] * 3 + [_P]),
+    # ts, qs, ns, parent, out, B, S, k, smem_slots, stream
+    "rt_chain_dp": ("chain_dp", [_P] * 5 + [_I] * 4 + [_P]),
+    # ops, n, m, first_rel, nb, bp_first, bp_last, B, S4, w, NW, stream
+    "rt_breaking_points": ("breaking_points", [_P] * 7 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -80,6 +80,13 @@ GAP_UNIT = 16             # a matched base; a gap base costs 1
 _NEG = -(1 << 30)         # the score of a dead lane or slot
 # cells of one chain arena (B * S)
 CHAIN_ARENA_CELLS = 1 << 21
+# lanes a block of the chain_dp kernel (a half-warp each)
+CHAIN_BLOCK_LANES = 16
+# arena lengths S whose parent offsets chain_dp keeps in shared memory: a
+# block's S * CHAIN_BLOCK_LANES bytes up to 1/64 of an arena's cells (32 KB,
+# 2048 slots); longer arenas spill them to a [S, B] scratch of at most
+# CHAIN_ARENA_CELLS bytes
+CHAIN_SMEM_SLOTS = (CHAIN_ARENA_CELLS // 64) // CHAIN_BLOCK_LANES
 # device-join bounds: padded table entries or hits past these bail out to
 # match_seeds (counted), so one pathological input cannot demand an
 # unbounded device sort
@@ -135,7 +142,8 @@ def chain_dp(ts: torch.Tensor, qs: torch.Tensor, ns: torch.Tensor, *,
     _chain_kernel``): ``ts``/``qs`` int32 seed coordinates sorted by ``(t,
     q)``, ``ns [B]`` int32 live seeds a lane. Returns ``[B, 6]`` int32
     rows ``(score, n_chained, q_lo, q_hi, t_lo, t_hi)``. On CUDA tensors it
-    launches ``chain_dp`` (``kernels/chain_dp.cu``) or raises."""
+    launches ``chain_dp`` (``kernels/chain_dp.cu``: a half-warp a lane, one
+    thread a predecessor) or raises."""
     B, S = ts.shape
     cuda_nw._require(qs.shape == (B, S) and ns.shape == (B,),
                      "chain_dp: ts, qs [B, S] and ns [B]")
@@ -145,14 +153,15 @@ def chain_dp(ts: torch.Tensor, qs: torch.Tensor, ns: torch.Tensor, *,
         return chain_dp_plain(ts, qs, ns, k=k)
     cuda_nw._check_cuda_inputs("chain_dp", ts, qs, ns)
     dev = ts.device
-    # [S, B]: the lanes of a warp read neighbouring words
-    ts_t = ts.t().contiguous()
-    qs_t = qs.t().contiguous()
-    parent = torch.empty((S, B), dtype=torch.uint8, device=dev)
+    # the parent offsets' scratch, only where shared memory does not hold
+    # them
+    parent = (torch.empty((S, B), dtype=torch.uint8, device=dev)
+              if S > CHAIN_SMEM_SLOTS else None)
     out = torch.empty((B, 6), dtype=torch.int32, device=dev)
     fn = _build.function("rt_chain_dp")
-    err = fn(ts_t.data_ptr(), qs_t.data_ptr(), ns.data_ptr(),
-             parent.data_ptr(), out.data_ptr(), B, S, k, cuda_nw._stream(ts))
+    err = fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
+             None if parent is None else parent.data_ptr(), out.data_ptr(),
+             B, S, k, CHAIN_SMEM_SLOTS, cuda_nw._stream(ts))
     cuda_nw.count_launch("chain_dp")
     cuda_nw._check_launch("chain_dp", err)
     return out

@@ -52,6 +52,10 @@ KERNELS = {
     # replaces an XLA scan, not a Pallas kernel
     "chain_dp": ("racon_tpu_torch/ops/kernels/chain_dp.cu",
                  "racon_tpu/ops/chain.py:129"),
+    # the aligner's per-window reduction of the walk's op stream (wrapper
+    # ops/nw.py breaking_points); it replaces an XLA function
+    "breaking_points": ("racon_tpu_torch/ops/kernels/breaking_points.cu",
+                        "racon_tpu/ops/nw.py:430"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

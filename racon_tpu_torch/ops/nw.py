@@ -37,7 +37,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import cuda_nw
+from . import _build, cuda_nw
 from .swar import use_packed16
 from .. import faults, obs, sanitize
 from ..device import resolve
@@ -103,10 +103,49 @@ def breaking_points(ops_packed: torch.Tensor, n: torch.Tensor,
                     m: torch.Tensor, first_rel: torch.Tensor,
                     nb: torch.Tensor, *, w: int, NW: int):
     """Per-window breaking points straight from the walk's packed op
-    stream (``racon_tpu.ops.nw._breaking_points_kernel``), on the device
-    the inputs lie on: ``ops_packed`` uint8 ``[B, S/4]``, ``n``, ``m``,
-    ``first_rel``, ``nb`` int32 ``[B]``. Returns ``(bp_first, bp_last)``
-    int32 ``[B, NW]``.
+    stream (``racon_tpu.ops.nw._breaking_points_kernel``): ``ops_packed``
+    uint8 ``[B, S/4]``, ``n``, ``m``, ``first_rel``, ``nb`` int32 ``[B]``.
+    Returns ``(bp_first, bp_last)`` int32 ``[B, NW]`` (the tables of
+    :func:`breaking_points_plain`). On CUDA tensors it launches the CUDA
+    kernel ``breaking_points`` (``kernels/breaking_points.cu``: one warp a
+    pair, one pass over the op stream, no ``[B, S]`` temporaries) or
+    raises; on CPU tensors it runs :func:`breaking_points_plain`."""
+    B, S4 = ops_packed.shape
+    cuda_nw._require(all(x.shape == (B,) for x in (n, m, first_rel, nb)),
+                     "breaking_points: ops_packed [B, S/4], n, m, "
+                     "first_rel, nb [B]")
+    cuda_nw._require(ops_packed.dtype == torch.uint8,
+                     "breaking_points: ops_packed must be uint8")
+    cuda_nw._require(all(x.dtype == torch.int32
+                         for x in (n, m, first_rel, nb)),
+                     "breaking_points: n, m, first_rel, nb must be int32")
+    cuda_nw._require(w >= 1 and NW >= 1, "breaking_points: w, NW >= 1")
+    if ops_packed.device.type != "cuda":
+        return breaking_points_plain(ops_packed, n, m, first_rel, nb, w=w,
+                                     NW=NW)
+    cuda_nw._check_cuda_inputs("breaking_points", ops_packed, n, m,
+                               first_rel, nb)
+    dev = ops_packed.device
+    with torch.profiler.record_function("breaking_points"):
+        bp_first = torch.empty((B, NW), dtype=torch.int32, device=dev)
+        bp_last = torch.empty((B, NW), dtype=torch.int32, device=dev)
+        fn = _build.function("rt_breaking_points")
+        err = fn(ops_packed.data_ptr(), n.data_ptr(), m.data_ptr(),
+                 first_rel.data_ptr(), nb.data_ptr(), bp_first.data_ptr(),
+                 bp_last.data_ptr(), B, S4, w, NW,
+                 cuda_nw._stream(ops_packed))
+        cuda_nw.count_launch("breaking_points")
+        cuda_nw._check_launch("breaking_points", err)
+    return bp_first, bp_last
+
+
+def breaking_points_plain(ops_packed: torch.Tensor, n: torch.Tensor,
+                          m: torch.Tensor, first_rel: torch.Tensor,
+                          nb: torch.Tensor, *, w: int, NW: int):
+    """Plain PyTorch :func:`breaking_points`, on the device the inputs lie
+    on (the CPU path and the kernel's yardstick on the card): ``ops_packed``
+    uint8 ``[B, S/4]``, ``n``, ``m``, ``first_rel``, ``nb`` int32 ``[B]``.
+    Returns ``(bp_first, bp_last)`` int32 ``[B, NW]``.
 
     Coordinates are span-relative and packed ``tpos << 14 | qpos`` (both
     below 16384, the longest bucket). For boundary interval k (boundaries

@@ -848,11 +848,16 @@ class CudaPoaConsensus:
         # test)
         self.stats = {"device_windows": 0, "fallback_windows": 0,
                       "dropped_layers": 0, "sweep_truncated": 0,
-                      "passthrough": 0, "stage_b_windows": 0,
+                      "ins_overflow": 0, "passthrough": 0,
+                      "stage_b_windows": 0,
                       "wavefront_steps": 0, "lanes_occupied": 0,
                       "lanes_total": 0, "groups": 0, "group_windows": 0,
                       "rounds_after_converged": 0, "group_shapes": [],
                       "lane_upload_saved_bytes": 0}
+        # the per-window attribution of stats["ins_overflow"], keyed by
+        # result index, from the fetched tail of ``dropped`` (the JAX
+        # engine's; kept out of ``stats``, as there)
+        self.ins_overflow_by_window: dict = {}
         # the sanitizer's pick of the K4 groups it shadows with K1
         self._shadow = sanitize.ShadowSampler()
         # device-OOM backpressure: the shard runner's ladder doubles this
@@ -1141,14 +1146,23 @@ class CudaPoaConsensus:
             return
         self.stats["dropped_layers"] += int(dropped[0])
         self.stats["sweep_truncated"] += int(dropped[1])
+        self.stats["ins_overflow"] += int(dropped[2])
         self.stats["wavefront_steps"] += int(dropped[3])
         self.stats["rounds_after_converged"] += int(idle[0])
         metrics.inc("consensus.dropped_layers", int(dropped[0]))
         metrics.inc("consensus.sweep_truncated", int(dropped[1]))
         metrics.inc("consensus.ins_overflow", int(dropped[2]))
         metrics.inc("consensus.wavefront_steps", int(dropped[3]))
+        # columns [4:] attribute the overflow counter to the group's
+        # window rows (accumulated over its rounds)
+        ovf_tail = dropped[4:]
         off = 0
         for row, (i, w) in enumerate(items):
+            ovf = int(ovf_tail[row])
+            if ovf:
+                self.ins_overflow_by_window[i] = \
+                    self.ins_overflow_by_window.get(i, 0) + ovf
+                metrics.inc("consensus.ins_overflow_windows")
             kw = w.n_layers
             p0 = off
             off += kw

@@ -147,6 +147,60 @@ def write_inputs(mbp: float, out_dir: str, seed: int = 23,
     return paths
 
 
+def adversarial_chain_arena(rng, S, B):
+    """Lanes that probe the DP's edges: ``ns`` cycling through 0, 1, 15,
+    16, 17 and S (a dead lane's slot 0 holds non-zero pad coordinates, as
+    the kernel and the plain version both report them); successors at
+    exactly ``MAX_GAP`` and ``BAND_DIAG`` from a predecessor and one past;
+    runs of equal-scoring predecessors (a square lattice of seeds, so
+    several predecessors give one candidate score) and chains of equal
+    score (the lowest end slot wins). ``ts``, ``qs`` int32 ``[B, S]`` (each
+    lane's seeds sorted by (t, q)) and ``ns`` int32 ``[B]``: the inputs of
+    ``ops.chain.chain_dp``, whose CPU tests, card tests and smoke run all
+    use this arena."""
+    from ..ops import chain as port_chain
+    mg, bd = port_chain.MAX_GAP, port_chain.BAND_DIAG
+    counts = (0, 1, 15, 16, 17, S)
+    ts = rng.integers(0, 50, (B, S)).astype(np.int32)
+    qs = rng.integers(0, 50, (B, S)).astype(np.int32)
+    ns = np.zeros(B, np.int32)
+    for b in range(B):
+        n = min(S, counts[b % len(counts)])
+        kind = (b // len(counts)) % 5
+        if kind == 0:      # the gap limits: steps at, and one past, them
+            dt = rng.choice([mg, mg + 1, 100, bd + 100], n)
+            dq = dt + rng.choice([0, bd, bd + 1, -bd, -bd - 1], n)
+            dq = np.maximum(dq, 1)
+        elif kind == 1:    # ties: a lattice of equal steps
+            dt = np.full(n, 20)
+            dq = np.where(np.arange(n) % 2 == 0, 20, 0)
+        elif kind == 2:    # equal-score chains ending apart
+            dt = np.where(np.arange(n) % 4 == 3, 3 * mg, 30)
+            dq = dt.copy()
+        elif kind == 3:    # a chain among off-diagonal noise seeds: the
+            # best predecessor lies several slots back
+            dt = rng.integers(0, 60, n)
+            noise = rng.random(n) < 0.6
+            dq = np.where(noise, 0, dt)
+            q_off = np.where(noise, rng.choice([-1, 1], n)
+                             * rng.integers(2 * bd, 5 * bd, n), 0)
+        else:
+            dt = rng.integers(0, 400, n)
+            dq = dt + rng.integers(-30, 30, n)
+        t = np.cumsum(dt).astype(np.int64)
+        q = np.cumsum(dq).astype(np.int64)
+        if kind == 3:
+            q = q + q_off + 5 * bd
+        q = np.maximum(q, 0)
+        order = np.lexsort((q, t))
+        ts[b, :n] = t[order]
+        qs[b, :n] = q[order]
+        ns[b] = n
+    # two predecessors give C one candidate score: the nearer (slot 1) wins
+    ts[B - 1, :3], qs[B - 1, :3], ns[B - 1] = (0, 10, 100), (10, 0, 100), 3
+    return ts, qs, ns
+
+
 if __name__ == "__main__":
     import argparse
 

@@ -4,7 +4,14 @@ against the JAX package's (``racon_tpu/ops/chain.py``), on the CPU.
 - ``chain_dp`` on CPU tensors (its plain version, ``chain_dp_plain``)
   against the JAX ``_chain_kernel`` and ``chain_np`` on arenas with dead
   lanes, full lanes (``ns = S``), a tie between two predecessors, gaps
-  over ``MAX_GAP`` and drift over ``BAND_DIAG``, at S of 16 and 64;
+  over ``MAX_GAP`` and drift over ``BAND_DIAG``, at S of 16 and 64; and on
+  adversarial arenas (ties between predecessors and between chain ends,
+  ``ns`` of 0, 1, 15, 16, 17 and S, predecessors exactly at ``MAX_GAP``
+  and ``BAND_DIAG`` and one past them, S not a multiple of 16), where a
+  NumPy mirror of the CUDA kernel ``kernels/chain_dp.cu`` (a half-warp a
+  lane, two lanes a warp run to the larger count, the shuffled ring and
+  the key reduction, 32-bit and 64-bit) must give the same rows, at k 15
+  and at k 4096 (scores past 2^26, the 64-bit keys);
 - ``join_seeds`` on its device path (CPU tensors) against JAX
   ``join_seeds`` and ``match_seeds``: hits and the capped count, with hot
   buckets, self hits and hashes on both sides of 2^31, and no bail-out;
@@ -32,7 +39,7 @@ from racon_tpu_torch import flags as port_flags
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.ops import chain as port_chain
 from racon_tpu_torch.ops import overlap_seed as port_seed
-from racon_tpu_torch.utils.simulate import simulate
+from racon_tpu_torch.utils.simulate import adversarial_chain_arena, simulate
 
 K = 15
 
@@ -82,6 +89,108 @@ def test_chain_dp_plain_matches_jax_kernel_and_oracle(S):
     assert got[B - 1].tolist() == [470, 2, 0, 100, 10, 100]
     # the lanes cover chains of one seed and long ones
     assert got[:, 1].min() == 0 and got[:, 1].max() > 8
+
+
+def _mirror_chain_dp(ts, qs, ns, k, wide=None):
+    """NumPy mirror of ``chain_dp_kernel``: groups of 16 threads (thread h
+    holds the ring entry of slot i-1-h), the two groups of a warp (lanes
+    2w and 2w+1) running to the larger of their counts, slot coordinates
+    loaded 16 at a time and broadcast, the key 16 cand + 15 - h reduced by
+    max (32-bit with INT_MIN for a predecessor that does not qualify while
+    (S + 1) k GAP_UNIT < 2^26, as rt_chain_dp picks them, else 64-bit with
+    16 NEG) and shifted right by 4 with no select, the ring shifted up by
+    one with thread 0 taking the slot, and the walk back from the lowest
+    best slot."""
+    H, NEG = port_chain.CHAIN_LOOKBACK, port_chain._NEG
+    mg, bd, gu = port_chain.MAX_GAP, port_chain.BAND_DIAG, port_chain.GAP_UNIT
+    B, S = ts.shape
+    if wide is None:
+        wide = (S + 1) * k * gu >= 1 << 26
+    none = NEG * 16 if wide else -(1 << 31)
+    start = k * gu
+    out = np.zeros((B, 6), np.int64)
+    for w0 in range(0, B, 2):
+        lanes = [b for b in (w0, w0 + 1) if b < B]
+        n_of = {b: min(int(ns[b]), S) for b in lanes}
+        n_warp = max(n_of.values())
+        for b in lanes:
+            n = n_of[b]
+            rt, rq, rf = [0] * H, [0] * H, [NEG] * H
+            best_f, end = NEG, 0
+            parent = [0] * S
+            loaded_t, loaded_q = [0] * H, [0] * H
+            for i in range(n_warp):
+                if i % H == 0:
+                    for h in range(H):
+                        if i + h < n:
+                            loaded_t[h] = int(ts[b, i + h])
+                            loaded_q[h] = int(qs[b, i + h])
+                tc, qc = loaded_t[i % H], loaded_q[i % H]
+                keys = []
+                for h in range(H):
+                    dt, dq = tc - rt[h], qc - rq[h]
+                    gap = abs(dq - dt)
+                    ok = (h < i and 1 <= dt <= mg and 1 <= dq <= mg
+                          and gap <= bd)
+                    key = ((rf[h] + min(k, dq, dt) * gu - gap) * 16
+                           + (H - 1 - h)) if ok else none
+                    assert wide or key < 1 << 31
+                    keys.append(key)
+                top = max(keys)
+                best = top >> 4
+                f = max(start, best)
+                if i < n:
+                    parent[i] = H - (top & 15) if best > start else 0
+                    if f > best_f:
+                        best_f, end = f, i
+                    rt = [tc] + rt[:-1]
+                    rq = [qc] + rq[:-1]
+                    rf = [f] + rf[:-1]
+            cnt, cur = 0, end
+            if n > 0:
+                while True:
+                    cnt += 1
+                    if parent[cur] == 0:
+                        break
+                    cur -= parent[cur]
+            out[b] = (best_f if n > 0 else NEG, cnt,
+                      qs[b, cur] if n > 0 else 0, qs[b, end],
+                      ts[b, cur] if n > 0 else 0, ts[b, end])
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("S,k", [(16, K), (23, K), (40, K), (64, K),
+                                 (64, 4096)])
+def test_chain_dp_adversarial_matches_jax_and_kernel_mirror(S, k):
+    """At k = 4096 the scores pass 2^26, where the kernel's 32-bit keys (16
+    times the score) would not fit: the mirror then takes the 64-bit
+    body's keys, as rt_chain_dp does."""
+    rng = np.random.default_rng(1000 + S)
+    B = 50
+    ts, qs, ns = adversarial_chain_arena(rng, S, B)
+    want = np.asarray(jax_chain._chain_kernel(ts, qs, ns, S=S, k=k))
+    got = port_chain.chain_dp_plain(torch.from_numpy(ts),
+                                    torch.from_numpy(qs),
+                                    torch.from_numpy(ns), k=k).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(_mirror_chain_dp(ts, qs, ns, k), got)
+    # the kernel's 64-bit body, which arenas past 2^26 / (k GAP_UNIT)
+    # slots take, on the same lanes
+    assert np.array_equal(_mirror_chain_dp(ts, qs, ns, k, wide=True), got)
+    assert set(ns.tolist()) >= {min(S, c) for c in (0, 1, 15, 16, 17, S)}
+    # the tie: two predecessors give one candidate, the nearer one wins
+    assert got[B - 1].tolist() == [16 * (k + min(k, 90)) - 10, 2, 0, 100,
+                                   10, 100]
+    # dead lanes report slot 0's coordinates; long chains, and chains cut
+    # at the gap limits, both occur
+    dead = ns == 0
+    assert (got[dead, 0] == port_chain._NEG).all()
+    assert np.array_equal(got[dead, 3], qs[dead, 0])
+    live = ns > 1
+    assert got[:, 1].max() >= 15 and (got[live, 1] < ns[live]).any()
+    # some chains skip over predecessors (noise seeds in between)
+    noisy = [b for b in range(B) if (b // 6) % 5 == 3 and ns[b] > 8]
+    assert any(got[b, 1] < ns[b] - 2 for b in noisy)
 
 
 def _rand_table(rng, n_seqs, n_entries, hash_space, base=0):

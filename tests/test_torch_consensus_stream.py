@@ -13,7 +13,13 @@ windows, wavefront steps, drops, device and host windows, the band) must
 equal JAX's. Stage B is forced by patching ``MAX_GROUP_WINDOWS`` in both
 packages' modules so that a bucket holds several groups, with
 ``STAGE_B_MAX_SURVIVOR_FRAC`` at 0 (every group with a survivor continues
-in place) and at 1 (the survivors are repacked).
+in place) and at 1 (the survivors are repacked). Windows dense in
+insertions (every layer carrying an insertion longer than the fold cap
+``K_INS`` at one backbone position, and more scattered) give JAX's
+insertion-overflow attribution: per window, the ``ins_overflow`` stat, the
+``consensus.ins_overflow*`` counters and the report's
+``dataflow.ins_overflow_windows``; an overflow tail forced into a group's
+fetch is attributed to its windows.
 """
 
 import numpy as np
@@ -23,9 +29,11 @@ import torch
 from racon_tpu.core.backends import CpuPoaConsensus
 from racon_tpu.core.window import Window as JaxWindow
 from racon_tpu.core.window import WindowType as JaxWindowType
+from racon_tpu.obs import metrics as jax_metrics
 from racon_tpu.ops import poa as jax_poa
 from racon_tpu_torch.core.backends import NativePoaConsensus
 from racon_tpu_torch.core.window import Window, WindowType
+from racon_tpu_torch.obs import metrics
 from racon_tpu_torch.ops import poa as tpoa
 from racon_tpu_torch.params import STATE_NAMES, refine_state_to_torch
 from tests.test_ragged import BASES, _mixed_windows
@@ -242,3 +250,67 @@ def test_refine_loop_early_exit_is_invisible():
     conv, dropped = out[False][8], out[False][9]
     assert bool(conv[:len(items)].all())
     assert int(dropped[0, 0]) > 0       # the rejected layer's rounds
+
+
+def _insertion_windows(seed, n_w=6, wl=120, depth=12, ins=12):
+    """Windows dense in insertions: every layer carries the same ``ins``
+    bases (longer than ``K_INS`` insertion slots) after one backbone
+    position, and a few more short insertions of its own."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for wi in range(n_w):
+        truth = BASES[rng.integers(0, 4, wl)]
+        shared = BASES[rng.integers(0, 4, ins)]
+        at = int(rng.integers(10, wl - 10))
+        win = JaxWindow(0, wi, JaxWindowType.TGS, truth.tobytes(),
+                        b"!" * wl)
+        for _ in range(depth):
+            layer = np.concatenate([truth[:at], shared, truth[at:]])
+            for pos in rng.integers(0, len(layer), 6):
+                layer = np.insert(layer, pos, BASES[rng.integers(0, 4, 3)])
+            win.add_layer(layer.tobytes(), None, 0, wl - 1)
+        out.append(win)
+    return out
+
+
+def test_insertion_overflow_attribution_matches_jax():
+    windows = _insertion_windows(5)
+    jax_metrics.clear("consensus.")
+    metrics.clear("consensus.")
+    ref = _jax_engine()
+    want = _run(ref, windows)
+    port = _port_engine()
+    assert _run(port, _port_copy(windows)) == want
+    assert port.stats["ins_overflow"] == ref.stats["ins_overflow"]
+    assert port.ins_overflow_by_window == ref.ins_overflow_by_window
+    for name in ("consensus.ins_overflow", "consensus.ins_overflow_windows"):
+        assert metrics.counter(name) == jax_metrics.counter(name), name
+    assert metrics.dataflow_summary()["ins_overflow_windows"] == \
+        jax_metrics.dataflow_summary()["ins_overflow_windows"]
+    # the shared insertion is longer than the slots a column keeps
+    assert any(len(w.consensus or b"") > 120 for w in windows)
+
+
+def test_insertion_overflow_tail_is_attributed_to_windows(monkeypatch):
+    """An overflow count forced into a group's fetched ``dropped`` (5 on
+    window row 1, 3 on row 2) is added to the ``ins_overflow`` stat,
+    attributed to those rows' windows and counted once a window."""
+    real = tpoa.fetch_pack
+
+    def forced(bcodes, blen, covs, ever, frozen, conv, dropped, *rest):
+        dropped = dropped.clone()
+        dropped[0, 2] += 8
+        dropped[0, 5] += 5
+        dropped[0, 6] += 3
+        return real(bcodes, blen, covs, ever, frozen, conv, dropped, *rest)
+
+    monkeypatch.setattr(tpoa, "fetch_pack", forced)
+    metrics.clear("consensus.")
+    port = _port_engine()
+    _run(port, _port_copy(_insertion_windows(9, n_w=4)))
+    assert port.stats["groups"] == 1
+    assert port.stats["ins_overflow"] == 8
+    assert sorted(port.ins_overflow_by_window.values()) == [3, 5]
+    assert set(port.ins_overflow_by_window) <= set(range(4))
+    assert metrics.counter("consensus.ins_overflow_windows") == 2
+    assert metrics.dataflow_summary()["ins_overflow_windows"] == 2

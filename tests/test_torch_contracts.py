@@ -40,9 +40,9 @@ from racon_tpu_torch.utils.simulate import simulate
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-# the JAX REPORT_BACKING entry the port leaves out: the per-window
-# ins-overflow attribution the port does not emit
-LEFT_OUT_BACKING = frozenset(("dataflow.ins_overflow_windows",))
+# the JAX REPORT_BACKING entries the port leaves out: none since the
+# port attributes the insertion overflow to windows
+LEFT_OUT_BACKING = frozenset()
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ from racon_tpu_torch.core.window import Window, WindowType
 from racon_tpu_torch.ops import chain, cuda_nw, overlap_seed, poa
 from racon_tpu_torch.ops.nw import CudaAligner
 from racon_tpu_torch.ops.poa import CudaPoaConsensus
+from racon_tpu_torch.utils.simulate import adversarial_chain_arena
 
 pytestmark = pytest.mark.cuda
 
@@ -318,6 +319,49 @@ def test_breaking_points_card_matches_cpu(cuda_device):
         assert (cpu[0] < 1 << 30).any()
 
 
+def _bp_streams(rng, B, S, max_len, w):
+    """Packed op streams ``[B, S/4]`` of random walks (M/I/D at 80/10/10%,
+    pad code 3 sprinkled inside and filling the tail, some walks past
+    (0, 0)) and their (n, m, first_rel, nb)."""
+    from racon_tpu_torch.ops.nw import window_geometry
+    codes = rng.choice(4, (B, S), p=(0.78, 0.1, 0.1, 0.02)).astype(np.uint8)
+    length = rng.integers(0, S + 1, B)
+    codes[np.arange(S)[None, :] >= length[:, None]] = 3
+    n = np.minimum((codes <= 1).sum(1), max_len).astype(np.int32)
+    m = np.minimum(((codes & 1) == 0).sum(1), max_len).astype(np.int32)
+    m[::5] = np.maximum(m[::5] // 2, 1)     # walks past (0, 0)
+    first_rel, nb = window_geometry(rng.integers(0, 10 ** 6, B), m, w)
+    packed = cuda_nw.pack_ops(torch.from_numpy(codes))
+    return [packed] + [torch.from_numpy(a) for a in (n, m, first_rel, nb)]
+
+
+@pytest.mark.parametrize("B,S,w,trim", [(37, 4096, 100, 0),
+                                        (64, 8192, 100, 0),
+                                        (9, 2048, 200, 3),
+                                        (130, 1024, 60, 0)])
+def test_breaking_points_kernel_matches_plain(cuda_device, B, S, w, trim):
+    """The CUDA kernel == breaking_points_plain on the same card tensors:
+    one and several 2048-step tiles, B not a multiple of the 4 pairs a
+    block takes, rows that end inside a lane's 16 bytes and are not 16 B
+    aligned (``trim``), NW over one 32-entry chunk (w 100 at 8192 steps:
+    NW 42)."""
+    from racon_tpu_torch.ops.nw import breaking_points, breaking_points_plain
+    max_len = S // 2
+    NW = max_len // w + 2
+    host = _bp_streams(np.random.default_rng(B + S), B, S, max_len, w)
+    if trim:
+        host[0] = host[0][:, :-trim].contiguous()
+    dev = [x.to(cuda_device) for x in host]
+    before = cuda_nw.LAUNCHES["breaking_points"]
+    got = breaking_points(*dev, w=w, NW=NW)
+    torch.cuda.synchronize()
+    assert cuda_nw.LAUNCHES["breaking_points"] == before + 1
+    want = breaking_points_plain(*dev, w=w, NW=NW)
+    for a, b in zip(got, want):
+        assert a.shape == (B, NW) and torch.equal(a, b)
+    assert (want[0] < 1 << 30).any()
+
+
 def test_aligner_breaking_points_card_matches_cpu(cuda_device):
     """CudaAligner.breaking_points_batch on the card == on the CPU, on its
     default ragged stream and band ladder (rungs 64 and 96 included)."""
@@ -462,6 +506,21 @@ def test_chain_dp_matches_plain(cuda_device, S, B):
     assert torch.equal(got, chain.chain_dp_plain(ts, qs, ns, k=15))
     assert torch.equal(got.cpu(), chain.chain_dp(ts.cpu(), qs.cpu(),
                                                  ns.cpu(), k=15))
+
+
+@pytest.mark.parametrize("S,B,k", [(40, 999, 15), (256, 130, 15),
+                                   (4096, 40, 15), (1024, 40, 4096)])
+def test_chain_dp_adversarial_matches_plain(cuda_device, S, B, k):
+    """The half-warp kernel == chain_dp_plain on adversarial arenas: S and
+    B not multiples of 16, S past chain.CHAIN_SMEM_SLOTS (the parent
+    offsets in device memory), and scores past the 32-bit keys ((S + 1) k
+    GAP_UNIT >= 2^26: the 64-bit body)."""
+    ts, qs, ns = (torch.from_numpy(x).to(cuda_device) for x in
+                  adversarial_chain_arena(np.random.default_rng(S), S, B))
+    got = chain.chain_dp(ts, qs, ns, k=k)
+    assert torch.equal(got, chain.chain_dp_plain(ts, qs, ns, k=k))
+    assert (S > chain.CHAIN_SMEM_SLOTS) == (S == 4096)
+    assert ((S + 1) * k * chain.GAP_UNIT >= 1 << 26) == (k == 4096)
 
 
 def test_overlapper_card_matches_cpu(cuda_device):

@@ -442,26 +442,39 @@ def test_beacons_read_across_packages(short_tmp, fast_fleet):
     assert not jax_registry.read_hosts(port_dir)["node-7"]["alive"]
 
 
+def _age(path, seconds):
+    """Set a lease file's mtime ``seconds`` into the past: a lease whose
+    heartbeats stopped that long ago."""
+    past = time.time() - seconds
+    os.utime(path, (past, past))
+
+
 def test_job_leases_match_jax_and_age_out(tmp_path):
     """String job ids and integer shard ids name JAX's lease files; a
     lease claimed with the keeper off stays held while heartbeats come by
-    hand, then ages out and exactly one of eight claimants breaks it."""
+    hand (each one undoes an aged mtime), then ages out and exactly one of
+    eight claimants breaks it, after which the old owner's heartbeat
+    reports the loss."""
     d = str(tmp_path)
     for sid in ("job_g1", "job_g12", 0, 7, 1234):
         assert lease_mod.lease_path(d, sid) == jax_lease.lease_path(d, sid)
     assert lease_mod.lease_path(d, 7).endswith("lease_0007.json")
-    ttl = 0.4
+    ttl = 30.0
     lease = lease_mod.try_claim(d, "job_g1", worker="h0", ttl_s=ttl,
                                 keeper=False)
     assert lease is not None and lease._keeper is None
     assert os.path.basename(lease.path) == "lease_job_g1.json"
-    assert lease_mod.read_lease(d, "job_g1")["worker"] == "h0"
-    for _ in range(4):
-        time.sleep(ttl / 2)
+    info = lease_mod.read_lease(d, "job_g1")
+    assert info["worker"] == "h0"
+    assert set(jax_lease.read_lease(d, "job_g1")) >= \
+        {"worker", "pid", "host", "claimed_unix"}
+    for _ in range(3):
+        _age(lease.path, ttl / 2)
         assert lease.heartbeat()
+        assert time.time() - os.stat(lease.path).st_mtime < ttl / 4
         assert lease_mod.try_claim(d, "job_g1", worker="h1", ttl_s=ttl,
                                    keeper=False) is None
-    time.sleep(ttl * 1.5)
+    _age(lease.path, 2 * ttl)
     won = []
     barrier = threading.Barrier(8)
 
@@ -476,15 +489,202 @@ def test_job_leases_match_jax_and_age_out(tmp_path):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=60)
+        assert not t.is_alive()
     assert len(won) == 1
     assert not lease.heartbeat() and lease.lost.is_set()
+    assert lease_mod.read_lease(d, "job_g1")["worker"] == won[0].worker
+    assert won[0].heartbeat()
+    assert not os.path.exists(lease.path + lease_mod.BREAK_SUFFIX)
+    lease.release()           # lost: the winner's file stays
     assert lease_mod.read_lease(d, "job_g1")["worker"] == won[0].worker
     won[0].release()
     assert not os.path.exists(won[0].path)
     kept = lease_mod.try_claim(d, 3, worker="w")
     assert kept is not None and kept._keeper is not None
     kept.release()
+
+
+def test_job_lease_reused_inode_is_lost(tmp_path, monkeypatch):
+    """A reclaimer's lease that the filesystem gives the broken lease's
+    inode number (forced: every stat in the lease module reports the old
+    inode) is still another claim: the old owner's heartbeat returns
+    False and its release leaves the reclaimer's file."""
+    d = str(tmp_path)
+    ttl = 30.0
+    old = lease_mod.try_claim(d, "job_g2", worker="h0", ttl_s=ttl,
+                              keeper=False)
+    old_ino = os.stat(old.path).st_ino
+    _age(old.path, 2 * ttl)
+    real_stat, real_fstat = os.stat, os.fstat
+
+    def same_ino(st):
+        fields = list(st)
+        fields[1] = old_ino
+        extra = {k: getattr(st, k) for k in dir(st)
+                 if k.startswith("st_") and k not in (
+                     "st_mode", "st_ino", "st_dev", "st_nlink", "st_uid",
+                     "st_gid", "st_size")}
+        return os.stat_result(fields, extra)
+
+    with monkeypatch.context() as m:
+        m.setattr(lease_mod.os, "stat",
+                  lambda *a, **k: same_ino(real_stat(*a, **k)))
+        m.setattr(lease_mod.os, "fstat",
+                  lambda fd: same_ino(real_fstat(fd)))
+        new = lease_mod.try_claim(d, "job_g2", worker="h1", ttl_s=ttl,
+                                  keeper=False)
+        assert new is not None
+        assert os.stat(new.path).st_ino == old_ino
+        assert not old.heartbeat() and old.lost.is_set()
+        assert new.heartbeat() and not new.lost.is_set()
+    old.release()
+    assert lease_mod.read_lease(d, "job_g2")["worker"] == "h1"
+    new.release()
+    assert not os.path.exists(new.path)
+
+
+def test_job_lease_break_has_one_winner(tmp_path, monkeypatch):
+    """The interleaving that let one break yield two winners, forced
+    through a hook on the breaker's first removal of the stale lease from
+    its path (an unlink, or a rename to a tombstone): while claimant A
+    breaks it, B tries to break it too (just before A's removal) and C
+    finds the path empty (just after it). Exactly one of the three holds
+    a lease, it is the one on disk, and the old owner has lost it."""
+    d = str(tmp_path)
+    ttl = 30.0
+    old = lease_mod.try_claim(d, "job_g3", worker="h0", ttl_s=ttl,
+                              keeper=False)
+    _age(old.path, 2 * ttl)
+    got = {}
+    hooked = []
+
+    def hook(real):
+        def remove(path, *a, **k):
+            if hooked or not str(path).endswith("lease_job_g3.json"):
+                return real(path, *a, **k)
+            hooked.append(path)
+            got["B"] = lease_mod.try_claim(d, "job_g3", worker="B",
+                                           ttl_s=ttl, keeper=False)
+            real(path, *a, **k)
+            got["C"] = lease_mod.try_claim(d, "job_g3", worker="C",
+                                           ttl_s=ttl, keeper=False)
+        return remove
+
+    with monkeypatch.context() as m:
+        m.setattr(lease_mod.os, "unlink", hook(os.unlink))
+        m.setattr(lease_mod.os, "rename", hook(os.rename))
+        got["A"] = lease_mod.try_claim(d, "job_g3", worker="A", ttl_s=ttl,
+                                       keeper=False)
+    assert hooked
+    won = [k for k, v in got.items() if v is not None]
+    assert len(won) == 1, got
+    (winner,) = won
+    assert lease_mod.read_lease(d, "job_g3")["worker"] == winner
+    assert got[winner].heartbeat()
+    assert not old.heartbeat() and old.lost.is_set()
+    assert [n for n in os.listdir(d)] == ["lease_job_g3.json"]
+    got[winner].release()
+
+
+def test_job_lease_break_lock_handover(tmp_path, monkeypatch):
+    """The break lock's handover, forced through a hook on ``flock``:
+    claimant B opens the lock file while A holds it, and before B's flock
+    lands A lets go (unlinking the file) and C takes a fresh lock file. B's
+    flock then succeeds on A's unlinked file, which B must see and give
+    up: only C holds the lock, on the file the path names."""
+    path = lease_mod.lease_path(str(tmp_path), "job_g4")
+    lock = path + lease_mod.BREAK_SUFFIX
+    a_fd = lease_mod._take_break_lock(path)
+    assert a_fd is not None and os.path.exists(lock)
+    real = lease_mod.fcntl
+    held = {}
+
+    class Hooked:
+        LOCK_EX, LOCK_NB = real.LOCK_EX, real.LOCK_NB
+
+        @staticmethod
+        def flock(fd, op):
+            if "C" not in held:
+                lease_mod.fcntl = real
+                lease_mod._drop_break_lock(path, a_fd)
+                held["C"] = lease_mod._take_break_lock(path)
+                lease_mod.fcntl = Hooked
+            return real.flock(fd, op)
+
+    with monkeypatch.context() as m:
+        m.setattr(lease_mod, "fcntl", Hooked)
+        b_fd = lease_mod._take_break_lock(path)
+    assert held["C"] is not None and b_fd is None
+    assert os.fstat(held["C"]).st_ino == os.stat(lock).st_ino
+    assert lease_mod._take_break_lock(path) is None
+    lease_mod._drop_break_lock(path, held["C"])
+    assert not os.path.exists(lock)
+
+
+_HOLD_LOCKS = (
+    "import fcntl, os, sys, time\n"
+    "fds = [os.open(p, os.O_CREAT | os.O_RDWR) for p in sys.argv[1:]]\n"
+    "for fd in fds:\n"
+    "    fcntl.flock(fd, fcntl.LOCK_EX)\n"
+    "print('held', flush=True)\n"
+    "time.sleep(600)\n")
+
+
+def test_job_lease_dead_breaker_lock(tmp_path):
+    """A claimant that dies holding a break lock (a process SIGKILLed
+    with the lock's flock held) blocks breaks only while it lives: then a
+    claim of the stale lease backs off, and a release gives up after its
+    bounded wait and leaves the lease; once it is dead, exactly one of
+    eight claimants breaks the stale lease, the release goes through, and
+    no lock file stays."""
+    d = str(tmp_path)
+    ttl = 30.0
+    old = lease_mod.try_claim(d, "job_g5", worker="h0", ttl_s=ttl,
+                              keeper=False)
+    _age(old.path, 2 * ttl)
+    live = lease_mod.try_claim(d, "job_g6", worker="h0", ttl_s=0.2,
+                               keeper=False)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _HOLD_LOCKS,
+         old.path + lease_mod.BREAK_SUFFIX,
+         live.path + lease_mod.BREAK_SUFFIX],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        assert proc.stdout.readline().strip() == "held"
+        assert lease_mod.try_claim(d, "job_g5", worker="h1", ttl_s=ttl,
+                                   keeper=False) is None
+        t0 = time.monotonic()
+        live.release()
+        assert time.monotonic() - t0 < 10.0
+        assert lease_mod.read_lease(d, "job_g6")["worker"] == "h0"
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+    won = []
+    barrier = threading.Barrier(8)
+
+    def claim(i):
+        barrier.wait()
+        got = lease_mod.try_claim(d, "job_g5", worker=f"c{i}", ttl_s=ttl,
+                                  keeper=False)
+        if got is not None:
+            won.append(got)
+
+    threads = [threading.Thread(target=claim, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert len(won) == 1
+    assert lease_mod.read_lease(d, "job_g5")["worker"] == won[0].worker
+    assert not old.heartbeat() and old.lost.is_set()
+    assert not os.path.exists(old.path + lease_mod.BREAK_SUFFIX)
+    won[0].release()
+    live.release()        # the dead holder's lock file is taken and removed
+    assert os.listdir(d) == []
 
 
 def test_cost_cache_fingerprint(short_tmp):
