@@ -218,6 +218,24 @@ another ``chain_dp.cu`` against this tree's.) Phases, one JSON line each:
              ``device_mem=`` lines, no host builds a library, and each
              stopped host's exit record must show K4, K2 and K3 launches
              (``launches_fleet``; its shapes join the ``unheld`` check);
+   chips   — one process on several cards, with the device list
+             ``[cuda:0, cuda:0]``: (a) the main phase's 1 Mbp polish with
+             both engines on ``get_mesh(devices=[cuda:0, cuda:0])`` (the
+             bucketed aligner through ``sharded_align``, the padded
+             consensus through ``sharded_refine_loop``; SHA-256 = the main
+             phase's); (b) ``ShardRunner(chips=2)`` on the shards phase's
+             4-contig genome with ``topology.local_devices`` substituted by
+             ``[cuda:0, cuda:0]`` in the phase (the single shot's bytes,
+             manifest ``device`` 0 and 1, workers ``#chip0`` and
+             ``#chip1``, ``devices`` rows 0 and 1); (c) the 1 Mbp genome
+             through two chip workers, whose plan marks its one dominant
+             contig ``MESH_DEVICE`` (the main phase's bytes, a ``mesh``
+             row). Each leg's wall, launches (counted from zero just
+             before it; K4, K2, K3 and ``breaking_points`` must be > 0)
+             and peak device bytes (under 80 GB); with several cards (a)
+             and (b) again over the real ones, else the line says they did
+             not run. Its shard-local launch shapes join the ``unheld``
+             check (``launches_chips``);
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -344,6 +362,7 @@ from racon_tpu_torch.ops import nw as nw_ops
 from racon_tpu_torch.ops import poa as poa_ops
 from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
+from racon_tpu_torch.exec.planner import MESH_DEVICE
 from racon_tpu_torch.obs import metrics
 from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points,
                                     breaking_points_plain, build_rows,
@@ -352,6 +371,7 @@ from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
                                      T_PAD, CudaPoaConsensus, bucket_geometry,
                                      sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
+from racon_tpu_torch.parallel import get_mesh, topology
 from racon_tpu_torch.utils.simulate import (_mutate, adversarial_chain_arena,
                                             write_inputs)
 
@@ -925,13 +945,14 @@ def unheld_shapes(path, held) -> list:
 
 
 def phase_kernels(dev, main, auto, shards, resident, resident_auto,
-                  workers, wrapper, serve, fleet):
+                  workers, wrapper, serve, fleet, chips):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
     shards phase (``shards``), the resident phases (``resident``,
     ``resident_auto``) and the child processes of the workers, wrapper,
     serve and fleet phases (``workers``, ``wrapper``, ``serve``,
-    ``fleet``) launched: every
+    ``fleet``) and the chips phase's shard-local launches (``chips``)
+    launched: every
     consensus (Lq, band) of any at its largest and smallest group (K3 at
     each; K2 at the largest group's geometry, off the main path), and each
     aligner bucket at the main path's largest chunk there, and once more
@@ -958,7 +979,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                                  + workers["consensus_group_shapes"]
                                  + wrapper["consensus_group_shapes"]
                                  + serve["consensus_group_shapes"]
-                                 + fleet["consensus_group_shapes"])
+                                 + fleet["consensus_group_shapes"]
+                                 + chips["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -987,7 +1009,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                         (workers, " (workers phase)"),
                         (wrapper, " (wrapper phase)"),
                         (serve, " (serve phase)"),
-                        (fleet, " (fleet phase)")):
+                        (fleet, " (fleet phase)"),
+                        (chips, " (chips phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 extra[k] = (Bc, path["aligner_div_obs"], label)
@@ -3085,6 +3108,192 @@ def overlap_split(dev, paths) -> dict:
     return out
 
 
+# ------------------------------------------------------------ several cards
+
+# the kernels the chips phase's legs must launch (the main path's, on the
+# mesh path's and the chip workers' shapes)
+CHIPS_KERNELS = ("nw_fwd_i16x2", "walk_ops", "walk_vote", "breaking_points")
+
+
+def _shard_local(shapes, nd: int) -> list:
+    """A mesh aligner's chunk shapes at the batch each shard launches:
+    (max_len, band, pairs, B / nd, steps)."""
+    return [(ml, bnd, c, B // nd, steps) for ml, bnd, c, B, steps in shapes]
+
+
+@contextlib.contextmanager
+def _local_devices(devs):
+    """``topology.local_devices`` substituted by ``devs`` (restored
+    after): the chip workers and the mesh of slot 0 then run on them."""
+    saved = topology.local_devices
+    topology.local_devices = lambda: list(devs)
+    try:
+        yield
+    finally:
+        topology.local_devices = saved
+
+
+def _chips_leg(dev, name, fn):
+    """One leg of the chips phase: launches counted from zero just before
+    it and read just after, its wall and the card's peak bytes."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    out.update(leg=name, wall_s=time.perf_counter() - t0,
+               launches=dict(cuda_nw.LAUNCHES),
+               peak_device_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def _mesh_polish(dev, paths, mesh):
+    """(a): the 1 Mbp polish with both engines on ``mesh``."""
+    polisher = create_polisher(paths["reads"], paths["overlaps"],
+                               paths["draft"], num_threads=8,
+                               aligner="cuda", consensus="cuda", device=dev,
+                               mesh=mesh)
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polisher.run())
+    al, co = polisher.aligner, polisher.consensus
+    nd = len(mesh.devices)
+    return dict(sha256=hashlib.sha256(fasta).hexdigest(),
+                mesh=[str(d) for d in mesh.devices],
+                aligner_mesh=len(al.mesh.devices),
+                consensus_mesh=len(co.mesh.devices),
+                aligner_chunks=al.stats["chunks"],
+                aligner_pairs_device=al.stats["device"],
+                consensus_groups=co.stats["groups"],
+                consensus_windows_device=co.stats["device_windows"],
+                aligner_chunk_shapes=_shard_local(al.stats["chunk_shapes"],
+                                                  nd),
+                consensus_group_shapes=list(co.stats["group_shapes"]),
+                aligner_div_obs=al._div_obs)
+
+
+def _chip_workers(triple, work, dev, chips):
+    """(b) and (c): ``ShardRunner(chips=...)`` on ``triple``."""
+    shutil.rmtree(work, ignore_errors=True)
+    runner = exec_pkg.ShardRunner(*triple, num_threads=8, aligner="cuda",
+                                  consensus="cuda", device=dev,
+                                  work_dir=str(work), keep_work_dir=True,
+                                  chips=chips)
+    buf = io.BytesIO()
+    summary = runner.run(buf)
+    slots = runner._chip_slots()
+    pinned = [s.engines for s in slots if s.engines is not None]
+    meshed = [s.mesh_engines for s in slots if s.mesh_engines is not None]
+    nd = len(slots)
+    shapes = _engine_shapes(pinned)
+    for al, co in meshed:
+        shapes["aligner_chunk_shapes"] += _shard_local(
+            al.stats["chunk_shapes"], nd)
+        shapes["consensus_group_shapes"] += co.stats["group_shapes"]
+    manifest = exec_pkg.load_manifest(str(work))
+    return dict(sha256=hashlib.sha256(buf.getvalue()).hexdigest(),
+                chips=summary["chips"], mode=summary["mode"],
+                plan_devices=list(runner.plan.devices),
+                workers=sorted({e.get("worker", "").rsplit("#", 1)[-1]
+                                for e in manifest["shards"]}),
+                manifest_devices=[e.get("device")
+                                  for e in manifest["shards"]],
+                engines=[e.get("engine") for e in manifest["shards"]],
+                devices_rows={k: {m: v[m] for m in ("shards", "mbp",
+                                                    "polish_s") if m in v}
+                              for k, v in summary["devices"].items()},
+                aligner_div_obs=(pinned or meshed)[0][0]._div_obs,
+                **shapes)
+
+
+def phase_chips(dev, main, shards, paths):
+    """One process on several cards (see the module docstring): (a) the 1
+    Mbp polish on a mesh naming this card twice, (b) two chip workers on
+    the shards phase's 4-contig genome, (c) the 1 Mbp genome through two
+    chip workers, whose plan mesh-marks its one dominant contig; then (a)
+    and (b) over the real cards when there are several."""
+    devs = [dev, dev]
+    mesh = get_mesh(devices=devs)
+    work = ROOT / "build" / "chips_work"
+    sim = shards["inputs"]
+    four = (sim["reads"], sim["overlaps"], sim["draft"])
+    one = (paths["reads"], paths["overlaps"], paths["draft"])
+    t0 = time.perf_counter()
+    legs = [_chips_leg(dev, "mesh", lambda: _mesh_polish(dev, paths, mesh))]
+    with _local_devices(devs):
+        legs.append(_chips_leg(dev, "chip_workers", lambda: _chip_workers(
+            four, work / "workers", dev, 2)))
+        legs.append(_chips_leg(dev, "mesh_dominant", lambda: _chip_workers(
+            one, work / "dominant", dev, 2)))
+    n_real = torch.cuda.device_count()
+    if n_real > 1:
+        real = get_mesh()
+        legs.append(_chips_leg(dev, "mesh_real", lambda: _mesh_polish(
+            dev, paths, real)))
+        legs.append(_chips_leg(dev, "chip_workers_real",
+                               lambda: _chip_workers(four,
+                                                     work / "workers_real",
+                                                     dev, n_real)))
+    out = dict(phase="chips", card=gpu_line(), devices=[str(d) for d in devs],
+               real_devices=n_real,
+               real_devices_run=n_real > 1,
+               note=("one card: (a) and (b) ran on [cuda:0, cuda:0] only; "
+                     "a second physical card's bytes are not shown"
+                     if n_real < 2 else
+                     f"(a) and (b) also ran over the {n_real} real cards"),
+               direction_budget=nw_ops.MAX_DIRS_BYTES,
+               seconds=time.perf_counter() - t0, legs=legs,
+               launches={k: sum(leg["launches"][k] for leg in legs)
+                         for k in cuda_nw.KERNELS},
+               peak_device_bytes=max(leg["peak_device_bytes"]
+                                     for leg in legs),
+               aligner_chunk_shapes=[s for leg in legs
+                                     for s in leg["aligner_chunk_shapes"]],
+               consensus_group_shapes=[s for leg in legs
+                                       for s in leg[
+                                           "consensus_group_shapes"]],
+               aligner_div_obs=legs[0]["aligner_div_obs"])
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes")}
+         | {"legs": [{k: v for k, v in leg.items()
+                      if not k.endswith("_shapes") and k != "aligner_div_obs"}
+                     for leg in legs]})
+    by = {leg["leg"]: leg for leg in legs}
+    want = {"mesh": main["fasta_sha256"],
+            "mesh_real": main["fasta_sha256"],
+            "chip_workers": shards["single_sha256"],
+            "chip_workers_real": shards["single_sha256"],
+            "mesh_dominant": main["fasta_sha256"]}
+    for leg in legs:
+        if leg["sha256"] != want[leg["leg"]]:
+            raise RuntimeError(f"chips phase: the {leg['leg']} leg did not "
+                               f"polish the single-device bytes")
+        missed = [k for k in CHIPS_KERNELS if leg["launches"][k] <= 0]
+        if missed:
+            raise RuntimeError(f"chips phase: the {leg['leg']} leg "
+                               f"launched no {missed}")
+    cw = by["chip_workers"]
+    if (cw["chips"] != 2 or cw["mode"] != "chips"
+            or set(cw["manifest_devices"]) != {0, 1}
+            or cw["workers"] != ["chip0", "chip1"]
+            or set(cw["devices_rows"]) != {"0", "1"}):
+        raise RuntimeError(f"chips phase: two chip workers did not both "
+                           f"run shards: {cw}")
+    dom = by["mesh_dominant"]
+    if (dom["plan_devices"] != [MESH_DEVICE]
+            or dom["manifest_devices"] != [MESH_DEVICE]
+            or "mesh" not in dom["devices_rows"]):
+        raise RuntimeError(f"chips phase: the dominant contig did not run "
+                           f"mesh-sharded: {dom}")
+    if out["peak_device_bytes"] >= 80 * 10 ** 9:
+        raise RuntimeError("chips phase: the card's peak passed 80 GB")
+    # later phases time the main path with spans off (the runner's legs
+    # turned them on)
+    obs.trace.deactivate()
+    return out
+
+
 def phase_overlap(dev, paths, mbp=0.2):
     """``chain.find_overlaps`` on a 0.2 Mbp genome (seed 23) with its
     tensors on the card and on the CPU (the plain versions of the seeding,
@@ -3567,6 +3776,8 @@ def main() -> int:
     t0 = time.perf_counter()
     record["fleet"] = phase_fleet(record["main"], record["shards"], paths)
     record["fleet"]["seconds"] = time.perf_counter() - t0
+    record["chips"] = phase_chips(dev, record["main"], record["shards"],
+                                  paths)
     t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
@@ -3585,7 +3796,8 @@ def main() -> int:
                                          record["workers"],
                                          record["wrapper"],
                                          record["serve"],
-                                         record["fleet"])
+                                         record["fleet"],
+                                         record["chips"])
     entries["chain_dp"] = chain_entry(launched, dev)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -3603,7 +3815,7 @@ def main() -> int:
     unheld = {p: unheld_shapes(record[p], held)
               for p in ("main", "main_auto", "shards", "resident",
                         "resident_auto", "workers", "wrapper", "serve",
-                        "fleet")}
+                        "fleet", "chips")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -3641,6 +3853,9 @@ def main() -> int:
             launches_serve=record["serve"]["launches"][name],
             # the two card hosts of the fleet phase that stopped
             launches_fleet=record["fleet"]["launches"][name],
+            # the chips phase's legs: the mesh on this card twice, two
+            # chip workers, the mesh-dominant plan
+            launches_chips=record["chips"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

@@ -18,11 +18,12 @@ the run; ``RACON_TPU_TRACE`` and ``RACON_TPU_RUN_REPORT`` are the first
 two's environment equivalents. The trace and the report are written on the
 error paths too. None of them changes an output byte.
 
-The streaming shard runner (``racon_tpu_torch.exec``, on one device):
-``--shards N``, ``--max-ram SIZE``, ``--resume``, ``--shard-dir DIR`` and
-``--workers N`` route the run through ``ShardRunner``, whose output bytes
-equal the one-shot run's; its run report is of kind ``exec`` with one row
-a shard. ``--workers N`` starts N-1 secondary processes of this CLI on
+The streaming shard runner (``racon_tpu_torch.exec``): ``--shards N``,
+``--max-ram SIZE``, ``--resume``, ``--shard-dir DIR``, ``--workers N`` and
+``--chips N`` (or ``RACON_TPU_CHIPS``) route the run through
+``ShardRunner``, whose output bytes equal the one-shot run's; its run
+report is of kind ``exec`` with one row a shard. ``--chips N`` drives N
+local cards from this process, one in-process chip worker a card. ``--workers N`` starts N-1 secondary processes of this CLI on
 the same device (``--exec-secondary``, hidden), which drain the same
 work dir and write no FASTA; this process merges, reaps them, and then
 removes a derived work dir and writes its trace and report.
@@ -30,8 +31,8 @@ removes a derived work dir and writes its trace and report.
 The resident polishing service (``racon_tpu_torch.serve``): ``--serve
 SOCK`` runs this process as a server on the unix socket SOCK (no
 positional inputs; ``-m/-x/-g/-b`` fix its engine profile, ``-c`` and
-``--cudaaligner-batches`` put its engines on ``--device``, ``--workers N``
-sizes its slot pool, ``--serve-budget`` bounds the in-flight footprint,
+``--cudaaligner-batches`` put its engines on ``--device``, ``--chips N``
+pins one slot a card, ``--workers N`` sizes its slot pool, ``--serve-budget`` bounds the in-flight footprint,
 ``--serve-dir`` makes it crash-safe, ``--fleet-dir`` registers it with a
 fleet); ``--submit SOCK`` sends this command's polish to such a server
 and streams the FASTA to stdout as the one-shot run would print it (the
@@ -151,6 +152,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "same way (implies the streaming shard runner; "
                         "with --serve it instead sizes the resident "
                         "worker-slot pool)")
+    p.add_argument("--chips", type=int, default=0, metavar="N",
+                   help="drive N local cards from this one process: the "
+                        "streaming shard runner starts one in-process "
+                        "chip worker per card, each with its own pinned "
+                        "engines, all draining one shard manifest through "
+                        "the lease protocol (implies the shard runner; "
+                        "default: every local card when a cuda backend "
+                        "runs on a multi-card host, 1 otherwise; N above "
+                        "the card count is clamped to it; "
+                        "RACON_TPU_CHIPS is the environment equivalent; "
+                        "with --serve: one pinned worker slot per card)")
     # the resident polishing service (racon_tpu_torch.serve): one warm
     # engine pool serves every job it runs
     p.add_argument("--serve", metavar="SOCK", default=None,
@@ -337,7 +349,7 @@ def _run_sharded(args, argv, trace_path, report_path, t_start, t0) -> int:
             max_ram_bytes=parse_ram(args.max_ram) if args.max_ram else 0,
             resume=args.resume, work_dir=args.shard_dir,
             secondary=secondary, defer_cleanup=workers > 1,
-            device=args.device)
+            device=args.device, chips=args.chips)
         if workers > 1 and not secondary:
             # the secondaries poll for the manifest this process is about
             # to publish, then claim shards on the same device
@@ -394,7 +406,9 @@ def _serve(args) -> int:
             else "native",
             aligner_batches=max(1, args.cudaaligner_batches),
             consensus_batches=max(1, args.cudapoa_batches),
-            # --workers N with --serve: N slots in the pool
+            chips=args.chips,
+            # --workers N with --serve: N slots in the pool (the chips'
+            # pinned slots first)
             workers=args.workers if args.workers > 1 else 0,
             budget_bytes=parse_ram(args.serve_budget)
             if args.serve_budget else 0,
@@ -432,6 +446,9 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     parser = build_parser()
     args = parser.parse_args(_preprocess_argv(list(argv)))
+    if args.chips < 0:
+        parser.error(f"--chips must be >= 0 (got {args.chips}); "
+                     f"0 means automatic")
     trace_path, report_path = _obs_paths(args)
     obs.begin(trace_path, report_path)
     t_start = time.time()
@@ -481,8 +498,11 @@ def main(argv=None) -> int:
             print(f"[racon_tpu::serve] error: {e}", file=sys.stderr)
             return 1
 
+    # RACON_TPU_CHIPS, the --chips environment equivalent, routes the run
+    # into the shard runner (where the chip scheduler lives) as --chips does
     if args.shards or args.max_ram or args.resume or args.shard_dir \
-            or args.workers > 1 or args.exec_secondary:
+            or args.workers > 1 or args.exec_secondary or args.chips \
+            or flags.get_int("RACON_TPU_CHIPS") > 0:
         return _run_sharded(args, list(argv), trace_path, report_path,
                             t_start, t0)
     try:

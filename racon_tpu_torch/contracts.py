@@ -92,6 +92,7 @@ METRICS: FrozenSet[str] = frozenset((
 # f"<prefix>{suffix}" families: the suffix is a runtime value
 DYNAMIC_METRIC_PREFIXES: Tuple[str, ...] = (
     "compile.",          # compile.<library> builds per library
+    "device.",           # device.<ordinal|mesh>.shards/.mbp/.polish_s/...
     "faults.",           # faults.<class> counts of the runner's ladder
     "faults.injected.",  # faults.injected.<site>
     "fleet.tenant.",     # fleet.tenant.<name>.placed/.done/...

@@ -87,13 +87,16 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     consensus="native",
                     aligner_batches: int = 1, consensus_batches: int = 1,
                     banded: bool = False, device="cuda", *,
-                    window_type=None, prefiltered_overlaps: bool = False,
+                    mesh=None, window_type=None,
+                    prefiltered_overlaps: bool = False,
                     evict_reads: bool = False,
                     stall_escalation: bool = False) -> "Polisher":
     """Factory with the reference's validation rules. ``aligner`` and
     ``consensus`` name a backend (``cuda`` or ``native``) or pass a
-    prebuilt engine; ``device`` is where the ``cuda``
-    backends run (``cpu`` runs the kernels' plain PyTorch versions).
+    prebuilt engine; ``device`` is where the ``cuda`` backends run
+    (``cpu`` runs the kernels' plain PyTorch versions);
+    ``mesh`` splits their batches over a device mesh (by default every
+    card of a multi-card host, ``backends._auto_mesh``).
 
     The keyword-only tail is the shard runner's (``racon_tpu_torch.exec``):
     ``window_type`` pins the NGS/TGS heuristic to the whole input's
@@ -123,12 +126,13 @@ def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
             f"'auto' for the first-party overlapper)")
     if isinstance(aligner, str):
         aligner = make_aligner(aligner, num_threads,
-                               num_batches=aligner_batches, device=device)
+                               num_batches=aligner_batches, device=device,
+                               mesh=mesh)
     if isinstance(consensus, str):
         consensus = make_consensus(consensus, match, mismatch, gap,
                                    num_threads,
                                    num_batches=consensus_batches,
-                                   banded=banded, device=device)
+                                   banded=banded, device=device, mesh=mesh)
     return Polisher(sequences_path, overlaps_path, target_path, type_,
                     window_length, quality_threshold, error_threshold, trim,
                     num_threads, aligner, consensus,
@@ -462,9 +466,11 @@ class Polisher:
         need = [o for o in overlaps
                 if not o.cigar and o.breaking_points is None]
         # the dispatch/fetch split of this run from the span timers: the
-        # calling thread's metric scope (a service job's) keeps concurrent
-        # runs of one process apart
-        scope = metrics.get_scope() or ""
+        # calling thread's metric scope (a service job's) and timer prefix
+        # (a chip worker's device.<ordinal>.) keep concurrent runs of one
+        # process apart
+        scope = ((metrics.get_scope() or "")
+                 + (obs.trace.get_timer_prefix() or ""))
         t_disp0 = metrics.timer_s(scope + "align.dispatch")
         t_fetch0 = metrics.timer_s(scope + "align.fetch")
         with obs.span("align", pairs=len(need)):

@@ -1,5 +1,5 @@
 """The streaming shard runner: bounded-memory, checkpointed polishing (the
-port of ``racon_tpu/exec`` on one device).
+port of ``racon_tpu/exec``).
 
 A single ``Polisher`` holds every read, overlap and window of a run at
 once. This package streams the target contigs through it in shards:
@@ -10,11 +10,12 @@ once. This package streams the target contigs through it in shards:
 - :mod:`.planner`: the contigs packed into memory-budgeted shards
   (``--shards``, ``--max-ram``, a target-byte cap) by an LPT over a
   resident-footprint cost model;
-- :mod:`.runner`: each shard through ``Polisher.run()`` on one engine pair
-  reused by every shard, its part written atomically with its size and
-  CRC32, a failed shard walked down the ladder (backoff, device-OOM
-  backpressure, the CPU engines when the primary pair is on the host
-  already, quarantine), and the parts merged back in target-file order;
+- :mod:`.runner`: each shard through ``Polisher.run()`` on its worker's
+  engine pair (reused by every shard the worker runs), its part written
+  atomically with its size and CRC32, a failed shard walked down the
+  ladder (backoff, device-OOM backpressure, the CPU engines when the
+  primary pair is on the host already, quarantine), and the parts merged
+  back in target-file order;
 - :mod:`.lease`: the O_EXCL lease files by which a worker owns a shard,
   so that several worker processes (``--workers``, or runs launched by
   hand on one work dir) drain one manifest;
@@ -27,8 +28,10 @@ faulted-then-recovered runs, and runs of several workers, write the
 single-shot run's bytes. The resident service takes its admission cost
 model (:func:`.planner.cached_job_cost`), its journal append
 (:func:`.manifest.append_durable`) and its slot type
-(:class:`.runner._ChipWorker`) from here. Left out (the JAX package keeps
-them): the chip scheduler and mesh shards.
+(:class:`.runner._ChipWorker`) from here. One process drives every
+local card through the runner's chip scheduler: one in-process chip
+worker a card, and a dominant contig's shard mesh-sharded over all of
+them (``racon_tpu_torch.parallel``).
 """
 
 from .index import RunIndex, build_index  # noqa: F401

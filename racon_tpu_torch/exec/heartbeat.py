@@ -71,6 +71,9 @@ class Heartbeat:
         self._lock = sanitize.named_lock("exec.heartbeat")
         self._done = 0
         self._mbp = 0.0
+        # polished megabases per worker id: concurrent chip workers' rates
+        # (the per[...] field)
+        self._per: dict = {}
         self._phase = "indexing"
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -100,14 +103,29 @@ class Heartbeat:
     @staticmethod
     def _short(key: str) -> str:
         """A worker id for display: the slot suffix of an in-process slot
-        (``host:123#w1`` -> ``w1``), the whole id otherwise."""
+        (``host:123#chip2`` -> ``chip2``), the whole id otherwise."""
         return key.rsplit("#", 1)[-1]
 
-    def add_mbp(self, mbp: float) -> None:
-        """Credit polished megabases (a re-queued shard's retraction is
-        negative; the total stays >= 0)."""
+    def add_mbp(self, worker_key: Optional[str], mbp: float) -> None:
+        """Credit ``mbp`` polished megabases to ``worker_key`` (a chip
+        worker's id, another process's identity). A re-queued shard's
+        retraction is negative; each key and the total stay >= 0."""
+        key = worker_key or "?"
         with self._lock:
+            self._per[key] = max(0.0, self._per.get(key, 0.0) + mbp)
             self._mbp = max(0.0, self._mbp + mbp)
+
+    def _per_worker_str(self, dt: float) -> str:
+        """`` per[chip0=0.1200,chip1=0.1100 Mbp/s]`` once more than one
+        worker has polished (empty otherwise: a single worker's line keeps
+        its format)."""
+        with self._lock:
+            per = dict(self._per)
+        if len(per) < 2:
+            return ""
+        rates = ",".join(f"{self._short(k)}={v / dt:.4f}"
+                         for k, v in sorted(per.items()))
+        return f" per[{rates} Mbp/s]"
 
     def emit(self, tag: str = "heartbeat") -> None:
         with self._lock:
@@ -117,7 +135,8 @@ class Heartbeat:
         print(f"[racon_tpu::exec] {tag}{who}: "
               f"shard {done}/{self.n_shards} "
               f"({phase}) {mbp:.2f} Mbp in {dt:.1f}s "
-              f"({mbp / dt:.4f} Mbp/s) "
+              f"({mbp / dt:.4f} Mbp/s)"
+              f"{self._per_worker_str(dt)} "
               f"peak_rss={metrics.peak_rss_bytes() >> 20}MB "
               f"pack[{pack_summary_str()}] "
               f"queue[{queue_summary_str()}]",

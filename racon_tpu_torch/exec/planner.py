@@ -1,5 +1,5 @@
 """Memory-budgeted shard planning: an LPT bin-pack of target contigs (the
-port of ``racon_tpu/exec/planner.py`` without its chip-count mode).
+port of ``racon_tpu/exec/planner.py``).
 
 The cost model is a resident-footprint estimate per contig, in bytes:
 
@@ -26,6 +26,18 @@ shard count grows until every bin fits), or a cap on target bytes a
 shard (the wrapper's ``--split``). A contig whose cost alone exceeds the
 budget gets a shard of its own and a warning: splitting a contig would
 break its window stitching.
+
+Device topology: with ``n_devices > 1`` (in-process chip workers) the plan
+knows the cards. A run with no sizing flag plans ``SHARDS_PER_CHIP x
+n_devices`` shards (mode ``chips``; more than one a card lets the LPT
+rebalance stragglers), and every plan LPT-assigns its shards over the cards
+(:func:`assign_devices`, kept per shard in the plan and the manifest as an
+advisory preference: a chip worker drains its own shards first and steals
+the rest through the leases). A single-contig shard whose cost exceeds the
+balanced per-card load by ``MESH_DOMINANT_FACTOR`` would be the run's
+straggler on one card; it is marked ``device = MESH_DEVICE`` instead and
+runs mesh-sharded over all of the run's cards (``sharded_align`` and
+``sharded_refine_loop``).
 """
 
 from __future__ import annotations
@@ -43,6 +55,13 @@ from ..utils.logger import warn
 from .index import RunIndex
 
 _MIN_AVAIL = 64 << 20  # floor of budget - base_rss before the warning
+# shards a card when a multi-card run gives no sizing flag
+SHARDS_PER_CHIP = 2
+# a lone contig whose cost exceeds the balanced per-card load by this factor
+# runs mesh-sharded over all cards instead of holding one card for longer
+# than the rest of the run
+MESH_DOMINANT_FACTOR = 1.5
+MESH_DEVICE = -1  # ShardPlan.devices marker: mesh over all cards
 
 # a .gz input's resident cost follows its inflated bytes; genomic FASTA,
 # FASTQ and PAF compress about 4:1, so admission multiplies a gzipped
@@ -126,13 +145,15 @@ def parse_ram(text: str) -> int:
 class ShardPlan:
     shards: List[List[int]]               # contig indices, ascending
     costs: List[int]                      # the cost of each bin
-    mode: str                             # "shards" | "max-ram" | "split"
+    mode: str                             # "shards"|"max-ram"|"split"|"chips"
     budget_bytes: int = 0                 # the process budget (max-ram)
     avail_bytes: int = 0                  # budget - base_rss
     contig_cost: np.ndarray = field(
         default_factory=lambda: np.zeros(0, np.int64))
-    # each shard's advisory device (parallel to ``shards``); empty on one
-    # device, so the manifest entries carry no "device" key
+    # each shard's advisory card (parallel to ``shards``): an ordinal >= 0
+    # or MESH_DEVICE. Process-local (a worker re-derives it for its own
+    # cards after adopting a plan); empty on one card, so the manifest
+    # entries carry no "device" key
     devices: List[int] = field(default_factory=list)
 
     @property
@@ -165,20 +186,40 @@ def _lpt(costs: np.ndarray, n_bins: int) -> List[List[int]]:
 
 
 def assign_devices(bins: List[List[int]], cost: np.ndarray,
-                   n_devices: int = 1) -> List[int]:
-    """Each shard's advisory device. The port drives one device, which
-    needs no assignment: the empty list, which keeps the ``device`` key
-    out of the manifest entries as on the JAX package's single-chip runs
-    (its LPT over chips and mesh marker come with multi-GPU, ROADMAP
-    Queue 1 item 9)."""
-    if n_devices != 1:
-        raise ValueError(f"shard plans cover one device, not {n_devices}")
-    return []
+                   n_devices: int) -> List[int]:
+    """Each shard's advisory card: mesh-mark the dominant single-contig
+    shards, then LPT the rest over the cards (empty on one card, so the
+    manifest entries carry no ``device`` key).
+
+    Deterministic from (bins, cost, n_devices), so every chip worker, and
+    a worker that adopted the plan from the manifest, derives the same
+    assignment for its own topology."""
+    if n_devices <= 1 or not bins:
+        return []
+    shard_cost = np.asarray(
+        [sum(int(cost[ci]) for ci in b) for b in bins], np.int64)
+    per_chip = float(shard_cost.sum()) / n_devices
+    devices = [0] * len(bins)
+    rest: List[int] = []
+    for si, b in enumerate(bins):
+        if len(b) == 1 and shard_cost[si] > MESH_DOMINANT_FACTOR * per_chip:
+            # splitting a contig would break its window stitching: its
+            # batches are mesh-sharded over every card instead
+            devices[si] = MESH_DEVICE
+        else:
+            rest.append(si)
+    loads = np.zeros(n_devices, np.int64)
+    for si in sorted(rest, key=lambda s: (-int(shard_cost[s]), s)):
+        d = int(np.argmin(loads))
+        devices[si] = d
+        loads[d] += int(shard_cost[si])
+    return devices
 
 
 def plan_shards(index: RunIndex, n_shards: int = 0, max_ram_bytes: int = 0,
                 max_target_bytes: int = 0, base_rss: int = 0,
-                n_devices: int = 1) -> ShardPlan:
+                n_devices: int = 1,
+                shards_per_chip: int = SHARDS_PER_CHIP) -> ShardPlan:
     n_contigs = len(index.targets)
     t_bases = np.fromiter((t.bases for t in index.targets), np.int64,
                           n_contigs)
@@ -225,6 +266,13 @@ def plan_shards(index: RunIndex, n_shards: int = 0, max_ram_bytes: int = 0,
                 and len(b) > 1 for b in bins):
             n += 1
             bins = _lpt(t_bases, n)
+        avail = budget = 0
+    elif n_devices > 1:
+        # no sizing flag, several cards: k x cards shards, so one run
+        # keeps every card busy
+        mode = "chips"
+        n = max(1, min(max(1, shards_per_chip) * n_devices, n_contigs))
+        bins = _lpt(cost, n)
         avail = budget = 0
     else:
         mode = "shards"

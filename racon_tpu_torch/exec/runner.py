@@ -1,12 +1,12 @@
-"""ShardRunner: a checkpointed, crash-safe streaming polish on one device
-(the port of ``racon_tpu/exec/runner.py`` without its chip scheduler and
-mesh engines). Several worker processes may drain one work directory.
+"""ShardRunner: a checkpointed, crash-safe streaming polish (the port of
+``racon_tpu/exec/runner.py``). Several worker processes, and several
+in-process chip workers, may drain one work directory.
 
 - **Shards**: the index pass (:mod:`.index`) and the plan (:mod:`.planner`)
   cut the target contigs into shards; each shard's inputs are copied out
   of the original files by byte range and polished by a fresh
-  ``Polisher`` on the runner's one engine pair, built once and reused by
-  every shard.
+  ``Polisher`` on its worker's engine pair, built once and reused by
+  every shard the worker runs.
 - **Leases and the manifest**: the worker claims each shard through its
   lease file (:mod:`.lease`) and records every transition in the shard's
   state file and the manifest snapshot (:mod:`.manifest`), so
@@ -32,6 +32,16 @@ mesh engines). Several worker processes may drain one work directory.
   primary's manifest instead of planning, never verifies or merges the
   parts and never removes the work dir; ``defer_cleanup`` leaves the
   removal to the caller, which reaps its secondaries first.
+- **Chip scheduler**: one process drives every local card. With a
+  ``cuda`` backend on a multi-card host (or ``--chips N``), the runner
+  starts one in-process chip worker per card, each with its own engine
+  pair pinned to its card, and the workers drain the same manifest
+  through the same leases (thread ``racon-chipK``, worker id
+  ``...#chipK``). The plan's advisory card assignment orders each
+  worker's walk (its own shards first, then the others'); a shard marked
+  ``MESH_DEVICE`` (one contig dominating the run) is run by slot 0 on the
+  mesh engines, its batches split over all of the run's cards.
+  Device-OOM backpressure acts on the failing worker's engines only.
 """
 
 from __future__ import annotations
@@ -42,25 +52,29 @@ import json
 import os
 import shutil
 import sys
+import threading
 import time
 import traceback
 import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from .. import faults, flags, obs
+from .. import faults, flags, obs, sanitize
 from ..core.backends import make_aligner, make_consensus
 from ..core.polisher import PolisherType, create_polisher
 from ..device import resolve
 from ..io import parsers
 from ..obs import metrics, report as obs_report
+from ..parallel import get_mesh, topology
+from ..parallel.topology import ChipSlot
 from ..utils.logger import warn
 from . import heartbeat as hb
 from . import lease as lease_mod
 from . import manifest as mf
 from .index import RunIndex, build_index, build_index_auto
-from .planner import ShardPlan, plan_shards
+from .planner import MESH_DEVICE, ShardPlan, assign_devices, plan_shards
 
 # verification rounds before a part that keeps failing is a hard error
 # (each round polishes the shard again)
@@ -87,35 +101,47 @@ def _terminal(entry: dict) -> bool:
 
 
 class _ChipWorker:
-    """One executor slot: a worker identity, the primary engine pair on
-    the profile's ``device`` and the ladder's host pair, each built at
-    first use and reused by every shard or job the slot runs.
+    """One executor slot: a worker identity (suffixed ``#chipK`` when the
+    slot is pinned, so leases and manifest rows attribute work per card),
+    the primary engine pair on the slot's card (or on the profile's
+    ``device`` when unpinned), the ladder's host pair and, for slot 0
+    only, the mesh engines that run the plan's mesh-marked shards over all
+    of the run's cards. Each pair is built at first use and reused by
+    every shard or job the slot runs. A run without the chip scheduler
+    has exactly one unpinned slot whose worker id is the profile's own.
 
     ``profile`` is duck-typed: anything carrying the engine recipe
     (``num_threads``, ``match``/``mismatch``/``gap``, ``banded``,
     ``aligner_backend``/``consensus_backend``, ``aligner_batches``/
-    ``consensus_batches``, ``device``) and a ``worker`` identity.
-    :class:`ShardRunner` passes itself; the resident polishing service
-    (``racon_tpu_torch.serve``) passes its ``PolishServer``, one slot per
-    concurrent job, each with its own engine pair. Unpinned: every slot
-    runs on the profile's one device (pinned per-chip slots and mesh
-    engines come with multi-GPU)."""
+    ``consensus_batches``, ``device``), a ``worker`` identity and, for the
+    mesh slot, ``_chip_slots()``. :class:`ShardRunner` passes itself; the
+    resident polishing service (``racon_tpu_torch.serve``) passes its
+    ``PolishServer``, one slot per card or concurrent job."""
 
-    def __init__(self, profile, ordinal: int = 0):
+    def __init__(self, profile, slot: Optional[ChipSlot] = None):
         self.profile = profile
-        self.ordinal = ordinal
-        self.worker = profile.worker
+        self.slot = slot if slot is not None else ChipSlot(0, None)
+        self.ordinal = self.slot.ordinal
+        # a slot with a device is pinned to it
+        self.device = self.slot.device
+        self.worker = (f"{profile.worker}#{self.slot.key}"
+                       if self.device is not None else profile.worker)
+        self.can_mesh = self.ordinal == 0
         self.engines = None
         self.cpu_engines = None
+        self.mesh_engines = None
         # the service's supervision handle: the job this slot runs (set
         # by the scheduler under its lock, read by the supervisor when the
         # slot's thread dies)
         self.current_job = None
 
-    def get_engines(self, cpu: bool):
-        """The primary pair (``aligner``/``consensus`` on the profile's
-        ``device``), or with ``cpu`` the ladder's native host pair. One
-        thread drives a slot, so the caches take no lock."""
+    def get_engines(self, cpu: bool, mesh: bool = False):
+        """The primary pair (``aligner``/``consensus`` on the slot's card,
+        pinned, or on the profile's ``device``), with ``cpu`` the ladder's
+        native host pair, with ``mesh`` the pair over a mesh of every
+        slot's card. One thread drives a slot (the service builds every
+        slot's pair before its threads start), so the caches take no
+        lock."""
         r = self.profile
         if cpu:
             if self.cpu_engines is None:
@@ -124,33 +150,54 @@ class _ChipWorker:
                     make_consensus("native", r.match, r.mismatch, r.gap,
                                    r.num_threads))
             return self.cpu_engines
+        if mesh:
+            if self.mesh_engines is None:
+                # the run's cards, not every visible one: a --chips 2 run
+                # on an 8-card host leaves the other six alone
+                mesh_obj = get_mesh(devices=[w.device
+                                             for w in r._chip_slots()])
+                self.mesh_engines = (
+                    make_aligner(r.aligner_backend, r.num_threads,
+                                 num_batches=r.aligner_batches,
+                                 mesh=mesh_obj),
+                    make_consensus(r.consensus_backend, r.match, r.mismatch,
+                                   r.gap, r.num_threads,
+                                   num_batches=r.consensus_batches,
+                                   banded=r.banded, mesh=mesh_obj))
+            return self.mesh_engines
         if self.engines is None:
+            pinned = self.device is not None
+            device = self.device if pinned else r.device
             self.engines = (
                 make_aligner(r.aligner_backend, r.num_threads,
                              num_batches=r.aligner_batches,
-                             device=r.device),
+                             device=device),
                 make_consensus(r.consensus_backend, r.match, r.mismatch,
                                r.gap, r.num_threads,
                                num_batches=r.consensus_batches,
-                               banded=r.banded, device=r.device))
+                               banded=r.banded, device=device,
+                               pinned=pinned))
         return self.engines
 
     def primary_on_card(self) -> bool:
-        """Whether the primary pair launches kernels on the card. Then the
+        """Whether the primary pair launches kernels on a card. Then the
         ladder has no CPU rung: the card's work never moves to the host
         engines."""
         r = self.profile
+        device = self.device if self.device is not None else r.device
         return "cuda" in (r.aligner_backend, r.consensus_backend) \
-            and resolve(r.device).type == "cuda"
+            and resolve(device).type == "cuda"
 
-    def reduce_capacity(self) -> bool:
-        """Device-OOM backpressure on this slot's primary engines only:
-        each that has the knob halves its capacity. False when none could
-        (not built, host engines, or both at their floor)."""
-        if self.engines is None:
+    def reduce_capacity(self, mesh: bool = False) -> bool:
+        """Device-OOM backpressure on this slot's primary (or mesh) engines
+        only, per card and not per process: each that has the knob halves
+        its capacity. False when none could (not built, host engines, or
+        both at their floor)."""
+        engines = self.mesh_engines if mesh else self.engines
+        if engines is None:
             return False
         reduced = False
-        for eng in self.engines:
+        for eng in engines:
             shrink = getattr(eng, "reduce_capacity", None)
             if shrink is not None and shrink():
                 reduced = True
@@ -177,12 +224,12 @@ class ShardRunner:
                  resume: bool = False, work_dir: Optional[str] = None,
                  keep_work_dir: Optional[bool] = None,
                  secondary: bool = False, defer_cleanup: bool = False,
-                 device="cuda"):
+                 device="cuda", chips: int = 0):
         self.sequences = os.path.abspath(sequences)
         # ``auto``: run() writes the overlapper's PAF into the work dir
         # and points self.overlaps at it before indexing
         self.overlaps = (parsers.AUTO_OVERLAPS
-                         if parsers.is_auto_overlaps(overlaps)
+                         if parsers.overlaps_mode(overlaps) == "auto"
                          else os.path.abspath(overlaps))
         self.target_sequences = os.path.abspath(target_sequences)
         self.type = type_
@@ -220,13 +267,27 @@ class ShardRunner:
         self.plan: Optional[ShardPlan] = None
         self.summary: Dict = {}
         self.report: Dict = {}     # the run report (also in work_dir)
-        # the slot holding the primary engine pair and the CPU rung's,
-        # built at first use and reused by every shard
-        self._slot = _ChipWorker(self)
+        # in-process chip workers: 0 = automatic (every local card when a
+        # cuda backend runs on a multi-card host), 1 pins card 0
+        self.chips_requested = chips
+        # the executor slots (_chip_slots), each holding its primary
+        # engine pair and the CPU rung's, built at first use and reused
+        # by every shard it runs
+        self._slots: Optional[List[_ChipWorker]] = None
         self._retry_quarantined: set = set()  # resume: claimable again
         self._initially_done: set = set()
         self._announced: set = set()
         self._beat: Optional[hb.Heartbeat] = None
+        # the chip workers share the manifest: entry changes and snapshot
+        # writes (exec.manifest), the terminal-shard notes (exec.notes)
+        # and the state-scan cache (exec.states) each take a named lock,
+        # the lock-order witness's under RACON_TPU_SANITIZE=1
+        self._mf_lock = sanitize.named_lock("exec.manifest")
+        self._note_lock = sanitize.named_lock("exec.notes")
+        # a dying chip worker sets this, so its siblings stop polling
+        self._abort = threading.Event()
+        self._states_lock = sanitize.named_lock("exec.states")
+        self._states_cache: Tuple[float, Dict[int, dict]] = (-1e9, {})
 
     # ------------------------------------------------------------ identity
 
@@ -252,34 +313,60 @@ class ShardRunner:
                 "mismatch": self.mismatch, "gap": self.gap,
                 "include_unpolished": self.include_unpolished}
 
+    # ---------------------------------------------------------- chip slots
+
+    def _chip_slots(self) -> List[_ChipWorker]:
+        """This run's in-process executor slots, resolved once
+        (:func:`~racon_tpu_torch.parallel.topology.executor_slots`). A
+        ``--workers`` run spans processes on either side (the spawned
+        secondaries, or the primary that shares the host's cards with
+        them), so it never engages the scheduler on its own."""
+        if self._slots is not None:
+            return self._slots
+        # defer_cleanup marks the primary of a --workers spawn
+        slots = [_ChipWorker(self, s) for s in topology.executor_slots(
+            self.chips_requested,
+            (self.aligner_backend, self.consensus_backend), self.device,
+            multi_process=self.secondary or self.defer_cleanup)]
+        if len(slots) > 1:
+            kind = topology.Topology(len(slots)).describe()["device_kind"]
+            _eprint(f"chip scheduler: {len(slots)} in-process chip workers "
+                    f"({kind})")
+        self._slots = slots
+        return slots
+
     # ------------------------------------------------------------- engines
 
     @property
     def engines(self):
-        return self._slot.engines
+        return self._chip_slots()[0].engines
 
     @property
     def cpu_engines(self):
-        return self._slot.cpu_engines
+        return self._chip_slots()[0].cpu_engines
 
     def get_engines(self, cpu: bool):
-        """The primary pair (``aligner``/``consensus`` on ``device``), or
-        with ``cpu`` the ladder's native host pair (the slot's)."""
-        return self._slot.get_engines(cpu)
+        """The first slot's primary pair (``aligner``/``consensus`` on
+        ``device``), or with ``cpu`` its native host pair."""
+        return self._chip_slots()[0].get_engines(cpu)
 
     def primary_on_card(self) -> bool:
-        """Whether the primary pair launches kernels on the card. Then the
+        """Whether the primary pair launches kernels on a card. Then the
         ladder has no CPU rung: a fault there quarantines the shard rather
         than move the card's work to the host engines."""
-        return self._slot.primary_on_card()
+        return self._chip_slots()[0].primary_on_card()
 
-    def reduce_capacity(self) -> bool:
-        """Device-OOM backpressure on the primary engines (built first if
-        the fault came before the first polish): each that has the knob
-        halves its capacity. False when none could (host engines, or both
-        at their floor)."""
-        self._slot.get_engines(cpu=False)
-        return self._slot.reduce_capacity()
+    def reduce_capacity(self, worker: Optional[_ChipWorker] = None,
+                        mesh: bool = False) -> bool:
+        """Device-OOM backpressure on the engines that failed: ``worker``'s
+        (the first slot's by default) mesh pair, or its primary pair
+        (built first if the fault came before its first polish). Each that
+        has the knob halves its capacity. False when none could (host
+        engines, or both at their floor)."""
+        worker = worker if worker is not None else self._chip_slots()[0]
+        if not mesh:
+            worker.get_engines(cpu=False)
+        return worker.reduce_capacity(mesh=mesh)
 
     # ----------------------------------------------------------------- run
 
@@ -317,7 +404,8 @@ class ShardRunner:
             self.plan = plan_shards(self.index, self.n_shards,
                                     self.max_ram_bytes,
                                     self.max_target_bytes,
-                                    base_rss=base_rss)
+                                    base_rss=base_rss,
+                                    n_devices=len(self._chip_slots()))
         os.makedirs(self.work_dir, exist_ok=True)
         # a valid resume manifest carries the stored plan, which wins (a
         # --max-ram plan depends on this process's RSS)
@@ -363,6 +451,8 @@ class ShardRunner:
         self.summary = {
             "n_shards": n, "mode": self.plan.mode,
             "worker": self.worker,
+            "chips": len(self._chip_slots()),
+            "devices": metrics.device_summary(),
             "mbp_total": round(total_mbp, 4),
             "mbp_polished": round(mbp_done, 4),
             "wall_s": round(wall, 2),
@@ -471,6 +561,10 @@ class ShardRunner:
         if sorted(ci for s in stored for ci in s) == \
                 list(range(len(self.index.targets))):
             self.plan.shards = stored
+            # the card assignment is process-local: derived again from the
+            # adopted shards for this process's cards
+            self.plan.devices = assign_devices(
+                stored, self.plan.contig_cost, len(self._chip_slots()))
             return True
         warn("manifest shard plan does not cover this input's "
              "contigs — re-running every shard")
@@ -512,9 +606,13 @@ class ShardRunner:
 
     def _save(self, entry: dict, manifest: dict) -> None:
         """Durably record one owned shard's state, then the manifest
-        snapshot (state first: it is the truth)."""
-        mf.save_shard_state(self.work_dir, entry)
-        mf.save_manifest(self.work_dir, manifest)
+        snapshot (state first: it is the truth). Under ``exec.manifest``:
+        the snapshot serializes ``manifest`` while sibling chip workers
+        change entries in place, and interleaved writes would invert the
+        state-then-snapshot order."""
+        with self._mf_lock:
+            mf.save_shard_state(self.work_dir, entry)
+            mf.save_manifest(self.work_dir, manifest)
 
     def _save_owned(self, entry: dict, manifest: dict, claim) -> None:
         """A terminal write, made only while the lease is still ours: a
@@ -529,29 +627,123 @@ class ShardRunner:
                  f"worker's state stands)")
             fresh = mf.load_shard_state(self.work_dir, int(entry["id"]))
             if fresh is not None:
-                entry.clear()
-                entry.update(fresh)
+                with self._mf_lock:
+                    entry.clear()
+                    entry.update(fresh)
             return
         self._save(entry, manifest)
 
     # ---------------------------------------------------------- drain loop
 
     def _drain(self, manifest: dict, beat) -> None:
-        """Claim and run shards until every one is terminal. A shard
-        leased by another live worker is waited on: its lease expires
-        after the TTL if that worker died, and the next pass reclaims
-        it."""
+        """Drain the manifest with every slot: one slot runs the claim loop
+        inline; with the chip scheduler engaged, one thread a chip worker
+        runs the same loop, and the lease files are all the coordination
+        there is (in-process chips, ``--workers`` processes and workers
+        launched by hand interleave on one manifest)."""
+        slots = self._chip_slots()
+        if len(slots) == 1:
+            self._drain_loop(slots[0], manifest, beat)
+            return
+        self._abort.clear()
+        errors: List[BaseException] = []
+
+        def body(worker: _ChipWorker) -> None:
+            try:
+                self._drain_loop(worker, manifest, beat)
+            except BaseException as e:  # re-raised after the join
+                errors.append(e)
+                # the siblings stop polling for shards only the dead
+                # worker could run (a dead primary's mesh shard)
+                self._abort.set()
+
+        threads = [threading.Thread(target=body, args=(w,),
+                                    name=f"racon-{w.slot.key}",
+                                    daemon=True)
+                   for w in slots[1:]]
+        for t in threads:
+            t.start()
+        body(slots[0])
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    def _shard_order(self, worker: _ChipWorker) -> List[int]:
+        """The order a slot walks the plan: the mesh-marked shards first
+        (slot 0 only; they are the largest by construction), then the
+        slot's own, then the others' (stealing through the leases keeps a
+        fast card from idling behind a slow one)."""
+        n = self.plan.n_shards
+        devs = self.plan.devices
+        if not devs:
+            return list(range(n))
+        mesh = [si for si in range(n) if devs[si] == MESH_DEVICE]
+        mine = [si for si in range(n) if devs[si] == worker.ordinal]
+        rest = [si for si in range(n)
+                if devs[si] != MESH_DEVICE and devs[si] != worker.ordinal]
+        return (mesh if worker.can_mesh else []) + mine + rest
+
+    def _drain_loop(self, worker: _ChipWorker, manifest: dict,
+                    beat) -> None:
+        """Claim and run shards until every one is terminal, on the slot's
+        card (its current device for the thread). With several slots the
+        thread's span timers are mirrored under ``device.<ordinal>.``, the
+        report's per-device seconds."""
         poll_s = max(0.05, flags.get_float("RACON_TPU_EXEC_POLL_S"))
+        multi = len(self._chip_slots()) > 1
+        if multi:
+            obs.trace.set_timer_prefix(f"device.{worker.ordinal}.")
+        try:
+            with worker.slot.pin():
+                self._drain_loop_inner(worker, manifest, beat, poll_s,
+                                       multi)
+        finally:
+            if multi:
+                obs.trace.set_timer_prefix(None)
+
+    def _load_states(self, max_age_s: float) -> Dict[int, dict]:
+        """The state-file scan behind a short shared cache (N chip workers
+        polling one directory would multiply its metadata reads). A stale
+        scan is safe: states only move toward terminal, and a requeue
+        drops the cache."""
+        now = time.monotonic()
+        with self._states_lock:
+            ts, states = self._states_cache
+            if now - ts <= max_age_s:
+                return states
+        states = mf.load_shard_states(self.work_dir)
+        with self._states_lock:
+            self._states_cache = (time.monotonic(), states)
+        return states
+
+    def _drain_loop_inner(self, worker: _ChipWorker, manifest: dict, beat,
+                          poll_s: float, multi: bool) -> None:
+        """A shard leased by another live worker is waited on: its lease
+        expires after the TTL if that worker died, and the next pass
+        reclaims it."""
+        order = self._shard_order(worker)
+        devs = self.plan.devices
+        cache_s = poll_s / 2 if multi else 0.0
         while True:
+            if self._abort.is_set():
+                return  # a sibling died; the pool is unwinding
             progressed = False
             waiting: List[int] = []
-            mf.merge_states(manifest, mf.load_shard_states(self.work_dir))
-            for si, shard in enumerate(self.plan.shards):
+            states = self._load_states(cache_s)
+            with self._mf_lock:
+                mf.merge_states(manifest, states)
+            for si in order:
+                shard = self.plan.shards[si]
+                use_mesh = bool(devs) and devs[si] == MESH_DEVICE
+                if use_mesh and not worker.can_mesh:
+                    continue  # slot 0 owns the mesh shards
                 entry = manifest["shards"][si]
                 if _terminal(entry) and si not in self._retry_quarantined:
                     self._note_terminal(si, entry, beat)
                     continue
-                claim = lease_mod.try_claim(self.work_dir, si, self.worker)
+                claim = lease_mod.try_claim(self.work_dir, si,
+                                            worker.worker)
                 if claim is None:
                     waiting.append(si)
                     continue
@@ -560,7 +752,8 @@ class ShardRunner:
                     # state read and the claim
                     fresh = mf.load_shard_state(self.work_dir, si)
                     if fresh is not None:
-                        manifest["shards"][si] = entry = dict(fresh)
+                        with self._mf_lock:
+                            manifest["shards"][si] = entry = dict(fresh)
                     if _terminal(entry) and \
                             si not in self._retry_quarantined:
                         self._note_terminal(si, entry, beat)
@@ -569,20 +762,32 @@ class ShardRunner:
                     if entry.get("status") == mf.QUARANTINED:
                         # the retry goes back through pending: the shard
                         # machine has no quarantined -> running edge
-                        entry["status"] = mf.PENDING
+                        with self._mf_lock:
+                            entry["status"] = mf.PENDING
                         self._save(entry, manifest)
                     if entry.get("status") == mf.RUNNING:
                         # an abandoned shard, taken over
                         metrics.inc("lease.reclaimed")
-                        entry["reclaimed"] = int(
-                            entry.get("reclaimed", 0)) + 1
+                        with self._mf_lock:
+                            entry["reclaimed"] = int(
+                                entry.get("reclaimed", 0)) + 1
                         _eprint(f"reclaiming shard {si} abandoned by "
                                 f"worker {entry.get('worker', '?')}")
                     beat.update(done=self._done_count(manifest),
                                 phase="polishing")
-                    with obs.track(f"shard {si}"), \
-                            obs.span("exec.shard", shard=si):
-                        self._run_shard(si, shard, entry, manifest, claim)
+                    if use_mesh and multi:
+                        # a mesh shard's seconds belong to the report's
+                        # "mesh" row, not to the card driving it
+                        obs.trace.set_timer_prefix("device.mesh.")
+                    try:
+                        with obs.track(f"shard {si}"), \
+                                obs.span("exec.shard", shard=si):
+                            self._run_shard(si, shard, entry, manifest,
+                                            claim, worker, use_mesh)
+                    finally:
+                        if use_mesh and multi:
+                            obs.trace.set_timer_prefix(
+                                f"device.{worker.ordinal}.")
                 finally:
                     claim.release()
                 progressed = True
@@ -597,30 +802,40 @@ class ShardRunner:
                 time.sleep(poll_s)
 
     def _done_count(self, manifest: dict) -> int:
-        return sum(_terminal(e) for e in manifest["shards"])
+        with self._mf_lock:
+            return sum(_terminal(e) for e in manifest["shards"])
 
     def _done_all(self, manifest: dict) -> bool:
-        mf.merge_states(manifest, mf.load_shard_states(self.work_dir))
-        return all(_terminal(e) for e in manifest["shards"])
+        states = self._load_states(
+            0.05 if len(self._chip_slots()) > 1 else 0.0)
+        with self._mf_lock:
+            mf.merge_states(manifest, states)
+            return all(_terminal(e) for e in manifest["shards"])
+
+    def _my_worker_ids(self) -> set:
+        return {w.worker for w in (self._slots or [])} | {self.worker}
 
     def _shard_mbp(self, si: int) -> float:
         return sum(self.index.targets[ci].bases
                    for ci in self.plan.shards[si]) / 1e6
 
     def _note_terminal(self, si: int, entry: dict, beat) -> None:
-        if si in self._announced or not _terminal(entry):
-            return
-        self._announced.add(si)
+        with self._note_lock:
+            if si in self._announced or not _terminal(entry):
+                return
+            self._announced.add(si)
+            announced = len(self._announced)
         shard_mbp = self._shard_mbp(si)
         if entry["status"] == mf.DONE:
-            beat.add_mbp(shard_mbp)
+            # credited to the worker that polished it: per-card rates
+            beat.add_mbp(entry.get("worker"), shard_mbp)
         if si in self._initially_done and self.resume:
             _eprint(f"resume: skipping completed shard {si} "
                     f"({shard_mbp:.2f} Mbp)")
-        elif entry.get("worker") not in (None, self.worker):
+        elif entry.get("worker") not in ({None} | self._my_worker_ids()):
             _eprint(f"shard {si} {entry['status']} by worker "
                     f"{entry.get('worker')}")
-        beat.update(done=len(self._announced))
+        beat.update(done=announced)
 
     # ------------------------------------------------- verification/requeue
 
@@ -668,11 +883,27 @@ class ShardRunner:
                      "status": mf.PENDING,
                      "part": f"part_{si:04d}.fasta",
                      "requeued": why}
-            manifest["shards"][si] = entry
+            with self._mf_lock:
+                manifest["shards"][si] = entry
             self._save(entry, manifest)
-            if si in self._announced and was.get("status") == mf.DONE \
-                    and self._beat is not None:
-                self._beat.add_mbp(-self._shard_mbp(si))
+            # done -> pending breaks the cached scan's only-toward-
+            # terminal rule: drop the cache
+            with self._states_lock:
+                self._states_cache = (-1e9, {})
+            if si in self._announced and was.get("status") == mf.DONE:
+                if self._beat is not None:
+                    self._beat.add_mbp(was.get("worker"),
+                                       -self._shard_mbp(si))
+                if was.get("device") is not None and \
+                        len(self._chip_slots()) > 1 and \
+                        was.get("worker") in self._my_worker_ids():
+                    # retract the per-device credit this process gave (the
+                    # polish seconds stay: they were spent)
+                    dev_key = ("mesh" if was["device"] == MESH_DEVICE
+                               else str(was["device"]))
+                    metrics.inc(f"device.{dev_key}.shards", -1)
+                    metrics.inc(f"device.{dev_key}.mbp",
+                                -round(self._shard_mbp(si), 4))
             self._announced.discard(si)
             self._initially_done.discard(si)
         finally:
@@ -697,15 +928,19 @@ class ShardRunner:
             torch.cuda.empty_cache()
 
     def _run_shard(self, si: int, shard: List[int], entry: dict,
-                   manifest: dict, claim) -> None:
+                   manifest: dict, claim,
+                   worker: Optional[_ChipWorker] = None,
+                   use_mesh: bool = False) -> None:
+        worker = worker if worker is not None else self._chip_slots()[0]
         sleep_s = flags.get_float("RACON_TPU_EXEC_SLEEP_S")
         if sleep_s > 0 and si > 0:
             time.sleep(sleep_s)  # test hook: widens a kill's window
-        entry.update(status=mf.RUNNING, worker=self.worker)
-        # this attempt's record only: drop an earlier run's outcome
-        for stale in ("requeued", "reason", "attempts", "engine",
-                      "bytes", "crc32"):
-            entry.pop(stale, None)
+        with self._mf_lock:
+            entry.update(status=mf.RUNNING, worker=worker.worker)
+            # this attempt's record only: drop an earlier run's outcome
+            for stale in ("requeued", "reason", "attempts", "engine",
+                          "bytes", "crc32"):
+                entry.pop(stale, None)
         self._save(entry, manifest)
         # a SIGKILL here leaves the shard running under a lease that is
         # no longer refreshed: what a resume or another worker reclaims
@@ -729,7 +964,8 @@ class ShardRunner:
                         paths = self._extract_shard(si, shard)
                     extract_s += time.perf_counter() - t_ext
                 faults.check("exec.polish", shard=si, attempt=attempt_no)
-                records, timings = self._polish_shard(paths, cpu=tier_cpu)
+                records, timings = self._polish_shard(
+                    paths, cpu=tier_cpu, worker=worker, use_mesh=use_mesh)
                 part_stat = self._write_part(part, records)
                 break
             except Exception as e:
@@ -754,17 +990,17 @@ class ShardRunner:
                         paths = None  # extract again after an I/O fault
                     time.sleep(backoff)
                 elif cls == faults.CLASS_OOM and not tier_cpu and \
-                        self.reduce_capacity():
+                        self.reduce_capacity(worker, use_mesh):
                     att["action"] = "reduce-capacity"
-                    warn(f"shard {si} device OOM ({err}) — halved the "
-                         f"engines' capacity (align direction-matrix "
-                         f"budget, consensus pair arena and group), "
-                         f"re-dispatching on the device")
+                    warn(f"shard {si} device OOM ({err}) — halved worker "
+                         f"{worker.worker}'s engine capacity (align "
+                         f"direction-matrix budget, consensus pair arena "
+                         f"and group), re-dispatching on the device")
                     # the failed attempt's frames hold its device tensors
                     traceback.clear_frames(e.__traceback__)
                     del e
                     self._release_device_memory()
-                elif not tier_cpu and not self.primary_on_card():
+                elif not tier_cpu and not worker.primary_on_card():
                     tier_cpu = True
                     att["action"] = "cpu-retry"
                     warn(f"shard {si} attempt failed ({err}) — "
@@ -775,28 +1011,43 @@ class ShardRunner:
                     warn(f"shard {si} {where} failed ({err}) — quarantining")
                     break
         if part_stat is None:
-            entry.update(status=mf.QUARANTINED,
-                         reason=self._reason(attempts),
-                         attempts=attempts, worker=self.worker,
-                         wall_s=round(time.perf_counter() - t0, 2))
+            with self._mf_lock:
+                entry.update(status=mf.QUARANTINED,
+                             reason=self._reason(attempts),
+                             attempts=attempts, worker=worker.worker,
+                             wall_s=round(time.perf_counter() - t0, 2))
             self._save_owned(entry, manifest, claim)
             self._drop_shard_inputs(paths)
             return
-        entry.update(
-            status=mf.DONE,
-            engine="cpu-retry" if tier_cpu else "primary",
-            worker=self.worker,
-            bytes=part_stat[0], crc32=part_stat[1],
-            mbp=round(self._shard_mbp(si), 4),
-            wall_s=round(time.perf_counter() - t0, 2),
-            extract_s=round(extract_s, 2),
-            timings=timings,
-            # the port traces nothing: no retrace deltas
-            retrace={},
-            peak_rss_mb=metrics.peak_rss_bytes() >> 20)
-        if attempts:
-            entry["attempts"] = attempts
-            entry["reason"] = self._reason(attempts)
+        wall = round(time.perf_counter() - t0, 2)
+        shard_mbp = round(self._shard_mbp(si), 4)
+        with self._mf_lock:
+            entry.update(
+                status=mf.DONE,
+                engine="cpu-retry" if tier_cpu else "primary",
+                worker=worker.worker,
+                bytes=part_stat[0], crc32=part_stat[1],
+                mbp=shard_mbp,
+                wall_s=wall,
+                extract_s=round(extract_s, 2),
+                timings=timings,
+                # the port traces nothing: no retrace deltas
+                retrace={},
+                peak_rss_mb=metrics.peak_rss_bytes() >> 20)
+            if self.plan.devices:
+                # the card the shard ran on (MESH_DEVICE: over all of
+                # them), in the manifest and the report's shard row
+                entry["device"] = (MESH_DEVICE if use_mesh
+                                   else worker.ordinal)
+            if attempts:
+                entry["attempts"] = attempts
+                entry["reason"] = self._reason(attempts)
+        if len(self._chip_slots()) > 1:
+            # the report's devices rows and the per-card Mbp/s
+            dev_key = "mesh" if use_mesh else str(worker.ordinal)
+            metrics.inc(f"device.{dev_key}.shards")
+            metrics.inc(f"device.{dev_key}.mbp", shard_mbp)
+            metrics.add_time(f"device.{dev_key}.polish_s", wall)
         self._save_owned(entry, manifest, claim)
         self._drop_shard_inputs(paths)
 
@@ -831,11 +1082,14 @@ class ShardRunner:
         mf.fsync_dir(self.work_dir)
         return size, crc
 
-    def _polish_shard(self, paths: Dict[str, str], cpu: bool
+    def _polish_shard(self, paths: Dict[str, str], cpu: bool,
+                      worker: Optional[_ChipWorker] = None,
+                      use_mesh: bool = False
                       ) -> Tuple[List[Tuple[bytes, bytes]], Dict]:
         if paths["n_overlaps"] == 0:
             return self._unpolished_records(paths), {}
-        aligner, consensus = self.get_engines(cpu)
+        worker = worker if worker is not None else self._chip_slots()[0]
+        aligner, consensus = worker.get_engines(cpu, mesh=use_mesh)
         p = create_polisher(
             paths["reads"], paths["overlaps"], paths["targets"],
             self.type, window_length=self.window_length,
@@ -843,7 +1097,9 @@ class ShardRunner:
             error_threshold=self.error_threshold, trim=self.trim,
             match=self.match, mismatch=self.mismatch, gap=self.gap,
             num_threads=self.num_threads, aligner=aligner,
-            consensus=consensus, device=self.device,
+            consensus=consensus,
+            device=(worker.device if worker.device is not None
+                    else self.device),
             window_type=self.index.window_type,
             prefiltered_overlaps=True, evict_reads=True,
             stall_escalation=True)

@@ -39,6 +39,35 @@ def _declare(flags: Iterable[Flag]) -> Dict[str, Flag]:
 
 
 REGISTRY: Dict[str, Flag] = _declare([
+    # ------------------------------------------------------------- engines
+    Flag("RACON_TPU_SWAR", "1", "bool",
+         "The packed int16x2 forward kernel (K4) where ops/swar.py picks "
+         "it; set 0 to force the int32 kernel (K1) in both engines for "
+         "A/B measurement."),
+    Flag("RACON_TPU_ALIGN_RAGGED", "1", "bool",
+         "Ragged pair packing in the device aligner: pairs bucket by "
+         "their own sweep cost and chunks greedy-fill the direction-"
+         "matrix budget through the streaming _AlignStream session; set 0 "
+         "to force the bucketed wave driver (the path a mesh takes) for "
+         "A/B measurement."),
+    Flag("RACON_TPU_BAND_LADDER", "1", "bool",
+         "Adaptive alignment band ladder: each pair's starting band is "
+         "seeded from its overlap's estimated divergence (a rung of "
+         "ops/nw.py BAND_RUNGS below its bucket band) and escapees "
+         "re-dispatch batched at the rung >= 2x the failed band; set 0 to "
+         "start every pair at its bucket's band for A/B measurement."),
+    Flag("RACON_TPU_RAGGED", "1", "bool",
+         "Ragged window packing in the consensus engine: windows bucket "
+         "by their own size and groups greedy-fill a fixed lane arena; set "
+         "0 to force the padded single-geometry path (the path a mesh "
+         "takes) for A/B measurement."),
+    Flag("RACON_TPU_CHIPS", "", "int",
+         "In-process chip workers of the shard runner and pinned slots of "
+         "the resident service (the CLI --chips flag): each local card "
+         "gets its own pinned engine pair draining manifest shards "
+         "through the lease protocol. Unset/0 = automatic (every local "
+         "card when the cuda backend runs on a multi-card host); 1 pins "
+         "card 0; above the card count it is clamped to it."),
     Flag("RACON_TPU_TRACE", "", "path",
          "Write a Chrome trace-event JSON of the run's spans to this file "
          "(Perfetto / chrome://tracing); the CLI --trace flag."),
@@ -84,6 +113,11 @@ REGISTRY: Dict[str, Flag] = _declare([
          "precondition fails (fractional quality threshold, sub-33 "
          "quality bytes)."),
     # ------------------------------------------------ the overlapper
+    Flag("RACON_TPU_OVERLAP", "", "str",
+         "Overlap source override: 'auto' runs the first-party minimizer-"
+         "seed + chain overlapper in-process whatever the overlaps "
+         "argument names; 'paf' (or unset) follows the positional "
+         "argument, which itself accepts the literal sentinel 'auto'."),
     Flag("RACON_TPU_OVERLAP_K", "15", "int",
          "Overlapper minimizer k-mer length (clipped to 4..16; canonical "
          "codes live in 32 bits)."),

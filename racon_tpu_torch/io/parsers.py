@@ -47,9 +47,14 @@ def is_auto_overlaps(path: str) -> bool:
 
 
 def overlaps_mode(path: str) -> str:
-    """``auto`` for the sentinel, else ``paf`` (an overlaps file). The
-    JAX package's ``RACON_TPU_OVERLAP`` override is not ported."""
-    return "auto" if is_auto_overlaps(path) else "paf"
+    """The effective overlap source of an overlaps argument: ``auto`` for
+    the sentinel or when ``RACON_TPU_OVERLAP=auto`` overrides a file path,
+    else ``paf`` (an overlaps file)."""
+    if is_auto_overlaps(path):
+        return "auto"
+    from .. import flags
+    forced = flags.get_str("RACON_TPU_OVERLAP").strip().lower()
+    return "auto" if forced == "auto" else "paf"
 
 
 class ParseError(ValueError):

@@ -245,6 +245,23 @@ def overlap_summary(scope: str = "") -> Dict[str, Number]:
         }
 
 
+def device_summary(scope: str = "") -> Dict[str, Dict[str, Number]]:
+    """Per-device rows from the ``device.<key>.*`` metrics the in-process
+    chip workers publish: shard and Mbp counters, polish seconds and the
+    per-thread span-timer mirrors (``device.0.poa.dispatch`` is row
+    ``"0"``, key ``"poa.dispatch"``; a mesh shard's row is ``"mesh"``).
+    Empty on a run with one worker: the run report's ``devices``
+    section."""
+    rows: Dict[str, Dict[str, Number]] = {}
+    for k, v in group(scope + "device.").items():
+        dev, _, metric = k.partition(".")
+        if not dev or not metric:
+            continue
+        rows.setdefault(dev, {})[metric] = (
+            round(v, 6) if isinstance(v, float) else v)
+    return rows
+
+
 def dataflow_summary(scope: str = "") -> Dict[str, Number]:
     """The resident dataflow (``RACON_TPU_RESIDENT``): whether it ran
     this run (gauge ``dataflow.resident``; 0 with the flag off or after a

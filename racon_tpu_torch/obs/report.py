@@ -136,10 +136,11 @@ def build_report(kind: str = "cli", *, argv: Optional[list] = None,
         "compiles": buildwatch.summary(scope),
         "dataflow": metrics.dataflow_summary(scope),
         "overlap": metrics.overlap_summary(scope),
-        # the gateway's counters: zeros outside a gateway process; one
-        # device (no per-chip rows)
+        # the gateway's counters: zeros outside a gateway process
         "fleet": metrics.fleet_summary(),
-        "devices": {},
+        # one row per chip worker that ran a shard, and "mesh" for the
+        # mesh-sharded ones ({} on a run with one worker)
+        "devices": metrics.device_summary(scope),
         "peak_rss_bytes": metrics.peak_rss_bytes(),
         "metrics": metrics.snapshot(scope or None),
     }

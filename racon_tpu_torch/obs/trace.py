@@ -121,6 +121,12 @@ class _Span:
         if st:
             st.pop()
         metrics.add_time(self.name, t1 - self._t0)
+        # the thread's timer prefix (set_timer_prefix): a chip worker's
+        # spans also land under device.<ordinal>.*, the run report's
+        # per-device seconds
+        pfx = getattr(_tls, "timer_prefix", None)
+        if pfx:
+            metrics.add_time(pfx + self.name, t1 - self._t0)
         if _tracing:
             b = _buf()
             b.append((b.tracks[-1] if b.tracks else None,
@@ -168,6 +174,20 @@ def current_span():
     or recording is off)."""
     st = getattr(_tls, "span_stack", None)
     return st[-1] if st else None
+
+
+def get_timer_prefix():
+    """The current thread's span-timer mirror prefix (None when unset):
+    a reader that wants this thread's own timer (the polisher's align
+    dispatch/fetch split under concurrent chip workers) prepends it."""
+    return getattr(_tls, "timer_prefix", None)
+
+
+def set_timer_prefix(prefix) -> None:
+    """Mirror the current thread's span timers under ``prefix + name`` as
+    well as under the span's name (None clears). The in-process chip
+    workers set ``device.<ordinal>.``, a mesh shard ``device.mesh.``."""
+    _tls.timer_prefix = prefix or None
 
 
 # ------------------------------------------------------------- lifecycle

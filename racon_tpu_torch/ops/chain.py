@@ -159,9 +159,11 @@ def chain_dp(ts: torch.Tensor, qs: torch.Tensor, ns: torch.Tensor, *,
               if S > CHAIN_SMEM_SLOTS else None)
     out = torch.empty((B, 6), dtype=torch.int32, device=dev)
     fn = _build.function("rt_chain_dp")
-    err = fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
-             None if parent is None else parent.data_ptr(), out.data_ptr(),
-             B, S, k, CHAIN_SMEM_SLOTS, cuda_nw._stream(ts))
+    with cuda_nw.launch_device(ts):
+        err = fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
+                 None if parent is None else parent.data_ptr(),
+                 out.data_ptr(), B, S, k, CHAIN_SMEM_SLOTS,
+                 cuda_nw._stream(ts))
     cuda_nw.count_launch("chain_dp")
     cuda_nw._check_launch("chain_dp", err)
     return out

@@ -87,12 +87,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch_device(t: torch.Tensor):
+    """The context of every kernel launch: ``t``'s card as the calling
+    thread's current device. The C entries launch, and set their kernels'
+    shared-memory attribute, on the current device, so a launch on
+    ``cuda:1`` from a thread whose current device is 0 must enter 1
+    first."""
+    return torch.cuda.device(t.device)
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
 
 
 def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """Every input of a launch lies on one card, contiguous; a launch
+    never moves a tensor between devices."""
     dev = tensors[0].device
     for t in tensors:
         _require(t.device == dev, f"{name}: tensors on different devices")
@@ -240,12 +251,13 @@ def _launch_fwd(entry: str, qrp, tp, n, m, *, max_len: int, band: int,
     fn = _build.function(entry)
     head = (qrp.data_ptr(), tp.data_ptr(), n.data_ptr(), m.data_ptr(),
             dirs.data_ptr(), score.data_ptr(), B, max_len, band)
-    if entry == FWD_I16X2_ENTRIES["wide"]:
-        err = fn(*head, bpt, width, steps, _stream(qrp))
-        key = f"{entry}:{bpt}"
-    else:
-        err = fn(*head, width, steps, _stream(qrp))
-        key = entry
+    with launch_device(qrp):
+        if entry == FWD_I16X2_ENTRIES["wide"]:
+            err = fn(*head, bpt, width, steps, _stream(qrp))
+            key = f"{entry}:{bpt}"
+        else:
+            err = fn(*head, width, steps, _stream(qrp))
+            key = entry
     count_launch(name, key)
     _check_launch(name, err)
     return dirs, score
@@ -400,8 +412,10 @@ def _launch_walk(entry: str, dirs, n, m, *, band: int):
     fi = torch.empty((B,), dtype=torch.int32, device=dev)
     fj = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _build.function(entry)
-    err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(), ops.data_ptr(),
-             fi.data_ptr(), fj.data_ptr(), B, S, band, _stream(dirs))
+    with launch_device(dirs):
+        err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(),
+                 ops.data_ptr(), fi.data_ptr(), fj.data_ptr(), B, S, band,
+                 _stream(dirs))
     count_launch("walk_ops")
     _check_launch("walk_ops", err)
     return ops, fi, fj
@@ -485,10 +499,11 @@ def walk_vote(dirs: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
     fi = torch.empty((B,), dtype=torch.int32, device=dev)
     fj = torch.empty((B,), dtype=torch.int32, device=dev)
     fn = _build.function("rt_walk_vote")
-    err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(), bg.data_ptr(),
-             qpw.data_ptr(), idx.data_ptr(), w.data_ptr(), fi.data_ptr(),
-             fj.data_ptr(), B, S, band, qpw.shape[1], L, K, CH, DEL,
-             _stream(dirs))
+    with launch_device(dirs):
+        err = fn(dirs.data_ptr(), n.data_ptr(), m.data_ptr(),
+                 bg.data_ptr(), qpw.data_ptr(), idx.data_ptr(),
+                 w.data_ptr(), fi.data_ptr(), fj.data_ptr(), B, S, band,
+                 qpw.shape[1], L, K, CH, DEL, _stream(dirs))
     count_launch("walk_vote")
     _check_launch("walk_vote", err)
     return idx, w, fi, fj

@@ -32,6 +32,7 @@ every fetched chunk passes the aligner canaries.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -39,9 +40,10 @@ import torch
 
 from . import _build, cuda_nw
 from .swar import use_packed16
-from .. import faults, obs, sanitize
+from .. import faults, flags, obs, sanitize
 from ..device import resolve
 from ..obs import metrics
+from ..parallel import gather_shards, mesh_size, sharded_align
 from ..params import PARAMS
 
 BUCKETS: Tuple[Tuple[int, int], ...] = PARAMS.buckets
@@ -91,6 +93,20 @@ def build_rows(qcat: torch.Tensor, tcat: torch.Tensor, n: torch.Tensor,
             tp.to(torch.uint8).contiguous())
 
 
+def align_chain(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
+                m: torch.Tensor, *, max_len: int, band: int, steps: int = 0,
+                packed16: bool = False):
+    """The forward pass and its walk over one batch of rows
+    (``racon_tpu.ops.nw.align_chain``): K4 with ``packed16``, else K1,
+    then K2. Returns ``(ops_packed, score, fi, fj)``; the direction matrix
+    is released before this returns. The single-device chunk and every
+    shard of :func:`racon_tpu_torch.parallel.sharded_align` run it."""
+    dirs, score = cuda_nw.nw_fwd(qrp, tp, n, m, max_len=max_len, band=band,
+                                 steps=steps, packed16=packed16)
+    ops, fi, fj = cuda_nw.walk_ops(dirs, n, m, band=band)
+    return ops, score, fi, fj
+
+
 def sweep_bound(max_nm: int, max_len: int) -> int:
     """Anti-diagonal sweep bound of a chunk, a multiple of 512 (long
     buckets quantize to 2048), as ``racon_tpu.ops.nw._sweep_bound``."""
@@ -130,10 +146,11 @@ def breaking_points(ops_packed: torch.Tensor, n: torch.Tensor,
         bp_first = torch.empty((B, NW), dtype=torch.int32, device=dev)
         bp_last = torch.empty((B, NW), dtype=torch.int32, device=dev)
         fn = _build.function("rt_breaking_points")
-        err = fn(ops_packed.data_ptr(), n.data_ptr(), m.data_ptr(),
-                 first_rel.data_ptr(), nb.data_ptr(), bp_first.data_ptr(),
-                 bp_last.data_ptr(), B, S4, w, NW,
-                 cuda_nw._stream(ops_packed))
+        with cuda_nw.launch_device(ops_packed):
+            err = fn(ops_packed.data_ptr(), n.data_ptr(), m.data_ptr(),
+                     first_rel.data_ptr(), nb.data_ptr(),
+                     bp_first.data_ptr(), bp_last.data_ptr(), B, S4, w, NW,
+                     cuda_nw._stream(ops_packed))
         cuda_nw.count_launch("breaking_points")
         cuda_nw._check_launch("breaking_points", err)
     return bp_first, bp_last
@@ -459,27 +476,44 @@ def _dense_block(seqs, lens: np.ndarray, B: int, max_len: int) -> np.ndarray:
 
 class CudaAligner:
     """Batched device aligner with on-device traceback and breaking points,
-    and a host fallback for the pairs it rejects."""
+    and a host fallback for the pairs it rejects.
+
+    ``mesh``: an optional 1-D :class:`racon_tpu_torch.parallel.Mesh`; every
+    chunk's batch is then split over it (:func:`racon_tpu_torch.parallel.
+    sharded_align`, the analog of the reference's per-GPU batch binning,
+    ``src/cuda/cudapolisher.cpp:163-171``) on the bucketed wave driver.
+    ``device`` pins the engine to one device instead (``cuda``, the
+    default, is the current card); a mesh and a pin exclude each other.
+    ``use_ragged`` and ``use_ladder`` default to ``RACON_TPU_ALIGN_RAGGED``
+    and ``RACON_TPU_BAND_LADDER``."""
 
     # the polisher hands this backend the whole overlap stream at once
     wants_full_stream = True
 
     def __init__(self, fallback=None, buckets=BUCKETS,
                  max_dirs_bytes=MAX_DIRS_BYTES, num_batches: int = 1,
-                 device="cuda", use_ragged: bool = True,
-                 use_ladder: bool = True):
-        self.device = resolve(device)
+                 device=None, use_ragged=None, use_ladder=None, mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("an aligner takes a mesh or a device pin, not "
+                             "both")
+        self.mesh = mesh
+        # the home device: host uploads land here, and a mesh chunk's
+        # merged outputs come back here
+        self.device = resolve(mesh.devices[0] if mesh is not None
+                              else "cuda" if device is None else device)
         self.fallback = fallback
         self.buckets = buckets
         self.max_dirs_bytes = max_dirs_bytes
         # the pipeline depth: chunks kept in flight, each capped at
         # 1/num_batches of the direction-matrix budget
         self.num_batches = max(1, num_batches)
-        # ragged pair packing through _AlignStream (False: the bucketed
-        # wave driver)
-        self.use_ragged = use_ragged
+        # ragged pair packing through _AlignStream (False, or a mesh: the
+        # bucketed wave driver)
+        self.use_ragged = (flags.get_bool("RACON_TPU_ALIGN_RAGGED")
+                           if use_ragged is None else use_ragged)
         # seed each pair's band from the divergence estimate (BAND_RUNGS)
-        self.use_ladder = use_ladder
+        self.use_ladder = (flags.get_bool("RACON_TPU_BAND_LADDER")
+                           if use_ladder is None else use_ladder)
         # [count, sum, sum_sq] of the realized divergence (score / longer
         # span) of every clean walk
         self._div_obs = [0, 0.0, 0.0]
@@ -529,6 +563,14 @@ class CudaAligner:
         """Direction-matrix bytes of one chunk: the in-flight budget split
         over the pipeline depth."""
         return max(1, self.dirs_budget_cap // self.num_batches)
+
+    def _pad_batch(self, count: int) -> int:
+        """A chunk's padded batch: ``mesh_size * 2^k`` (the mesh splits it
+        evenly), a plain power of two without a mesh."""
+        B = mesh_size(self.mesh)
+        while B < count:
+            B *= 2
+        return B
 
     def _bucket_index(self, qlen: int, tlen: int, start: int = 0):
         need = abs(qlen - tlen) + 16
@@ -651,17 +693,18 @@ class CudaAligner:
                   resident: bool = False):
         """A streaming breaking-points session (:class:`_AlignStream`):
         ``feed()`` slices, then ``finish()`` for the rows of every fed pair
-        in feed order. None with ``use_ragged=False``. With ``resident``
-        an accepted pair's result is a :class:`_DevBp` handle: its chunk's
-        tables stay on the device."""
-        if not self.use_ragged:
+        in feed order. None with ``use_ragged=False`` or a mesh (callers
+        then make one :meth:`breaking_points_batch` call a slice). With
+        ``resident`` an accepted pair's result is a :class:`_DevBp` handle:
+        its chunk's tables stay on the device."""
+        if not self.use_ragged or self.mesh is not None:
             return None
         return _AlignStream(self, window_length=window_length,
                             progress=progress, total_hint=total,
                             resident=resident)
 
     def _drive(self, pairs, progress, bp_meta, errors=None):
-        if self.use_ragged:
+        if self.use_ragged and self.mesh is None:
             sess = _AlignStream(
                 self, window_length=bp_meta[0] if bp_meta else None,
                 progress=progress, total_hint=len(pairs))
@@ -709,7 +752,21 @@ class CudaAligner:
                 max_len = self.buckets[bi][0]
                 max_nm = (len(pairs[indices[0]][0])
                           + len(pairs[indices[0]][1]))
-                cap = self._chunk_cap(sweep_bound(max_nm, max_len), band)
+                steps_est = sweep_bound(max_nm, max_len)
+                # chunks pad to mesh_size * 2^k, so the mesh size is the
+                # smallest chunk
+                base = mesh_size(self.mesh)
+                raw_cap = self.chunk_dirs_budget() // (steps_est
+                                                       * (band // 8))
+                if base > max(1, raw_cap):
+                    warnings.warn(
+                        f"mesh size {base} exceeds the direction-"
+                        f"matrix memory budget ({raw_cap} pairs of bucket "
+                        f"({max_len},{band}) fit in "
+                        f"{self.chunk_dirs_budget()} "
+                        f"bytes); lower num_batches or use a smaller mesh",
+                        RuntimeWarning)
+                cap = self._chunk_cap(steps_est, band, base=base)
                 esc = escaped.setdefault(cls, [])
                 for start in range(0, len(indices), cap):
                     chunk = indices[start:start + cap]
@@ -773,14 +830,15 @@ class CudaAligner:
 
     # ------------------------------------------------------------- chunks
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the aligner's device; to the card through
-        pinned memory, so the copy does not wait for the chunks in
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array on the aligner's device (or ``device``); to a card
+        through pinned memory, so the copy does not wait for the chunks in
         flight."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        dev = self.device if device is None else device
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
 
     def _launch_chunk(self, pairs, chunk, max_len: int, band: int,
                       bp_meta=None):
@@ -800,7 +858,7 @@ class CudaAligner:
         outputs, max_len)``; its outputs are device tensors the device is
         still computing."""
         C = len(chunk)
-        B = _pow2_at_least(C)
+        B = self._pad_batch(C)
         qs = [pairs[i][0] for i in chunk]
         ts = [pairs[i][1] for i in chunk]
         n = np.ones(B, dtype=np.int32)
@@ -833,39 +891,69 @@ class CudaAligner:
         st["swar_chunks"] += int(packed16)
         metrics.inc("aligner.swar_chunks", int(packed16))
         shadow = packed16 and self._shadow.should_shadow()
-        dirs, score = cuda_nw.nw_fwd(qrp, tp, nd, md, max_len=max_len,
-                                     band=band, steps=steps,
-                                     packed16=packed16)
-        ops, fi, fj = cuda_nw.walk_ops(dirs, nd, md, band=band)
-        del dirs
+        parts = self._dispatch(qrp, tp, nd, md, max_len=max_len, band=band,
+                               steps=steps, packed16=packed16)
         if shadow:
-            self._shadow_chunk(qrp, tp, nd, md, (ops, score, fi, fj),
-                               max_len=max_len, band=band, steps=steps)
+            self._shadow_chunk(qrp, tp, nd, md, parts, max_len=max_len,
+                               band=band, steps=steps)
         del qrp, tp
-        if bp_meta is None:
-            return chunk, pairs, n, m, (ops, score, fi, fj), max_len
+        if bp_meta is not None:
+            parts = self._attach_bp(parts, chunk, n, m, nd, md, max_len,
+                                    bp_meta)
+        return chunk, pairs, n, m, self._merged(parts), max_len
+
+    def _dispatch(self, qrp, tp, n, m, **kw) -> list:
+        """The chunk's forward pass and walk: one ``(ops_packed, score, fi,
+        fj)`` tuple, or one a shard through :func:`sharded_align` under a
+        mesh."""
+        if self.mesh is not None:
+            return sharded_align(self.mesh, qrp, tp, n, m, **kw)
+        return [align_chain(qrp, tp, n, m, **kw)]
+
+    def _merged(self, parts):
+        """Per-shard outputs as one tuple on the home device."""
+        return parts[0] if len(parts) == 1 else gather_shards(parts,
+                                                              self.device)
+
+    def _attach_bp(self, parts, chunk, n, m, nd, md, max_len: int,
+                   bp_meta) -> list:
+        """Breaking points of each shard on the shard's device, from its
+        op stream: ``(bp_first, bp_last, score, fi, fj)`` a shard. ``n``,
+        ``m`` are the chunk's host lengths, ``nd``, ``md`` their upload
+        (the single-device chunk reuses it)."""
         w, metas = bp_meta
+        C = len(chunk)
         tb = np.fromiter((metas[i][0] for i in chunk), np.int64, C)
         first_rel, nb = window_geometry(tb, m, w)
-        bp_first, bp_last = breaking_points(
-            ops, nd, md, self._upload(first_rel), self._upload(nb), w=w,
-            NW=max_len // max(w, 1) + 2)
-        return chunk, pairs, n, m, (bp_first, bp_last, score, fi, fj), max_len
+        NW = max_len // max(w, 1) + 2
+        if len(parts) == 1:
+            ops, score, fi, fj = parts[0]
+            return [breaking_points(ops, nd, md, self._upload(first_rel),
+                                    self._upload(nb), w=w, NW=NW)
+                    + (score, fi, fj)]
+        b = len(n) // len(parts)
+        out = []
+        for k, (ops, score, fi, fj) in enumerate(parts):
+            dev = ops.device
+            sl = slice(k * b, (k + 1) * b)
+            lanes = [self._upload(a[sl], dev) for a in (n, m, first_rel, nb)]
+            out.append(breaking_points(ops, *lanes, w=w, NW=NW)
+                       + (score, fi, fj))
+        return out
 
-    def _shadow_chunk(self, qrp, tp, n, m, packed_out, *, max_len: int,
+    def _shadow_chunk(self, qrp, tp, n, m, parts, *, max_len: int,
                       band: int, steps: int) -> None:
         """The sanitizer's K1 shadow of a K4 chunk: the same rows through
-        the int32 forward pass and the same walk; ``ops_packed``,
-        ``score``, ``fi`` and ``fj`` must equal bit for bit. The K4 pass's
-        direction rows are released before this runs, so the two passes
-        never hold two chunks' rows at once."""
-        dirs, score = cuda_nw.nw_fwd(qrp, tp, n, m, max_len=max_len,
-                                     band=band, steps=steps, packed16=False)
-        ops, fi, fj = cuda_nw.walk_ops(dirs, n, m, band=band)
-        del dirs
+        the int32 forward pass and the same walk (sharded alike under a
+        mesh); the merged ``ops_packed``, ``score``, ``fi`` and ``fj`` must
+        equal bit for bit. The K4 pass's direction rows are released
+        before this runs, so the two passes never hold two chunks' rows at
+        once."""
+        shadow = self._dispatch(qrp, tp, n, m, max_len=max_len, band=band,
+                                steps=steps, packed16=False)
         metrics.inc("align.shadow_chunks")
         sanitize.shadow_compare(
-            packed_out, (ops, score, fi, fj),
+            self._merged(parts), self._merged(shadow),
             ("ops_packed", "score", "fi", "fj"),
             f"aligner K4 chunk (max_len={max_len}, band={band}, "
             f"steps={steps})")

@@ -57,10 +57,11 @@ import torch
 
 from . import cuda_nw
 from .swar import use_packed16
-from .. import faults, obs, sanitize
+from .. import faults, flags, obs, sanitize
 from ..core.window import WindowType
 from ..device import resolve
 from ..obs import metrics
+from ..parallel import mesh_size, partition_balanced, sharded_refine_loop
 from ..params import (DEFAULT_GAP, DEFAULT_MATCH, DEFAULT_MISMATCH, PARAMS,
                       STATE_NAMES, refine_state_to_torch, upload)
 from ..utils.logger import warn
@@ -464,10 +465,13 @@ def sweep_geometry(Lq: int, max_nm: int, max_n: int):
     return steps, Lq2
 
 
-def pack_group(items, Lq: int, Lb: int, overrides=None, allow_dev=None):
+def pack_group(items, Lq: int, Lb: int, overrides=None, allow_dev=None,
+               B: Optional[int] = None, nWp: Optional[int] = None):
     """Pack one group's windows into the refine-loop state as numpy arrays
     (``TpuPoaConsensus._pack_shard``): pair rows padded to a power of two
-    vote into the sink window ``nWp - 1``. ``overrides`` (a stage-B
+    (or to ``B``) vote into the sink window ``nWp - 1`` (``nWp`` a power of
+    two above the window count, unless given: the shards of a mesh group
+    pack to the largest shard's sizes). ``overrides`` (a stage-B
     repack) maps a window's result index to its fetched stage-A state
     ``(bcodes row, blen, covs row, ever, bg, ed)``, so it resumes from its
     refined backbone and remapped spans. Returns ``(state, B, nWp)`` with
@@ -482,8 +486,8 @@ def pack_group(items, Lq: int, Lb: int, overrides=None, allow_dev=None):
     ``_pack_shard(allow_dev=True)`` in the JAX package."""
     counts = np.array([w.n_layers for _, w in items], np.int64)
     k = int(counts.sum())
-    B = _pow2_at_least(k)
-    nWp = _pow2_at_least(len(items) + 1)
+    B = _pow2_at_least(k) if B is None else B
+    nWp = _pow2_at_least(len(items) + 1) if nWp is None else nWp
     by_store = {}
     legacy = []
     for wi, (_, w) in enumerate(items):
@@ -592,19 +596,6 @@ def pack_group(items, Lq: int, Lb: int, overrides=None, allow_dev=None):
     if qpw_rows is not None:
         state["qpw_rows"] = qpw_rows
     return state, B, nWp
-
-
-def partition_balanced(costs, n_bins: int) -> List[List[int]]:
-    """Greedy longest-processing-time binning of item indices by cost
-    (``racon_tpu.parallel.partition_balanced``)."""
-    order = sorted(range(len(costs)), key=lambda i: -costs[i])
-    bins: List[List[int]] = [[] for _ in range(n_bins)]
-    loads = [0] * n_bins
-    for i in order:
-        b = loads.index(min(loads))
-        bins[b].append(i)
-        loads[b] += costs[i]
-    return bins
 
 
 class _ConsensusStream:
@@ -809,13 +800,19 @@ class _ConsensusStream:
 
 class CudaPoaConsensus:
     """Batched device consensus with host fallback for rejected windows
-    (counterpart of ``racon_tpu.ops.poa.TpuPoaConsensus`` without a mesh).
-    ``run`` goes through the ragged stream (:meth:`stream`) unless
-    ``use_ragged`` is False, which packs every window to one geometry in
-    consecutive groups of at most ``MAX_GROUP_PAIRS`` pairs, each running
-    the full round budget (the padded path, the parity oracle). Windows
-    are independent, so neither the path nor the grouping changes a
-    byte.
+    (counterpart of ``racon_tpu.ops.poa.TpuPoaConsensus``). ``run`` goes
+    through the ragged stream (:meth:`stream`) unless ``use_ragged`` is
+    False (default ``RACON_TPU_RAGGED``) or a ``mesh`` is given: then it
+    packs every window to one geometry in groups of at most
+    ``MAX_GROUP_PAIRS`` pairs binned by :func:`partition_balanced`, each
+    running the full round budget (the padded path, the parity oracle).
+    Under a mesh each group's windows are binned over the mesh's devices
+    and its rounds run through :func:`racon_tpu_torch.parallel.
+    sharded_refine_loop`. ``device`` pins the engine to one device instead
+    (``cuda``, the default, is the current card); ``pinned`` marks a chip
+    worker's engine, whose groups never gather their lanes from a layer
+    store's device pool (as a JAX engine with a device). Windows are
+    independent, so neither the path nor the grouping changes a byte.
 
     Every group goes through :meth:`_launch_group` (pack, pinned upload),
     :meth:`_rounds` (its rounds enqueued; on a card nothing is read back)
@@ -828,14 +825,23 @@ class CudaPoaConsensus:
 
     def __init__(self, match: int, mismatch: int, gap: int, fallback=None,
                  band: int = BAND, num_batches: int = 1,
-                 rounds: int = PARAMS.rounds, use_ragged: bool = True,
-                 device="cuda"):
-        self.device = resolve(device)
+                 rounds: int = PARAMS.rounds, use_ragged=None,
+                 device=None, mesh=None, pinned: bool = False):
+        if mesh is not None and device is not None:
+            raise ValueError("a consensus engine takes a mesh or a device "
+                             "pin, not both")
+        self.mesh = mesh
+        self.pinned = pinned
+        # the home device: uploads land here, a mesh group's merged state
+        # comes back here
+        self.device = resolve(mesh.devices[0] if mesh is not None
+                              else "cuda" if device is None else device)
         self.fallback = fallback
         self.max_depth = PARAMS.max_depth
         self.band = band
         self.rounds = rounds
-        self.use_ragged = use_ragged
+        self.use_ragged = (flags.get_bool("RACON_TPU_RAGGED")
+                           if use_ragged is None else use_ragged)
         self.ins_theta, self.del_beta = PARAMS.thresholds(match, gap)
         self.scores = (match, mismatch, gap)
         self.num_batches = max(1, num_batches)
@@ -920,7 +926,7 @@ class CudaPoaConsensus:
     # -------------------------------------------------------------- public
 
     def run(self, windows, trim: bool, progress=None) -> List[bool]:
-        if self.use_ragged:
+        if self.use_ragged and self.mesh is None:
             sess = self.stream(trim)
             sess.feed(windows)
             return sess.finish(progress=progress)
@@ -933,11 +939,11 @@ class CudaPoaConsensus:
         """Open a ragged streaming session: ``feed()`` dispatches full
         groups as window ranges arrive, ``finish()`` drains them, runs
         stage B and the host fallback and returns the flags of every fed
-        window in feed order. None without ``use_ragged`` (callers then
-        make one :meth:`run` call a range). ``band_hint`` bounds the
-        backbone length when the band freezes before every window is
-        fed."""
-        if not self.use_ragged:
+        window in feed order. None without ``use_ragged`` or under a mesh
+        (callers then make one :meth:`run` call a range). ``band_hint``
+        bounds the backbone length when the band freezes before every
+        window is fed."""
+        if not self.use_ragged or self.mesh is not None:
             return None
         return _ConsensusStream(self, trim, band_hint)
 
@@ -1001,22 +1007,16 @@ class CudaPoaConsensus:
         return [bool(r) for r in results]
 
     def _groups(self, live):
-        """Consecutive window runs of at most MAX_GROUP_PAIRS pairs (at
-        least ``num_batches`` groups when there are enough windows)."""
+        """At least ``num_batches`` groups, and enough that each holds
+        about ``group_pairs_cap`` pairs: the windows binned by
+        :func:`partition_balanced` on their layer counts (one group holds
+        them all when one is enough)."""
         total = sum(w.n_layers for _, w in live)
         n_groups = max(self.num_batches, -(-total // self.group_pairs_cap))
-        cap = -(-total // n_groups)
-        groups, cur, cur_pairs = [], [], 0
-        for item in live:
-            k = item[1].n_layers
-            if cur and cur_pairs + k > cap:
-                groups.append(cur)
-                cur, cur_pairs = [], 0
-            cur.append(item)
-            cur_pairs += k
-        if cur:
-            groups.append(cur)
-        return groups
+        if n_groups == 1:
+            return [list(live)]
+        bins = partition_balanced([w.n_layers for _, w in live], n_groups)
+        return [[live[i] for i in b] for b in bins if b]
 
     # -------------------------------------------------------------- device
 
@@ -1035,13 +1035,30 @@ class CudaPoaConsensus:
 
     def _launch_group_impl(self, items, Lq: int, Lb: int, overrides=None):
         """Pack one group (:func:`pack_group`) and upload it, through
-        pinned memory to a card; records the occupancy counters. A group
-        whose layers lie in a store with its pool on this engine's device
-        gathers its lanes there (:func:`gather_qpw_rows`) and uploads only
-        the gather rows. Returns the launch handle: its device state, the
-        works and the sizes."""
-        state_np, B, nWp = pack_group(items, Lq, Lb, overrides,
-                                      allow_dev=self.device)
+        pinned memory to a card; records the occupancy counters. Under a
+        mesh the group's windows are binned over its devices by
+        :func:`partition_balanced` (a window's pairs never leave its
+        shard), every shard packs to the largest shard's ``B`` and ``nWp``,
+        and the shards stack in shard order. A single-shard group of an
+        unpinned engine whose layers lie in a store with its pool on this
+        engine's device gathers its lanes there (:func:`gather_qpw_rows`)
+        and uploads only the gather rows. Returns the launch handle: its
+        device state, the works and the sizes."""
+        nd = mesh_size(self.mesh)
+        if nd == 1:
+            shards = [list(items)]
+        else:
+            bins = partition_balanced([w.n_layers for _, w in items], nd)
+            shards = [[items[i] for i in b] for b in bins]
+        B = _pow2_at_least(max(sum(w.n_layers for _, w in sh)
+                               for sh in shards))
+        nWp = _pow2_at_least(max(len(sh) for sh in shards) + 1)
+        allow_dev = (self.device if nd == 1 and self.mesh is None
+                     and not self.pinned else None)
+        packs = [pack_group(sh, Lq, Lb, overrides, allow_dev=allow_dev,
+                            B=B, nWp=nWp)[0] for sh in shards]
+        state_np = packs[0] if nd == 1 else {
+            k: np.concatenate([p[k] for p in packs]) for k in packs[0]}
         rows = state_np.pop("qpw_rows", None)
         if rows is not None:
             pool, src0, lens = rows
@@ -1055,15 +1072,16 @@ class CudaPoaConsensus:
         real = state_np["real"]
         occupied = int(state_np["n"][real].sum())
         self.stats["lanes_occupied"] += occupied
-        self.stats["lanes_total"] += B * Lq
+        self.stats["lanes_total"] += nd * B * Lq
         self.stats["groups"] += 1
         self.stats["group_windows"] += len(items)
         metrics.inc("consensus.lanes_occupied", occupied)
-        metrics.inc("consensus.lanes_total", B * Lq)
+        metrics.inc("consensus.lanes_total", nd * B * Lq)
         metrics.inc("consensus.groups")
         metrics.inc("consensus.group_windows", len(items))
         st = refine_state_to_torch(state_np, self.device)
-        return {"items": items, "B": B, "nWp": nWp,
+        return {"items": [it for sh in shards for it in sh],
+                "shards": shards, "nd": nd, "B": B, "nWp": nWp,
                 "pairs": int(real.sum()),
                 "static": [st[k] for k in STATE_NAMES[:4]],
                 "state": [st[k] for k in STATE_NAMES[4:]],
@@ -1078,13 +1096,20 @@ class CudaPoaConsensus:
             self._rounds_impl(launch)
 
     def _refine(self, launch, state, packed16: bool, idle):
+        """The launch's rounds from ``state``: one loop, or one a shard
+        through :func:`sharded_refine_loop` under a mesh."""
         Lq, Lb, steps, Lq2 = launch["geom"]
-        return refine_loop(
-            *launch["static"], *state, self.ins_theta, self.del_beta,
-            rounds=launch["rounds"], early_exit=self.device.type != "cuda",
-            idle=idle, n_windows=launch["nWp"], max_len=Lq,
-            band=launch["band"], Lb=Lb, K=K_INS, steps=steps,
-            packed16=packed16, Lq2=Lq2, scores=self.scores)
+        kw = dict(rounds=launch["rounds"],
+                  early_exit=self.device.type != "cuda", idle=idle,
+                  max_len=Lq, band=launch["band"], Lb=Lb, K=K_INS,
+                  steps=steps, packed16=packed16, Lq2=Lq2,
+                  scores=self.scores)
+        if launch["nd"] > 1:
+            return sharded_refine_loop(
+                self.mesh, launch["static"], state, self.ins_theta,
+                self.del_beta, n_windows_local=launch["nWp"], **kw)
+        return refine_loop(*launch["static"], *state, self.ins_theta,
+                           self.del_beta, n_windows=launch["nWp"], **kw)
 
     def _rounds_impl(self, launch) -> None:
         """Enqueue the launch's ``rounds`` from its current state, then
@@ -1127,16 +1152,29 @@ class CudaPoaConsensus:
         ``STAGE_B_MAX_SURVIVOR_FRAC`` of them survive: then the group runs
         its remaining rounds in place and is decoded after them."""
         items, nWp, B = launch["items"], launch["nWp"], launch["B"]
+        nd = launch["nd"]
         mat, meta = (t.cpu().numpy() for t in launch["fetch"])
         bcodes = (mat & 7).astype(np.uint8)
         covs = mat >> 3
+        nWr = nd * nWp
         blen, ever, frozen, conv, dropped, bg, ed, idle = np.split(
-            meta, np.cumsum([nWp, nWp, nWp, nWp, 4 + nWp, B, B]))
+            meta, np.cumsum([nWr, nWr, nWr, nWr, nd * (4 + nWp), nd * B,
+                             nd * B]))
+        dropped = dropped.reshape(nd, 4 + nWp)
+        # each window's row and first pair row in the stacked state, in
+        # items order (shard s holds rows s * nWp .. and pairs s * B ..)
+        rows, pair0 = [], []
+        for s, sh in enumerate(launch["shards"]):
+            off = s * B
+            for wi, (_, w) in enumerate(sh):
+                rows.append(s * nWp + wi)
+                pair0.append(off)
+                off += w.n_layers
         if sanitize.enabled():
             sanitize.check_consensus_canaries(
                 bcodes, blen, covs, Lb=launch["geom"][1],
                 context=f"consensus group (nWp={nWp})")
-        unconverged = (conv[:len(items)] == 0) & (frozen[:len(items)] == 0)
+        unconverged = (conv[rows] == 0) & (frozen[rows] == 0)
         if (collect is not None and unconverged.sum()
                 > STAGE_B_MAX_SURVIVOR_FRAC * len(items)):
             launch.update(rounds=self.rounds - STAGE_A_ROUNDS,
@@ -1144,29 +1182,28 @@ class CudaPoaConsensus:
             self._rounds(launch)
             self._finish_group(launch, trim, results)
             return
-        self.stats["dropped_layers"] += int(dropped[0])
-        self.stats["sweep_truncated"] += int(dropped[1])
-        self.stats["ins_overflow"] += int(dropped[2])
-        self.stats["wavefront_steps"] += int(dropped[3])
+        head = dropped[:, :4].sum(axis=0)
+        self.stats["dropped_layers"] += int(head[0])
+        self.stats["sweep_truncated"] += int(head[1])
+        self.stats["ins_overflow"] += int(head[2])
+        self.stats["wavefront_steps"] += int(head[3])
         self.stats["rounds_after_converged"] += int(idle[0])
-        metrics.inc("consensus.dropped_layers", int(dropped[0]))
-        metrics.inc("consensus.sweep_truncated", int(dropped[1]))
-        metrics.inc("consensus.ins_overflow", int(dropped[2]))
-        metrics.inc("consensus.wavefront_steps", int(dropped[3]))
-        # columns [4:] attribute the overflow counter to the group's
+        metrics.inc("consensus.dropped_layers", int(head[0]))
+        metrics.inc("consensus.sweep_truncated", int(head[1]))
+        metrics.inc("consensus.ins_overflow", int(head[2]))
+        metrics.inc("consensus.wavefront_steps", int(head[3]))
+        # columns [4:] attribute the overflow counter to each shard's
         # window rows (accumulated over its rounds)
-        ovf_tail = dropped[4:]
-        off = 0
-        for row, (i, w) in enumerate(items):
+        ovf_tail = dropped[:, 4:].reshape(-1)
+        for k, (row, (i, w)) in enumerate(zip(rows, items)):
             ovf = int(ovf_tail[row])
             if ovf:
                 self.ins_overflow_by_window[i] = \
                     self.ins_overflow_by_window.get(i, 0) + ovf
                 metrics.inc("consensus.ins_overflow_windows")
             kw = w.n_layers
-            p0 = off
-            off += kw
-            if collect is not None and unconverged[row]:
+            p0 = pair0[k]
+            if collect is not None and unconverged[k]:
                 collect.append((i, w, (
                     bcodes[row].copy(), int(blen[row]), covs[row].copy(),
                     bool(ever[row]), bg[p0:p0 + kw].copy(),

@@ -12,6 +12,8 @@ between them only moves time.
 
 from __future__ import annotations
 
+from .. import flags
+
 BIG16 = 0x4800
 
 # band -> the forward kernel the engines launch there: the one that
@@ -68,6 +70,9 @@ def swar_fits(max_len: int) -> bool:
 def use_packed16(max_len: int, band: int) -> bool:
     """Whether a launch at ``(max_len, band)`` takes the int16x2 kernel:
     where the guard holds and ``FORWARD_KERNEL`` names it (or does not
-    list the band: the JAX engines' choice)."""
+    list the band: the JAX engines' choice), unless ``RACON_TPU_SWAR=0``
+    forces the int32 kernel."""
+    if not flags.get_bool("RACON_TPU_SWAR"):
+        return False  # the A/B switch: K1 everywhere
     return (swar_fits(max_len)
             and FORWARD_KERNEL.get(band, "nw_fwd_i16x2") == "nw_fwd_i16x2")

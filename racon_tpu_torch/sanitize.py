@@ -16,11 +16,13 @@
   runner's polishes) it also calls it once a stall outlasts
   ``escalate_after`` timeouts.
 - **Lock-order witness**: the named locks (:func:`named_lock`: the shard
-  index's and the heartbeat's) become :class:`WitnessedLock`, the
-  acquisition-order graph across threads is recorded (one stack per
-  first-seen edge), and every cycle, a potential deadlock even where this
-  run's interleaving never hung, is printed at process exit with the stack
-  of each edge on it. The metrics registry's own lock stays plain: the
+  runner's ``exec.manifest``, ``exec.notes`` and ``exec.states``, the
+  service's ``serve.slots``, ``serve.state`` and ``serve.journal``, the
+  gateway's ``fleet.state``, the shard index's and the heartbeat's)
+  become :class:`WitnessedLock`, the acquisition-order graph across
+  threads is recorded (one stack per first-seen edge), and every cycle, a
+  potential deadlock even where this run's interleaving never hung, is
+  printed at process exit with the stack of each edge on it. The metrics registry's own lock stays plain: the
   witness publishes through it.
 - **Contract audit**: at process exit, the registered metrics this process
   never wrote, and the report keys whose backing metric

@@ -6,11 +6,13 @@ submitted polish jobs through :meth:`Polisher.run` with a slot's engines
 injected, so a job pays for its compute and not for a process start, a
 CUDA context, the kernel libraries' loads and the engines' arenas.
 
-- **Slots**: ``max(1, workers)`` unpinned
-  :class:`racon_tpu_torch.exec.runner._ChipWorker` slots on the one
-  device (the server passes itself as the duck-typed engine profile),
-  each with its own engine pair (engines hold per-run state and are never
-  shared by concurrent jobs) and the ladder's host pair.
+- **Slots**: :class:`racon_tpu_torch.exec.runner._ChipWorker` slots (the
+  server passes itself as the duck-typed engine profile), each with its
+  own engine pair (engines hold per-run state and are never shared by
+  concurrent jobs) and the ladder's host pair: one slot pinned to each
+  card when the chip scheduler engages (``--chips N``, or a ``cuda``
+  backend on a multi-card host), then unpinned slots up to ``workers``;
+  without it ``max(1, workers)`` unpinned slots on the one device.
 - **Admission**: the exec planner's cost model
   (:func:`racon_tpu_torch.exec.planner.cached_job_cost`) gates
   submissions: a job over the budget, a full queue, a spec the resident
@@ -55,8 +57,13 @@ How it departs from the JAX service, on purpose:
   work never moves to the host (as the shard runner does,
   ``ShardRunner.primary_on_card``). With host primary engines the ladder
   is JAX's.
-- **Slots.** No ``--chips``: the slots are unpinned on one device; pinned
-  per-chip slots come with multi-GPU.
+- **Slots.** A pinned slot's engines take its card as an explicit
+  device, and its thread runs with that card current
+  (``ChipSlot.pin``); on a ``--device cpu`` server the pinned slots stay
+  on the CPU. The server and the shard runner share one slot rule
+  (``topology.executor_slots``), so an explicit ``--chips 1`` pins card 0
+  here as well: the JAX service leaves that slot unpinned, where its
+  engines' automatic mesh would take every chip.
 - **Fleet membership.** With ``fleet_dir`` (``--fleet-dir``) the server
   registers a beacon under ``<fleet-dir>/hosts/`` once its socket is
   bound (:class:`racon_tpu_torch.fleet.registry.HostBeacon`) and
@@ -88,6 +95,8 @@ from ..exec.planner import cached_job_cost, parse_ram
 from ..exec.runner import _ChipWorker
 from ..io import parsers
 from ..obs import buildwatch, metrics, report as obs_report
+from ..parallel import topology
+from ..parallel.topology import ChipSlot
 from ..utils.logger import log_swallowed, warn
 from . import protocol
 from .journal import JobJournal
@@ -236,7 +245,7 @@ class PolishServer:
                  aligner_backend: str = "native",
                  consensus_backend: str = "native",
                  aligner_batches: int = 1, consensus_batches: int = 1,
-                 workers: int = 0,
+                 chips: int = 0, workers: int = 0,
                  budget_bytes: int = 0, max_queue: int = 0,
                  autostart: bool = True,
                  serve_dir: Optional[str] = None,
@@ -253,6 +262,7 @@ class PolishServer:
         self.consensus_backend = consensus_backend
         self.aligner_batches = aligner_batches
         self.consensus_batches = consensus_batches
+        self.chips_requested = chips
         self.workers_requested = workers
         self.worker = lease_mod.worker_identity()
         self.budget_bytes = budget_bytes or parse_ram(
@@ -314,20 +324,25 @@ class PolishServer:
         return self._chip_slots()[0].primary_on_card()
 
     def _chip_slots(self) -> List[_ChipWorker]:
-        """The slot pool: ``max(1, workers)`` unpinned slots on the one
-        device, each with its own engine pair. Resolved once, under its
-        own lock."""
+        """The slot pool: the chip scheduler's slots
+        (:func:`~racon_tpu_torch.parallel.topology.executor_slots`, one
+        pinned slot a card when it engages), topped up with unpinned slots
+        to ``workers``. Each slot owns its engine pair. Resolved once,
+        under its own lock (a connection handler and the warm pool race
+        for the first resolution)."""
         if self._slots is not None:
             return self._slots
         with self._slots_lock:
             if self._slots is not None:
                 return self._slots
-            slots = []
-            for k in range(max(1, self.workers_requested)):
-                slot = _ChipWorker(self, k)
-                if k:
-                    slot.worker = f"{self.worker}#w{k}"
-                slots.append(slot)
+            slots = [_ChipWorker(self, s) for s in topology.executor_slots(
+                self.chips_requested,
+                (self.aligner_backend, self.consensus_backend),
+                self._device)]
+            for k in range(len(slots), max(1, self.workers_requested)):
+                extra = _ChipWorker(self, ChipSlot(k, None))
+                extra.worker = f"{self.worker}#w{k}"
+                slots.append(extra)
             self._slots = slots
         return slots
 
@@ -518,6 +533,10 @@ class PolishServer:
                 self._cond.wait(0.2)
 
     def _worker_loop(self, worker: _ChipWorker) -> None:
+        with worker.slot.pin():
+            self._worker_loop_inner(worker)
+
+    def _worker_loop_inner(self, worker: _ChipWorker) -> None:
         while True:
             job = self._next_job(worker)
             if job is None:
@@ -573,7 +592,9 @@ class PolishServer:
             trim=not spec["no_trimming"],
             match=spec["match"], mismatch=spec["mismatch"],
             gap=spec["gap"], num_threads=spec["threads"],
-            aligner=aligner, consensus=consensus, device=self.device)
+            aligner=aligner, consensus=consensus,
+            device=(worker.device if worker.device is not None
+                    else self.device))
         polished = p.run(not spec["include_unpolished"])
         job.phases = dict(p.timings)
         return b"".join(b">" + s.name + b"\n" + s.data + b"\n"
@@ -1024,7 +1045,7 @@ class PolishServer:
                 for queued in stranded:
                     self._journal_terminal(queued)
             return
-        fresh = _ChipWorker(self, slot.ordinal)
+        fresh = _ChipWorker(self, slot.slot)
         fresh.worker = slot.worker  # the identity stays
         with self._slots_lock:
             if self._slots is not None and idx < len(self._slots) \

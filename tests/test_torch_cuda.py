@@ -638,3 +638,70 @@ def test_shard_runner_survives_a_real_cuda_oom(cuda_device, tmp_path):
     assert "out of memory" in attempts[0]["error"]
     assert [e.capacity_scale for e in runner.engines] == \
         [2 ** len(attempts)] * 2
+
+
+# ------------------------------------------------------------ several cards
+
+def _card_list(cuda_device, k):
+    """``k`` copies of the first card, or the real cards where the host
+    has ``k``: every split, pin and merge runs with the real kernels."""
+    n = torch.cuda.device_count()
+    if n >= k:
+        return [torch.device("cuda", i) for i in range(k)]
+    return [torch.device("cuda", 0)] * k
+
+
+def test_mesh_aligner_on_the_card_matches_single(cuda_device):
+    """CudaAligner over a mesh of the card (named twice, or two real
+    cards) == the single-device engine: CIGARs and breaking points, every
+    chunk's batch a multiple of the mesh."""
+    from racon_tpu_torch.parallel import get_mesh
+    rng = np.random.default_rng(11)
+    pairs = []
+    for _ in range(40):
+        t = BASES[rng.integers(0, 4, int(rng.integers(40, 240)))]
+        pairs.append((_mutate(rng, t, 0.1).tobytes(), t.tobytes()))
+    mesh = get_mesh(devices=_card_list(cuda_device, 2))
+    buckets = ((128, 64), (256, 128))
+    meshed = CudaAligner(fallback=backends.NativeAligner(1),
+                         buckets=buckets, mesh=mesh)
+    single = CudaAligner(fallback=backends.NativeAligner(1),
+                         buckets=buckets, device=cuda_device)
+    assert meshed.align_batch(pairs) == single.align_batch(pairs)
+    assert all(B % 2 == 0 for *_, B, _ in meshed.stats["chunk_shapes"])
+    metas = [(50 * i, i) for i in range(len(pairs))]
+    for a, b in zip(meshed.breaking_points_batch(pairs, metas, 100),
+                    single.breaking_points_batch(pairs, metas, 100)):
+        assert np.array_equal(a, b)
+
+
+def test_mesh_consensus_on_the_card_matches_single(cuda_device):
+    from racon_tpu_torch.parallel import get_mesh
+    fb = backends.NativePoaConsensus(3, -5, -4)
+    wm, ws = _windows(21), _windows(21)
+    mesh = get_mesh(devices=_card_list(cuda_device, 2))
+    meshed = CudaPoaConsensus(3, -5, -4, fallback=fb, mesh=mesh)
+    single = CudaPoaConsensus(3, -5, -4, fallback=fb, device=cuda_device)
+    assert meshed.run(wm, trim=True) == single.run(ws, trim=True)
+    assert [w.consensus for w in wm] == [w.consensus for w in ws]
+    assert meshed.stats["device_windows"] == len(wm)
+
+
+def test_pinned_engine_launches_on_its_card(cuda_device):
+    """A pinned engine's uploads and launches land on its card whatever
+    the thread's current device is; a launch whose inputs sit on two cards
+    raises (needs two cards)."""
+    card = _card_list(cuda_device, 2)[-1]
+    eng = backends.make_consensus("cuda", 3, -5, -4, device=card,
+                                  pinned=True)
+    assert eng.device == card and eng.mesh is None and eng.pinned
+    ws = _windows(5)
+    with torch.cuda.device(0):
+        eng.run(ws, trim=True)
+    assert all(w.consensus for w in ws)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("two cards needed for inputs on two devices")
+    a = torch.zeros((4, 64), dtype=torch.uint8, device="cuda:0")
+    n = torch.ones(4, dtype=torch.int32, device="cuda:1")
+    with pytest.raises(ValueError, match="different devices"):
+        cuda_nw.nw_fwd(a, a, n, n, max_len=32, band=32)

@@ -73,6 +73,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "racon_tpu"))
 print("LOADED", bad)
+print("PARALLEL", sorted(m for m in sys.modules
+                         if m.startswith("racon_tpu_torch.parallel")))
 """
 
 
@@ -83,6 +85,9 @@ def test_port_and_smoke_import_neither_jax_nor_racon_tpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout
+    # the multi-device subpackage is among the modules checked
+    assert ("PARALLEL ['racon_tpu_torch.parallel', "
+            "'racon_tpu_torch.parallel.topology']") in proc.stdout
 
 
 def test_default_device_raises_without_a_card(sim_inputs):
