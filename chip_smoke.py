@@ -6,7 +6,8 @@ chip_smoke.py``. It needs one CUDA device, ``nvcc``, ``nvidia-smi`` and a
 ``g++`` that finds zlib's header, and it exits non-zero (printing no
 result) when any of them is missing or any phase fails. (``python3
 chip_smoke.py --chain-ab SRC`` runs only :func:`chain_ab`, which times
-another ``chain_dp.cu`` against this tree's.) Phases, one JSON line each:
+another ``chain_dp.cu`` against this tree's; ``--multihost-rank`` is
+the multihost phase's child.) Phases, one JSON line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
@@ -236,6 +237,22 @@ another ``chain_dp.cu`` against this tree's.) Phases, one JSON line each:
              and (b) again over the real ones, else the line says they did
              not run. Its shard-local launch shapes join the ``unheld``
              check (``launches_chips``);
+   multihost — two processes, one mesh: two children of this script
+             (``--multihost-rank``) each call ``parallel.distributed_init``
+             (gloo on ``127.0.0.1``) and polish the main phase's 1 Mbp
+             inputs through ``create_polisher`` with both ``cuda`` engines
+             and no mesh given, so ``_auto_mesh`` engages the global mesh:
+             two slots on this card, one a process. Each child launches its
+             own slot's shards, the shards' outputs are all-gathered on the
+             host, and every child writes the whole FASTA. It fails unless
+             both children's SHA-256 equal the main phase's, both engines'
+             meshes have 2 slots with 1 addressable, K4, K2, K3 and
+             ``breaking_points`` launched in each child (counted from
+             zero), and both exit 0 within the limit; it prints each
+             child's wall, launches, peak device bytes and the bytes and
+             seconds of its all-gathers. A second physical card and a
+             second host are not shown. Its shard-local shapes join the
+             ``unheld`` check (``launches_multihost``);
    overlap — on a 0.2 Mbp genome (seed 23), ``chain.find_overlaps`` with
              its tensors on the card and on the CPU (the plain versions):
              every row array equal; then, on the card, the seconds of the
@@ -371,6 +388,7 @@ from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
                                      T_PAD, CudaPoaConsensus, bucket_geometry,
                                      sweep_geometry)
 from racon_tpu_torch.ops.swar import use_packed16
+from racon_tpu_torch import parallel
 from racon_tpu_torch.parallel import get_mesh, topology
 from racon_tpu_torch.utils.simulate import (_mutate, adversarial_chain_arena,
                                             write_inputs)
@@ -945,14 +963,14 @@ def unheld_shapes(path, held) -> list:
 
 
 def phase_kernels(dev, main, auto, shards, resident, resident_auto,
-                  workers, wrapper, serve, fleet, chips):
+                  workers, wrapper, serve, fleet, chips, multihost):
     """Both forward kernels and the walk that follows at every shape the
     main path (``main``), the ``--overlaps auto`` path (``auto``) and the
     shards phase (``shards``), the resident phases (``resident``,
     ``resident_auto``) and the child processes of the workers, wrapper,
     serve and fleet phases (``workers``, ``wrapper``, ``serve``,
-    ``fleet``) and the chips phase's shard-local launches (``chips``)
-    launched: every
+    ``fleet``) and the chips and multihost phases' shard-local launches
+    (``chips``, ``multihost``) launched: every
     consensus (Lq, band) of any at its largest and smallest group (K3 at
     each; K2 at the largest group's geometry, off the main path), and each
     aligner bucket at the main path's largest chunk there, and once more
@@ -980,7 +998,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                                  + wrapper["consensus_group_shapes"]
                                  + serve["consensus_group_shapes"]
                                  + fleet["consensus_group_shapes"]
-                                 + chips["consensus_group_shapes"])
+                                 + chips["consensus_group_shapes"]
+                                 + multihost["consensus_group_shapes"])
     Lq, band, B = consensus[0]
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
@@ -1010,7 +1029,8 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
                         (wrapper, " (wrapper phase)"),
                         (serve, " (serve phase)"),
                         (fleet, " (fleet phase)"),
-                        (chips, " (chips phase)")):
+                        (chips, " (chips phase)"),
+                        (multihost, " (multihost phase)")):
         for k, (Bc, _) in sorted(aligner_buckets(path).items()):
             if Bc > largest.get(k, 0):
                 extra[k] = (Bc, path["aligner_div_obs"], label)
@@ -2157,15 +2177,18 @@ class DeviceMemorySampler:
                     samples=len(self.samples), errors=self.errors[:3])
 
 
-def _child_env(hook_dir, **extra):
+def _child_env(hook_dir=None, **extra):
     """The smoke's environment for a child: no ``RACON_TPU_*`` setting of
-    an earlier phase, the hook on the path, the checkout importable."""
+    an earlier phase, the hook (if any) on the path, the checkout
+    importable."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("RACON_TPU_")}
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(hook_dir), str(ROOT)]
+        ([str(hook_dir)] if hook_dir else []) + [str(ROOT)]
         + [p for p in [os.environ.get("PYTHONPATH", "")] if p])
-    return dict(env, CHIP_SMOKE_HOOK_DIR=str(hook_dir), **extra)
+    if hook_dir:
+        env["CHIP_SMOKE_HOOK_DIR"] = str(hook_dir)
+    return dict(env, **extra)
 
 
 def _spawn(args, cwd, env, out_path=None):
@@ -2795,7 +2818,6 @@ def _compute_apps() -> list:
 
 def phase_fleet(main, shards, paths):
     """Two card hosts behind one gateway (see the module docstring)."""
-    import socket
     import tempfile
     from racon_tpu_torch.serve.client import ServiceClient
     base = ROOT / "build" / "smoke_fleet"
@@ -2812,9 +2834,7 @@ def phase_fleet(main, shards, paths):
     sock_dir = pathlib.Path(tempfile.mkdtemp(prefix="rfl"))
     socks = {name: sock_dir / f"{name}.sock"
              for name in ("h0", "h1", "a_wedged")}
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        address = f"127.0.0.1:{probe.getsockname()[1]}"
+    address = f"127.0.0.1:{_free_port()}"
     ttl = dict(RACON_TPU_FLEET_HOST_TTL_S="3")
     host_env = dict(_child_env(hook, **ttl), PYTHONFAULTHANDLER="1")
     gateway_env = dict(_child_env(hook, **ttl), PYTHONFAULTHANDLER="1",
@@ -3294,6 +3314,121 @@ def phase_chips(dev, main, shards, paths):
     return out
 
 
+# ------------------------------------------------- several processes
+
+# a child's limit: its start, a cold build check and the mesh polish
+MULTIHOST_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_child(rank: int, world: int, port: int, out_path: str,
+                    reads: str, overlaps: str, draft: str) -> int:
+    """One rank of the multihost phase: join the group, polish the 1 Mbp
+    inputs with no mesh given (``_auto_mesh`` engages the global mesh)
+    and write this rank's record to ``out_path``."""
+    parallel.distributed_init(f"127.0.0.1:{port}", world, rank)
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_nw.reset_launches()
+    metrics.clear("parallel.")
+    t0 = time.perf_counter()
+    polisher = create_polisher(reads, overlaps, draft, num_threads=8,
+                               aligner="cuda", consensus="cuda",
+                               device="cuda")
+    polished = polisher.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n"
+                     for s in polished)
+    al, co = polisher.aligner, polisher.consensus
+    nd = parallel.mesh_size(al.mesh)
+    rec = dict(rank=rank, wall_s=wall_s,
+               sha256=hashlib.sha256(fasta).hexdigest(),
+               launches=dict(cuda_nw.LAUNCHES),
+               peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+               gathers=dict(
+                   calls=metrics.counter("parallel.gather_calls"),
+                   bytes=metrics.counter("parallel.gather_bytes"),
+                   seconds=metrics.timer_s("parallel.gather_s")),
+               meshes=[[parallel.mesh_size(e.mesh), len(e.mesh.addressable()),
+                        list(e.mesh.owners)] for e in (al, co)],
+               aligner_chunks=al.stats["chunks"],
+               consensus_groups=co.stats["groups"],
+               aligner_chunk_shapes=_shard_local(al.stats["chunk_shapes"],
+                                                 nd),
+               consensus_group_shapes=list(co.stats["group_shapes"]),
+               aligner_div_obs=al._div_obs)
+    pathlib.Path(out_path).write_text(json.dumps(rec))
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multihost(main, paths):
+    """Two processes polishing over one global mesh (see the module
+    docstring)."""
+    work = ROOT / "build" / "smoke_multihost"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    port = _free_port()
+    env = _child_env()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-rank",
+         str(rank), "2", str(port), str(work / f"rank{rank}.json"),
+         paths["reads"], paths["overlaps"], paths["draft"]],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True) for rank in range(2)]
+    done = _finish(procs, timeout=MULTIHOST_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for rank, (rc, out, err) in enumerate(done):
+        if rc != 0:
+            raise RuntimeError(f"multihost phase: rank {rank} exited {rc}:"
+                               f"\n{out.decode(errors='replace')[-2000:]}"
+                               f"\n{err[-4000:]}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    out = dict(phase="multihost", card=gpu_line(), seconds=seconds,
+               processes=2, mesh_devices=["cuda:0", "cuda:0"],
+               note=("two processes on one card, a slot each; a second "
+                     "physical card and a second host are not shown"),
+               ranks=[{k: v for k, v in r.items()
+                       if not k.endswith("_shapes")
+                       and k != "aligner_div_obs"} for r in ranks],
+               launches={k: sum(r["launches"][k] for r in ranks)
+                         for k in cuda_nw.KERNELS},
+               peak_device_bytes=max(r["peak_device_bytes"] for r in ranks),
+               aligner_chunk_shapes=[s for r in ranks
+                                     for s in r["aligner_chunk_shapes"]],
+               consensus_group_shapes=[s for r in ranks for s in r[
+                   "consensus_group_shapes"]],
+               aligner_div_obs=ranks[0]["aligner_div_obs"])
+    emit({k: v for k, v in out.items()
+          if k not in ("aligner_chunk_shapes", "consensus_group_shapes",
+                       "aligner_div_obs")})
+    for r in ranks:
+        if r["sha256"] != main["fasta_sha256"]:
+            raise RuntimeError(f"multihost phase: rank {r['rank']} did not "
+                               f"polish the main phase's bytes")
+        if r["meshes"] != [[2, 1, [0, 1]]] * 2:
+            raise RuntimeError(f"multihost phase: rank {r['rank']}'s "
+                               f"engines are not on the global mesh: "
+                               f"{r['meshes']}")
+        missed = [k for k in CHIPS_KERNELS if r["launches"][k] <= 0]
+        if missed:
+            raise RuntimeError(f"multihost phase: rank {r['rank']} "
+                               f"launched no {missed}")
+    return out
+
+
 def phase_overlap(dev, paths, mbp=0.2):
     """``chain.find_overlaps`` on a 0.2 Mbp genome (seed 23) with its
     tensors on the card and on the CPU (the plain versions of the seeding,
@@ -3713,6 +3848,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     if sys.argv[1:2] == ["--chain-ab"] and len(sys.argv) == 3:
         return chain_ab(dev, pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--multihost-rank"] and len(sys.argv) == 9:
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        return multihost_child(rank, world, port, *sys.argv[5:9])
     record = {}
     t_start = time.perf_counter()
 
@@ -3778,6 +3916,7 @@ def main() -> int:
     record["fleet"]["seconds"] = time.perf_counter() - t0
     record["chips"] = phase_chips(dev, record["main"], record["shards"],
                                   paths)
+    record["multihost"] = phase_multihost(record["main"], paths)
     t0 = time.perf_counter()
     record["overlap"] = phase_overlap(dev, paths)
     record["overlap"]["seconds"] = time.perf_counter() - t0
@@ -3797,7 +3936,8 @@ def main() -> int:
                                          record["wrapper"],
                                          record["serve"],
                                          record["fleet"],
-                                         record["chips"])
+                                         record["chips"],
+                                         record["multihost"])
     entries["chain_dp"] = chain_entry(launched, dev)
     del launched
     record["kernels"] = dict(phase="kernels",
@@ -3815,7 +3955,7 @@ def main() -> int:
     unheld = {p: unheld_shapes(record[p], held)
               for p in ("main", "main_auto", "shards", "resident",
                         "resident_auto", "workers", "wrapper", "serve",
-                        "fleet", "chips")}
+                        "fleet", "chips", "multihost")}
     record["kernels"]["unheld"] = unheld
 
     t0 = time.perf_counter()
@@ -3856,6 +3996,8 @@ def main() -> int:
             # the chips phase's legs: the mesh on this card twice, two
             # chip workers, the mesh-dominant plan
             launches_chips=record["chips"]["launches"][name],
+            # the two ranks of the multihost phase, summed
+            launches_multihost=record["multihost"]["launches"][name],
             on_main_path=name in on_path | on_auto,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],

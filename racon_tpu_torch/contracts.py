@@ -66,6 +66,9 @@ METRICS: FrozenSet[str] = frozenset((
     "overlap.lanes_occupied", "overlap.lanes_total", "overlap.minimizers",
     "overlap.mode_auto", "overlap.seed_lanes_occupied",
     "overlap.seed_lanes_total", "overlap.stream_groups",
+    # the host all-gathers of a process group's mesh merges
+    # (parallel.fetch_global)
+    "parallel.gather_bytes", "parallel.gather_calls", "parallel.gather_s",
     # the pipelined polish's bounded queue
     "queue.consumer_wait_s", "queue.depth", "queue.producer_wait_s",
     # the runtime sanitizer's exit reports (lock-order cycles, the
@@ -111,7 +114,7 @@ RUN_PREFIXES: Tuple[str, ...] = (
     "align.", "aligner.", "poa.", "consensus.", "queue.", "retrace.",
     "retrace_total.", "swallowed.", "trace.", "parse.", "overlap.",
     "transmute", "bp.", "build.", "stitch", "exec.", "faults.",
-    "lease.", "device.", "compile.", "dataflow.",
+    "lease.", "device.", "compile.", "dataflow.", "parallel.",
 )
 
 # ------------------------------------------------------------- span names

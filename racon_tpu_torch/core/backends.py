@@ -59,15 +59,22 @@ def _auto_mesh(mesh, device):
     unindexed ``cuda`` and more than one card is visible (the reference's
     ``-c N`` uses every visible GPU, ``src/cuda/cudapolisher.cpp:46,
     72-83``). An indexed device is a pin and never engages one; neither
-    does the CPU, nor a machine with one card."""
+    does the CPU, nor a machine with one card. In a process group
+    (:func:`racon_tpu_torch.parallel.distributed_init`) the global mesh
+    always engages, as the JAX package's does over ``jax.devices()``: this
+    process contributes every local card for an unindexed ``cuda``, else
+    the one device it was given."""
     if mesh is not None:
         return mesh
     import torch
 
+    from ..parallel import get_mesh, is_multihost
     dev = torch.device(device)
+    if is_multihost():
+        return get_mesh() if dev.type == "cuda" and dev.index is None \
+            else get_mesh(devices=[dev])
     if dev.type == "cuda" and dev.index is None \
             and torch.cuda.is_available() and torch.cuda.device_count() > 1:
-        from ..parallel import get_mesh
         return get_mesh()
     return None
 

@@ -89,6 +89,12 @@ REGISTRY: Dict[str, Flag] = _declare([
          "Queue watchdog timeout in seconds: with the sanitizer on, a "
          "producer/consumer stall longer than this dumps every thread's "
          "stack to stderr."),
+    Flag("RACON_TPU_NATIVE_SANITIZE", "0", "bool",
+         "Build the native C++ core with ASan/UBSan "
+         "(-fsanitize=address,undefined) into its own shared object "
+         "(libracon_torch_native_san.so); loading it requires the ASan "
+         "runtime preloaded (LD_PRELOAD=$(g++ -print-file-name="
+         "libasan.so))."),
     Flag("RACON_TPU_FAULTS", "", "str",
          "Seeded site-addressed fault injection: 'site:kind[@N][*][%P],...' "
          "with sites consensus.dispatch / align.dispatch / align.fetch / "

@@ -1,7 +1,8 @@
 """Host-native core of the port: the C++ aligner, POA engine, CIGAR
 breaking-point decoder and streaming FASTA/FASTQ/PAF/MHAP/SAM parsers
 (copies of ``racon_tpu/native/{nw,poa,bp,parsers}.cpp``), loaded with
-ctypes.
+ctypes, and the CPython extension over the overlap parser
+(``pyext.cpp``, a copy of the JAX package's).
 
 Built on demand with g++ (linked with zlib, which the parsers inflate
 gzip with) into ``build/native`` at the root of the checkout and rebuilt
@@ -10,6 +11,19 @@ when a source is newer. Every input file is parsed here
 reject here, and the smoke scores polished contigs with
 :func:`edit_distance`. ``PARSE_CALLS`` counts the files parsed without
 error, by entry point.
+
+:func:`parse_ovlfile` goes through the extension wherever Python's headers
+exist (its build or load failing there raises :class:`NativeBuildError`)
+and through ctypes where they do not (the reason is logged once to the
+run report's ``swallowed`` section); ``EXT_STATE`` says which
+(``"loaded"`` or ``"no_headers"``, ``None`` before the first parse).
+
+``RACON_TPU_NATIVE_SANITIZE=1`` builds the ctypes library with ASan and
+UBSan (``-fsanitize=address,undefined``) into its own
+``libracon_torch_native_san.so``, so the fast build is never evicted;
+loading it needs the ASan runtime preloaded (``LD_PRELOAD=$(g++
+-print-file-name=libasan.so)``), so the variant is fixed per process at
+its first load.
 """
 
 from __future__ import annotations
@@ -18,56 +32,149 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import sysconfig
 import threading
 import time
 
 import numpy as np
 
+from .. import flags
 from .._paths import build_root
 from ..obs import buildwatch
 
 _DIR = pathlib.Path(__file__).resolve().parent
-_SOURCES = sorted(_DIR.glob("*.cpp"))
+# pyext.cpp needs Python's headers: it is built into its own module, so
+# the ctypes library never depends on them
+_SOURCES = sorted(s for s in _DIR.glob("*.cpp") if s.name != "pyext.cpp")
+_EXT_SOURCES = [_DIR / "pyext.cpp", _DIR / "parsers.cpp"]
+_EXT_NAME = "racon_torch_native_ext"
 _lock = threading.Lock()
 _lib = None
+_ext = None
+# which route parse_ovlfile takes: "loaded" (the extension) or
+# "no_headers" (ctypes); None until the first overlap parse
+EXT_STATE = None
 PARSE_CALLS = {"seqfile": 0, "ovlfile": 0}
+
+# the sanitized build keeps frame pointers and -O1, so the sanitizers'
+# reports carry usable stacks (the JAX package's options)
+_SANITIZE_OPTS = ["-O1", "-g", "-fno-omit-frame-pointer",
+                  "-fsanitize=address,undefined",
+                  "-fno-sanitize-recover=undefined"]
 
 
 class NativeBuildError(RuntimeError):
     pass
 
 
+def _sanitize_build() -> bool:
+    """ASan/UBSan build mode (``RACON_TPU_NATIVE_SANITIZE=1``)."""
+    return flags.get_bool("RACON_TPU_NATIVE_SANITIZE")
+
+
 def _lib_path() -> pathlib.Path:
-    return build_root() / "native" / "libracon_torch_native.so"
+    name = ("libracon_torch_native_san.so" if _sanitize_build()
+            else "libracon_torch_native.so")
+    return build_root() / "native" / name
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the library if needed (into a temporary file renamed into
-    place, so concurrent processes never load a half-written one)."""
-    path = _lib_path()
+def _ext_path() -> pathlib.Path:
+    return build_root() / "native" / f"{_EXT_NAME}.so"
+
+
+def _compile(path: pathlib.Path, sources, opts, library: str,
+             force: bool) -> pathlib.Path:
+    """g++ ``sources`` into ``path`` when it is missing or older than one
+    of them (into a temporary file renamed into place, so concurrent
+    processes never load a half-written one); the build's seconds go to
+    ``obs.buildwatch`` as ``library``."""
     if not force and path.exists() and all(
-            s.stat().st_mtime <= path.stat().st_mtime for s in _SOURCES):
+            s.stat().st_mtime <= path.stat().st_mtime for s in sources):
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".{path.name}.{os.getpid()}")
-    cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-pthread", *[str(s) for s in _SOURCES], "-o", str(tmp), "-lz"]
+    cmd = ["g++", *opts, "-std=c++17", "-shared", "-fPIC", "-pthread",
+           *[str(s) for s in sources], "-o", str(tmp), "-lz"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise NativeBuildError(f"native build failed:\n{proc.stderr[-4000:]}")
+        raise NativeBuildError(f"native build of {path.name} failed:\n"
+                               f"{proc.stderr[-4000:]}")
     os.replace(tmp, path)
-    buildwatch.record("native", time.perf_counter() - t0, "g++")
+    buildwatch.record(library, time.perf_counter() - t0, "g++")
     return path
 
 
+def build(force: bool = False) -> pathlib.Path:
+    """Compile the ctypes library if needed (the ASan/UBSan variant under
+    ``RACON_TPU_NATIVE_SANITIZE``); returns its path."""
+    san = _sanitize_build()
+    return _compile(_lib_path(), _SOURCES,
+                    _SANITIZE_OPTS if san else ["-O3", "-march=native"],
+                    "native_san" if san else "native", force)
+
+
+def _python_headers() -> pathlib.Path:
+    return pathlib.Path(sysconfig.get_paths()["include"]) / "Python.h"
+
+
+def _load_ext():
+    """The CPython extension (built at first use), or None where Python's
+    headers are missing: then the ctypes route parses, and the reason is
+    logged once to the report's ``swallowed`` section. Where the headers
+    exist a failed build or load raises :class:`NativeBuildError`."""
+    global _ext, EXT_STATE
+    with _lock:
+        if EXT_STATE is not None:
+            return _ext
+        headers = _python_headers()
+        if not headers.exists():
+            from ..utils.logger import log_swallowed
+            log_swallowed("native: CPython extension not built, the ctypes "
+                          "overlap parser in use",
+                          FileNotFoundError(f"no {headers}"))
+            EXT_STATE = "no_headers"
+            return None
+        path = _compile(_ext_path(), _EXT_SOURCES,
+                        ["-O3", "-march=native",
+                         f"-I{headers.parent}"], "native_ext", False)
+        import importlib.machinery
+        import importlib.util
+        try:
+            loader = importlib.machinery.ExtensionFileLoader(_EXT_NAME,
+                                                             str(path))
+            spec = importlib.util.spec_from_loader(_EXT_NAME, loader)
+            ext = importlib.util.module_from_spec(spec)
+            loader.exec_module(ext)
+        except ImportError as e:
+            raise NativeBuildError(f"loading {path} failed: {e}") from e
+        _ext, EXT_STATE = ext, "loaded"
+        return _ext
+
+
+def _asan_preloaded() -> bool:
+    """Whether the ASan runtime is in this process (its entry resolves in
+    the global symbol namespace)."""
+    return hasattr(ctypes.CDLL(None), "__asan_init")
+
+
 def load():
-    """The ctypes library handle (built at first use)."""
+    """The ctypes library handle (built at first use). The sanitized
+    variant raises :class:`NativeBuildError` naming the fix when the ASan
+    runtime is not preloaded."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        if _sanitize_build() and not _asan_preloaded():
+            # the ASan runtime ends the process, with no exception, when
+            # an instrumented object is opened in a Python without it
+            raise NativeBuildError(
+                "loading the RACON_TPU_NATIVE_SANITIZE build requires "
+                "the ASan runtime preloaded: run under LD_PRELOAD="
+                '"$(g++ -print-file-name=libasan.so)"')
+        lib = ctypes.CDLL(str(path))
         i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
         lib.rt_edit_distance.restype = i64
         lib.rt_edit_distance.argtypes = [ctypes.c_char_p, i64,
@@ -258,7 +365,19 @@ def parse_ovlfile(path: str, fmt: int) -> list:
     parsers' ``OverlapRecord.fields``: PAF ``(qname, qlen, qstart, qend,
     strand, tname, tlen, tstart, tend)``, MHAP its twelve numbers
     (``jaccard`` a float), SAM ``(qname, flag, rname, pos, cigar)``.
-    Raises ValueError with the parser's message on malformed input."""
+    Raises ValueError with the parser's message on malformed input. The
+    CPython extension builds the tuples where it loaded (``EXT_STATE``),
+    ctypes elsewhere; both give the same records."""
+    ext = _load_ext()
+    if ext is not None:
+        out = ext.parse_ovlfile(os.fsdecode(path), fmt)
+        PARSE_CALLS["ovlfile"] += 1
+        return out
+    return _parse_ovlfile_ctypes(path, fmt)
+
+
+def _parse_ovlfile_ctypes(path: str, fmt: int) -> list:
+    """:func:`parse_ovlfile` through the ctypes library."""
     lib = load()
     blob = ctypes.c_void_p()
     soffs = ctypes.c_void_p()

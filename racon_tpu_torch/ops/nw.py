@@ -43,7 +43,7 @@ from .swar import use_packed16
 from .. import faults, flags, obs, sanitize
 from ..device import resolve
 from ..obs import metrics
-from ..parallel import gather_shards, mesh_size, sharded_align
+from ..parallel import gather_shards, mesh_size, sharded_align, to_global
 from ..params import PARAMS
 
 BUCKETS: Tuple[Tuple[int, int], ...] = PARAMS.buckets
@@ -498,8 +498,8 @@ class CudaAligner:
                              "both")
         self.mesh = mesh
         # the home device: host uploads land here, and a mesh chunk's
-        # merged outputs come back here
-        self.device = resolve(mesh.devices[0] if mesh is not None
+        # merged outputs come back here (to the host in a process group)
+        self.device = resolve(mesh.home if mesh is not None
                               else "cuda" if device is None else device)
         self.fallback = fallback
         self.buckets = buckets
@@ -830,16 +830,6 @@ class CudaAligner:
 
     # ------------------------------------------------------------- chunks
 
-    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
-        """A host array on the aligner's device (or ``device``); to a card
-        through pinned memory, so the copy does not wait for the chunks in
-        flight."""
-        dev = self.device if device is None else device
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if dev.type == "cuda":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t.to(dev)
-
     def _launch_chunk(self, pairs, chunk, max_len: int, band: int,
                       bp_meta=None):
         """:meth:`_launch_chunk_impl` as the fault site and span
@@ -882,21 +872,27 @@ class CudaAligner:
         metrics.inc("align.lanes_total", total)
         metrics.inc("align.steps_wasted", total - occ)
         metrics.inc("align.wavefront_work", total * band)
-        nd, md = self._upload(n), self._upload(m)
-        qcat = self._upload(_dense_block(qs, n[:C], B, max_len))
-        tcat = self._upload(_dense_block(ts, m[:C], B, max_len))
-        qrp, tp = build_rows(qcat, tcat, nd, md, max_len=max_len, band=band)
-        del qcat, tcat
+        # on the aligner's device through pinned memory, so the copies do
+        # not wait for the chunks in flight; every process of a group
+        # packs the whole chunk alike and keeps it on the host; under a
+        # mesh each shard builds its rows from its slice of the blocks
+        def put(a):
+            return to_global(self.mesh, a, self.device)
+        nd, md = put(n), put(m)
+        rows = (put(_dense_block(qs, n[:C], B, max_len)),
+                put(_dense_block(ts, m[:C], B, max_len)))
+        if self.mesh is None:
+            rows = build_rows(*rows, nd, md, max_len=max_len, band=band)
         packed16 = use_packed16(max_len, band)
         st["swar_chunks"] += int(packed16)
         metrics.inc("aligner.swar_chunks", int(packed16))
         shadow = packed16 and self._shadow.should_shadow()
-        parts = self._dispatch(qrp, tp, nd, md, max_len=max_len, band=band,
+        parts = self._dispatch(*rows, nd, md, max_len=max_len, band=band,
                                steps=steps, packed16=packed16)
         if shadow:
-            self._shadow_chunk(qrp, tp, nd, md, parts, max_len=max_len,
+            self._shadow_chunk(*rows, nd, md, parts, max_len=max_len,
                                band=band, steps=steps)
-        del qrp, tp
+        del rows
         if bp_meta is not None:
             parts = self._attach_bp(parts, chunk, n, m, nd, md, max_len,
                                     bp_meta)
@@ -904,16 +900,18 @@ class CudaAligner:
 
     def _dispatch(self, qrp, tp, n, m, **kw) -> list:
         """The chunk's forward pass and walk: one ``(ops_packed, score, fi,
-        fj)`` tuple, or one a shard through :func:`sharded_align` under a
-        mesh."""
+        fj)`` tuple from its rows, or under a mesh one a slot through
+        :func:`sharded_align` from the byte blocks (``None`` for a slot
+        another process owns)."""
         if self.mesh is not None:
             return sharded_align(self.mesh, qrp, tp, n, m, **kw)
         return [align_chain(qrp, tp, n, m, **kw)]
 
     def _merged(self, parts):
-        """Per-shard outputs as one tuple on the home device."""
-        return parts[0] if len(parts) == 1 else gather_shards(parts,
-                                                              self.device)
+        """Per-shard outputs as one tuple on the home device (on the host,
+        every slot's, in a process group)."""
+        return parts[0] if len(parts) == 1 else gather_shards(
+            parts, self.device, mesh=self.mesh)
 
     def _attach_bp(self, parts, chunk, n, m, nd, md, max_len: int,
                    bp_meta) -> list:
@@ -928,17 +926,23 @@ class CudaAligner:
         NW = max_len // max(w, 1) + 2
         if len(parts) == 1:
             ops, score, fi, fj = parts[0]
-            return [breaking_points(ops, nd, md, self._upload(first_rel),
-                                    self._upload(nb), w=w, NW=NW)
+            return [breaking_points(ops, nd, md,
+                                    to_global(None, first_rel, self.device),
+                                    to_global(None, nb, self.device),
+                                    w=w, NW=NW)
                     + (score, fi, fj)]
         b = len(n) // len(parts)
-        out = []
-        for k, (ops, score, fi, fj) in enumerate(parts):
+        out: list = [None] * len(parts)
+        for k, part in enumerate(parts):
+            if part is None:   # another process's slot
+                continue
+            ops, score, fi, fj = part
             dev = ops.device
             sl = slice(k * b, (k + 1) * b)
-            lanes = [self._upload(a[sl], dev) for a in (n, m, first_rel, nb)]
-            out.append(breaking_points(ops, *lanes, w=w, NW=NW)
-                       + (score, fi, fj))
+            lanes = [to_global(None, a[sl], dev)
+                     for a in (n, m, first_rel, nb)]
+            out[k] = (breaking_points(ops, *lanes, w=w, NW=NW)
+                      + (score, fi, fj))
         return out
 
     def _shadow_chunk(self, qrp, tp, n, m, parts, *, max_len: int,
@@ -1052,7 +1056,9 @@ class CudaAligner:
         qo = np.fromiter((metas[idx][1] for idx in chunk), np.int64, C)
         n_reg = (tb + m_h - 1) // w - tb // w
         if resident:
-            devc = _DevChunkBp(bp_first, bp_last, w, max_len)
+            # a process group's merge leaves the tables on the host
+            devc = _DevChunkBp(bp_first.to(self.device),
+                               bp_last.to(self.device), w, max_len)
             # the gate scalars crossed the link, the two [B, NW] int32
             # tables of the padded batch did not
             metrics.inc("dataflow.bytes_fetched", 12 * C)

@@ -61,7 +61,8 @@ from .. import faults, flags, obs, sanitize
 from ..core.window import WindowType
 from ..device import resolve
 from ..obs import metrics
-from ..parallel import mesh_size, partition_balanced, sharded_refine_loop
+from ..parallel import (mesh_size, partition_balanced, sharded_refine_loop,
+                        to_global)
 from ..params import (DEFAULT_GAP, DEFAULT_MATCH, DEFAULT_MISMATCH, PARAMS,
                       STATE_NAMES, refine_state_to_torch, upload)
 from ..utils.logger import warn
@@ -833,8 +834,8 @@ class CudaPoaConsensus:
         self.mesh = mesh
         self.pinned = pinned
         # the home device: uploads land here, a mesh group's merged state
-        # comes back here
-        self.device = resolve(mesh.devices[0] if mesh is not None
+        # comes back here (a process group's stays on the host)
+        self.device = resolve(mesh.home if mesh is not None
                               else "cuda" if device is None else device)
         self.fallback = fallback
         self.max_depth = PARAMS.max_depth
@@ -1079,14 +1080,19 @@ class CudaPoaConsensus:
         metrics.inc("consensus.lanes_total", nd * B * Lq)
         metrics.inc("consensus.groups")
         metrics.inc("consensus.group_windows", len(items))
-        st = refine_state_to_torch(state_np, self.device)
+        if self.mesh is None:
+            st = refine_state_to_torch(state_np, self.device)
+        else:
+            # every process of a group packs the whole group alike
+            st = {k: to_global(self.mesh, v) for k, v in
+                  refine_state_to_torch(state_np, "cpu").items()}
         return {"items": [it for sh in shards for it in sh],
                 "shards": shards, "nd": nd, "B": B, "nWp": nWp,
                 "pairs": int(real.sum()),
                 "static": [st[k] for k in STATE_NAMES[:4]],
                 "state": [st[k] for k in STATE_NAMES[4:]],
                 "idle": torch.zeros((), dtype=torch.int64,
-                                    device=self.device)}
+                                    device=st["bg"].device)}
 
     def _rounds(self, launch) -> None:
         """:meth:`_rounds_impl` as the fault site ``consensus.dispatch``

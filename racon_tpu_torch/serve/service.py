@@ -367,6 +367,7 @@ class PolishServer:
             w.get_engines(cpu=False)
         from .. import native
         native.load()
+        native._load_ext()   # the overlap parser's extension
         if self._device.type == "cuda":
             from ..ops import _build
             for name in _build.SOURCES:

@@ -259,6 +259,9 @@ def test_report_round_trip(tmp_path):
     (lambda r: r["metrics"]["counters"].update(x="y"), "metrics.counters"),
 ])
 def test_validator_findings(corrupt, finding):
+    # no build of an earlier test in this process in the report's events
+    from racon_tpu_torch.obs import buildwatch
+    buildwatch.reset()
     rep = report.build_report("cli")
     corrupt(rep)
     errors = report.validate_report(rep)

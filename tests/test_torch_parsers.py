@@ -309,11 +309,14 @@ def test_malformed_input_raises_the_jax_native_message(tmp_path, case):
 
 
 def test_failed_native_build_raises_without_fallback(files, monkeypatch):
-    def broken(force=False):
+    def broken(*args, **kwargs):
         raise native.NativeBuildError("native build failed: forced")
 
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "build", broken)
+    # the overlap parser's CPython extension fails to build alike
+    monkeypatch.setattr(native, "EXT_STATE", None)
+    monkeypatch.setattr(native, "_compile", broken)
     kind, path = files["reads_fastq"]
     calls = dict(native.PARSE_CALLS)
     with pytest.raises(native.NativeBuildError, match="forced"):
