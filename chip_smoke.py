@@ -35,7 +35,12 @@ the multihost phase's child.) Phases, one JSON line each:
              ``pipeline_overlap_saved_s``, peak device memory, and
              the files the native parser read (``native_parse_calls``:
              the draft and the reads, then the overlaps; the polisher
-             parses nothing another way);
+             parses nothing another way), and the aligner's uploads:
+             ``build_rows`` launches by code width
+             (``build_rows_launches_by_form``, which must sum to the
+             aligner's chunks), chunks and bytes by form
+             (``aligner_upload_forms``, ``aligner_upload_bytes``) and
+             ``swar_guard_int32``;
    resident — the main phase's polish again with ``RACON_TPU_RESIDENT=1``
              (the resident dataflow): each accepted align
              chunk keeps its breaking-point tables on the card, the layer
@@ -325,6 +330,17 @@ the multihost phase's child.) Phases, one JSON line each:
              launch a call; the kernel's and the plain version's time
              (CUDA events) beside the bound. Every path's aligner chunks
              join ``unheld`` under ``breaking_points``;
+   rows    — at the same buckets and batches, on the same pairs and on
+             all-'A' pairs of their lengths: the chunk's upload blocks in
+             each form (2-bit, nibble, raw; ``ops.nw.pack_chunk``) through
+             the CUDA kernel ``build_rows`` and ``build_rows_plain`` on
+             the same card tensors, bit for bit, one launch a call, the
+             kernel's and the plain version's time (CUDA events) beside
+             the bound (bytes: the blocks read, both rows written); K1,
+             K4 and K2 from each form's rows must agree. Every path's
+             aligner chunks join ``unheld`` under ``build_rows``. (The
+             kernels phase's aligner rows come through ``build_rows`` too,
+             in the form the aligner picks: 2-bit for ACGT pairs);
 10. agree  — a small genome (0.02 Mbp, 1-2 kbp reads) polished on the
              card through the consensus stream and through the padded path
              (``use_ragged=False``), and with the plain PyTorch kernels on
@@ -340,9 +356,9 @@ the multihost phase's child.) Phases, one JSON line each:
              quarter.
 
 Then the ``{"kernels": [...]}`` line (``breaking_points`` from the bp
-phase; ``on_main_path`` false for a kernel the engines give none of the
-main path's launches: K1 since K4's wide body measured faster at every
-band the 1 Mbp run launches), the
+phase, ``build_rows`` from the rows phase; ``on_main_path`` false for a
+kernel the engines give none of the main path's launches: K1 since K4's
+wide body measured faster at every band the 1 Mbp run launches), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Details
 too long for the end of the output go to ``chiprun_out/chip_smoke.json``.
 """
@@ -381,13 +397,15 @@ from racon_tpu_torch.core.overlap import decode_breaking_points_batch
 from racon_tpu_torch.io import parsers
 from racon_tpu_torch.exec.planner import MESH_DEVICE
 from racon_tpu_torch.obs import metrics
-from racon_tpu_torch.ops.nw import (CudaAligner, breaking_points,
-                                    breaking_points_plain, build_rows,
-                                    sweep_bound, window_geometry)
+from racon_tpu_torch.ops.nw import (CudaAligner, align_chain,
+                                    breaking_points, breaking_points_plain,
+                                    build_rows, build_rows_plain,
+                                    pack_chunk, sweep_bound,
+                                    window_geometry)
 from racon_tpu_torch.ops.poa import (BAND, CH, DEL, GROW, K_INS, Q_PAD,
                                      T_PAD, CudaPoaConsensus, bucket_geometry,
                                      sweep_geometry)
-from racon_tpu_torch.ops.swar import use_packed16
+from racon_tpu_torch.ops.swar import swar_choice, use_packed16
 from racon_tpu_torch import parallel
 from racon_tpu_torch.parallel import get_mesh, topology
 from racon_tpu_torch.utils.simulate import (_mutate, adversarial_chain_arena,
@@ -641,25 +659,28 @@ def aligner_bucket_inputs(dev, shape, B, seed, div_obs):
 
 def pair_rows(dev, pairs, max_len, band):
     """Device rows of (query, target) ``pairs`` at ``(max_len, band)``, as
-    the aligner builds them (ops.nw.build_rows), with the chunk's steps."""
+    the aligner builds them: the chunk's upload blocks in the form it picks
+    (ops.nw.pack_chunk with swar.swar_choice: 2-bit codes for ACGT pairs),
+    unpacked on the card by the kernel build_rows, with the chunk's steps
+    and the form (``bits``). A sequence longer than ``max_len`` (a drawn
+    read's insertions) is cut to it: an aligner chunk holds no longer
+    one."""
     B = len(pairs)
-    qcat = np.zeros(B * max_len, np.uint8)
-    tcat = np.zeros(B * max_len, np.uint8)
-    n = np.zeros(B, np.int32)
-    m = np.zeros(B, np.int32)
-    for k, (q, t) in enumerate(pairs):
-        qcat[k * max_len: k * max_len + len(q)] = q
-        tcat[k * max_len: k * max_len + len(t)] = t
-        n[k], m[k] = len(q), len(t)
+    qs = [np.asarray(q, np.uint8)[:max_len].tobytes() for q, _ in pairs]
+    ts = [np.asarray(t, np.uint8)[:max_len].tobytes() for _, t in pairs]
+    n = np.array([len(q) for q in qs], np.int32)
+    m = np.array([len(t) for t in ts], np.int32)
+    qblk, tblk, bits = pack_chunk(
+        qs, ts, n, m, B, max_len,
+        swar=swar_choice(max_len, {"swar_guard_int32": 0}), pin=True)
     steps = sweep_bound(int((n + m).max()), max_len)
     nd = torch.from_numpy(n).to(dev)
     md = torch.from_numpy(m).to(dev)
-    qrp, tp = build_rows(torch.from_numpy(qcat).to(dev),
-                         torch.from_numpy(tcat).to(dev), nd, md,
-                         max_len=max_len, band=band)
+    qrp, tp = build_rows(qblk.to(dev), tblk.to(dev), nd, md,
+                         max_len=max_len, band=band, bits=bits)
     return dict(qrp=qrp, tp=tp, n=nd, m=md, band=band, Lq=max_len,
-                steps=steps, shape=f"aligner ({max_len}, {band}) B={B} "
-                                   f"steps={steps}")
+                steps=steps, bits=bits,
+                shape=f"aligner ({max_len}, {band}) B={B} steps={steps}")
 
 
 # ------------------------------------------------------------ checks
@@ -1004,7 +1025,7 @@ def phase_kernels(dev, main, auto, shards, resident, resident_auto,
     chunks = aligner_buckets(main)
     busiest = max(chunks, key=lambda k: chunks[k][1])
     rows = {name: [] for name in cuda_nw.KERNELS
-            if name not in ("chain_dp", "breaking_points")}
+            if name not in ("chain_dp", "breaking_points", "build_rows")}
     # aligner shape -> the pairs of its largest row (the bp phase holds
     # breaking_points there)
     drawn = {}
@@ -1151,7 +1172,8 @@ def kernel_name(mangled: str) -> str:
     name of this repo's kernels."""
     head, _, rest = mangled.partition("kernel")
     at = max(head.rfind("nw_fwd_"), head.rfind("walk_"),
-             head.rfind("chain_dp_"), head.rfind("breaking_points_"))
+             head.rfind("chain_dp_"), head.rfind("breaking_points_"),
+             head.rfind("build_rows_"))
     args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
     targs = re.findall(r"L[ib](-?\d+)E", args.group(1)) if args else []
     return head[at:] + "kernel" + (f"<{','.join(targs)}>" if targs else "")
@@ -1227,12 +1249,14 @@ def main_path_kernels(main) -> set:
     """The kernels the engines route the main path's launches to: the
     forward kernel ``swar.use_packed16`` picks at each aligner chunk's and
     consensus group's (max_len, band), then K2 (the aligner's walk),
-    ``breaking_points`` (its per-window tables) and K3 (the consensus
-    engine's walk + vote)."""
+    ``breaking_points`` (its per-window tables), ``build_rows`` (each
+    chunk's rows from its upload) and K3 (the consensus engine's walk +
+    vote)."""
     shapes = [s[:2] for s in main["aligner_chunk_shapes"]
               + main["consensus_group_shapes"]]
     return {"nw_fwd_i16x2" if use_packed16(*s) else "nw_fwd_i32"
-            for s in shapes} | {"walk_ops", "breaking_points", "walk_vote"}
+            for s in shapes} | {"walk_ops", "breaking_points", "build_rows",
+                                "walk_vote"}
 
 
 def phase_main(dev, mbp=1.0):
@@ -1254,7 +1278,12 @@ def phase_main(dev, mbp=1.0):
     wall_s = time.perf_counter() - t0
     launches = dict(cuda_nw.LAUNCHES)
     parse_calls = dict(native.PARSE_CALLS)
-    body_launches = dict(cuda_nw.BODY_LAUNCHES)
+    body_launches = {k: v for k, v in cuda_nw.BODY_LAUNCHES.items()
+                     if not k.startswith("rt_build_rows")}
+    # build_rows launches by the upload's code width (2, 4 or 8 bits)
+    rows_by_form = {k.rpartition(":")[2]: v
+                    for k, v in cuda_nw.BODY_LAUNCHES.items()
+                    if k.startswith("rt_build_rows:")}
     peak = torch.cuda.max_memory_allocated(dev)
     stages = dict(polisher.timings)
     aligner, consensus = polisher.aligner.stats, polisher.consensus.stats
@@ -1282,6 +1311,10 @@ def phase_main(dev, mbp=1.0):
                aligner_div_obs=polisher.aligner._div_obs,
                aligner_chunks=aligner["chunks"],
                aligner_swar_chunks=aligner["swar_chunks"],
+               build_rows_launches_by_form=rows_by_form,
+               aligner_upload_forms=aligner["upload_forms"],
+               aligner_upload_bytes=aligner["upload_bytes"],
+               aligner_swar_guard_int32=aligner["swar_guard_int32"],
                consensus_windows_device=consensus["device_windows"],
                consensus_windows_host=consensus["fallback_windows"],
                consensus_windows_passthrough=consensus["passthrough"],
@@ -1302,6 +1335,10 @@ def phase_main(dev, mbp=1.0):
     if parse_calls != {"seqfile": 2, "ovlfile": 1}:
         raise RuntimeError(f"the main path did not parse its three files "
                            f"natively: {parse_calls}")
+    if launches["build_rows"] != aligner["chunks"] or \
+            sum(rows_by_form.values()) != aligner["chunks"]:
+        raise RuntimeError(f"build_rows launches {rows_by_form} do not "
+                           f"match the {aligner['chunks']} aligner chunks")
     if len(polished) != 1 or not polished[0].data:
         raise RuntimeError("expected one polished contig")
     if set(polished[0].data) - set(b"ACGTN"):
@@ -3132,7 +3169,8 @@ def overlap_split(dev, paths) -> dict:
 
 # the kernels the chips phase's legs must launch (the main path's, on the
 # mesh path's and the chip workers' shapes)
-CHIPS_KERNELS = ("nw_fwd_i16x2", "walk_ops", "walk_vote", "breaking_points")
+CHIPS_KERNELS = ("nw_fwd_i16x2", "walk_ops", "walk_vote", "breaking_points",
+                 "build_rows")
 
 
 def _shard_local(shapes, nd: int) -> list:
@@ -3740,6 +3778,96 @@ def phase_bp(dev, drawn, w=500):
     return out
 
 
+# integer operations a row byte of build_rows needs: a shift and a mask
+# of its code (the group spreads and the byte loop do about this much a
+# byte); the bound is by bytes at every aligner shape
+OPS_PER_ROW_BYTE = 2
+
+
+def phase_rows(dev, drawn):
+    """``build_rows`` at every aligner bucket any path launched, on the
+    pairs of its largest kernels row (``drawn``: the largest batch any
+    path launched there) and on all-'A' pairs of the same lengths: the
+    chunk's upload blocks in each form (2, 4 and 8 bits; ``pack_chunk``)
+    through the kernel and through ``build_rows_plain`` on the same card
+    tensors, bit for bit, one launch a call; the kernel's time (CUDA
+    events, ``ms``) beside the plain version's (``plain_ms``) and the
+    bound. From each form's rows the forward kernels (K1 and K4) and K2
+    must give the same outputs (``forms_agree``). Returns the phase record
+    with the kernel's entry for the kernels line (``entry``: the 2-bit row
+    of the ACGT pairs with the most row bytes, the others under
+    ``other_shapes``) and the largest batch held at each bucket
+    (``held``)."""
+    rows, held = [], {}
+    for shape, drawn_pairs in drawn.items():
+        max_len, band = shape
+        B = len(drawn_pairs)
+        width = band // 2 + max_len + band
+        all_a = [(np.full(len(q), ord("A"), np.uint8),
+                  np.full(len(t), ord("A"), np.uint8))
+                 for q, t in drawn_pairs]
+        for label, pairs in (("acgt", drawn_pairs), ("all_a", all_a)):
+            qs = [q.tobytes() for q, _ in pairs]
+            ts = [t.tobytes() for _, t in pairs]
+            n = np.array([len(q) for q in qs], np.int32)
+            m = np.array([len(t) for t in ts], np.int32)
+            nd, md = (torch.from_numpy(a).to(dev) for a in (n, m))
+            steps = sweep_bound(int((n + m).max()), max_len)
+            outs, form_rows = {}, []
+            for bits in (2, 4, 8):
+                qblk, tblk, _ = pack_chunk(qs, ts, n, m, B, max_len,
+                                           swar=True, bits=bits, pin=True)
+                qd, td = qblk.to(dev), tblk.to(dev)
+                kw = dict(max_len=max_len, band=band, bits=bits)
+                before = cuda_nw.LAUNCHES["build_rows"]
+                got = build_rows(qd, td, nd, md, **kw)
+                torch.cuda.synchronize()
+                launches = cuda_nw.LAUNCHES["build_rows"] - before
+                plain, plain_ms = timed_once(
+                    lambda: build_rows_plain(qd, td, nd, md, **kw))
+                err = max(int((a.int() - b.int()).abs().max())
+                          for a, b in zip(got, plain))
+                del plain
+                ms = time_ms(lambda: build_rows(qd, td, nd, md, **kw), 20)
+                upload = qd.numel() + td.numel()
+                bms, by = bound(OPS_PER_ROW_BYTE * 2 * B * width,
+                                upload + 2 * B * width + 8 * B)
+                outs[bits] = [x.cpu() for packed16 in (False, True)
+                              for x in align_chain(
+                                  *got, nd, md, max_len=max_len, band=band,
+                                  steps=steps, packed16=packed16)]
+                del got, qd, td
+                form_rows.append(dict(
+                    shape=f"aligner ({max_len}, {band}) B={B} "
+                          f"{bits}-bit {label}",
+                    B=B, bits=bits, pairs=label, upload_bytes=upload,
+                    row_bytes=2 * B * width, launches_per_call=launches,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None))
+            agree = all(torch.equal(a, b) for bits in (2, 4)
+                        for a, b in zip(outs[bits], outs[8]))
+            for r in form_rows:
+                r["forms_agree"] = agree
+            rows += form_rows
+            del outs
+            torch.cuda.empty_cache()
+        held[shape] = max(held.get(shape, 0), B)
+    head = max((r for r in rows if r["bits"] == 2 and r["pairs"] == "acgt"),
+               key=lambda r: r["row_bytes"])
+    entry = dict(head, other_shapes=[r for r in rows if r is not head])
+    entry["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    entry["ok"] = all(r["max_abs_err"] == 0 and r["launches_per_call"] == 1
+                      and r["forms_agree"] for r in rows)
+    out = dict(phase="rows", shapes=rows, ok=entry["ok"])
+    emit(out)
+    out["entry"], out["held"] = entry, held
+    if not out["ok"]:
+        raise RuntimeError("build_rows disagrees with its plain version, or "
+                           "the forward pass and walk differ between the "
+                           "upload forms")
+    return out
+
+
 def phase_agree(dev):
     """The card against the plain PyTorch kernels end to end: a small
     simulated genome (0.02 Mbp, 1-2 kbp reads, seed 11) polished with both
@@ -3961,14 +4089,21 @@ def main() -> int:
     t0 = time.perf_counter()
     record["bp"] = phase_bp(dev, drawn)
     record["bp"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["rows"] = phase_rows(dev, drawn)
+    record["rows"]["seconds"] = time.perf_counter() - t0
     del drawn
     entries["breaking_points"] = record["bp"].pop("entry")
-    held_bp = record["bp"].pop("held")
-    # every path's aligner chunks run breaking_points at their shape
-    unheld["breaking_points"] = {
-        p: [sh for sh in record[p]["aligner_chunk_shapes"]
-            if held_bp.get(tuple(sh[:2]), 0) < sh[3]]
-        for p in unheld}
+    entries["build_rows"] = record["rows"].pop("entry")
+    # every path's aligner chunks run breaking_points and build_rows at
+    # their shape
+    path_names = list(unheld)
+    for name, phase in (("breaking_points", "bp"), ("build_rows", "rows")):
+        held_at = record[phase].pop("held")
+        unheld[name] = {
+            p: [sh for sh in record[p]["aligner_chunk_shapes"]
+                if held_at.get(tuple(sh[:2]), 0) < sh[3]]
+            for p in path_names}
     bad = [k for k, e in entries.items() if not e["ok"]]
 
     record["agree"] = phase_agree(dev)
@@ -4015,10 +4150,12 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
-    if any(v for k, v in unheld.items() if k != "breaking_points") or \
-            any(unheld["breaking_points"].values()):
-        raise RuntimeError(f"launched shapes the kernels and bp phases did "
-                           f"not hold against the plain versions: {unheld}")
+    per_kernel = ("breaking_points", "build_rows")
+    if any(v for k, v in unheld.items() if k not in per_kernel) or \
+            any(any(unheld[k].values()) for k in per_kernel):
+        raise RuntimeError(f"launched shapes the kernels, bp and rows phases "
+                           f"did not hold against the plain versions: "
+                           f"{unheld}")
     if missing:
         raise RuntimeError(f"kernels not launched on the main path: "
                            f"{missing}")

@@ -33,11 +33,12 @@ METRIC_NAME_RE = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z0-9_]+)*$")
 # every statically named counter, gauge and timer the port publishes
 # (span timers are keyed by the span name and declared in SPANS)
 METRICS: FrozenSet[str] = frozenset((
-    # aligner chunks: wavefront-arena occupancy, packed (K4) chunks and
-    # the sanitizer's K1 shadows of them
+    # aligner chunks: wavefront-arena occupancy, packed (K4) chunks, the
+    # sanitizer's K1 shadows of them, and the chunks whose bucket the
+    # int16 overflow guard keeps from the 2-bit upload
     "align.chunks", "align.lanes_occupied", "align.lanes_total",
     "align.steps_wasted", "align.wavefront_work", "align.shadow_chunks",
-    "aligner.swar_chunks",
+    "aligner.swar_chunks", "aligner.swar_guard_int32",
     # device-OOM backpressure (reduce_capacity) in either engine
     "aligner.capacity_scale", "consensus.capacity_scale",
     "faults.backpressure_halvings",

@@ -42,8 +42,10 @@ REGISTRY: Dict[str, Flag] = _declare([
     # ------------------------------------------------------------- engines
     Flag("RACON_TPU_SWAR", "1", "bool",
          "The packed int16x2 forward kernel (K4) where ops/swar.py picks "
-         "it; set 0 to force the int32 kernel (K1) in both engines for "
-         "A/B measurement."),
+         "it, and the aligner's 2-bit upload of chunks of at most 4 "
+         "symbols (ops/swar.py swar_choice); set 0 to force the int32 "
+         "kernel (K1) in both engines and nibble or raw uploads for A/B "
+         "measurement."),
     Flag("RACON_TPU_ALIGN_RAGGED", "1", "bool",
          "Ragged pair packing in the device aligner: pairs bucket by "
          "their own sweep cost and chunks greedy-fill the direction-"
@@ -261,3 +263,53 @@ def get_float(name: str) -> float:
 
 def get_str(name: str) -> str:
     return raw(name)
+
+
+# ------------------------------------------------------- README generation
+
+# a header of its own, so the table cannot collide with the JAX package's
+# generated "## Environment flags" block in the same README
+_TABLE_HEADER = "### Environment flags (port)"
+_TABLE_NOTE = ("<!-- generated by `python -m racon_tpu_torch.flags` from "
+               "racon_tpu_torch/flags.py — do not edit by hand -->")
+
+
+def readme_table() -> str:
+    """The README's port flag table, generated from the registry (one row
+    a flag, declaration order), as ``racon_tpu.flags.readme_table`` makes
+    the JAX package's."""
+    lines = [_TABLE_HEADER, "", _TABLE_NOTE, "",
+             "| Flag | Type | Default | Effect |",
+             "| --- | --- | --- | --- |"]
+    for f in REGISTRY.values():
+        default = f.default if f.default != "" else "(unset)"
+        lines.append(f"| `{f.name}` | {f.kind} | `{default}` | {f.help} |")
+    return "\n".join(lines) + "\n"
+
+
+def check_readme(path: str) -> bool:
+    """True when ``path`` holds the current generated table verbatim."""
+    try:
+        with open(path, "r", encoding="utf-8") as fh:
+            return readme_table() in fh.read()
+    except OSError:
+        return False
+
+
+def _main(argv) -> int:
+    if argv and argv[0] == "--check-readme":
+        if check_readme(argv[1] if len(argv) > 1 else "README.md"):
+            return 0
+        import sys
+        print("README port flag table is stale — regenerate with "
+              "`python -m racon_tpu_torch.flags` and paste the output",
+              file=sys.stderr)
+        return 1
+    print(readme_table(), end="")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_main(sys.argv[1:]))

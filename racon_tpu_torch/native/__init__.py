@@ -1,6 +1,7 @@
 """Host-native core of the port: the C++ aligner, POA engine, CIGAR
 breaking-point decoder and streaming FASTA/FASTQ/PAF/MHAP/SAM parsers
-(copies of ``racon_tpu/native/{nw,poa,bp,parsers}.cpp``), loaded with
+(copies of ``racon_tpu/native/{nw,poa,bp,parsers}.cpp``) and the device
+aligner's upload packer (``pack.cpp``, the port's own), loaded with
 ctypes, and the CPython extension over the overlap parser
 (``pyext.cpp``, a copy of the JAX package's).
 
@@ -204,12 +205,53 @@ def load():
             ctypes.c_char_p, ctypes.c_int32,
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_char_p]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.rt_byte_presence.restype = None
+        lib.rt_byte_presence.argtypes = [ctypes.c_char_p, i64, u8p]
+        lib.rt_pack_block.restype = ctypes.c_int
+        lib.rt_pack_block.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32), i64, i64, i64,
+            u8p, ctypes.c_int, ctypes.c_void_p]
         lib.rt_bp_from_cigar_batch.restype = None
         lib.rt_bp_from_cigar_batch.argtypes = [
             i64, ctypes.POINTER(ctypes.c_char_p), i64p, i64p, i64p, i64,
             i64, i64p, ctypes.POINTER(ctypes.c_int32), i64p]
         _lib = lib
         return _lib
+
+
+def byte_presence(*bufs: bytes) -> np.ndarray:
+    """``seen[v]`` true for every byte value ``v`` in any of ``bufs``:
+    ``bool [256]``."""
+    lib = load()
+    seen = np.zeros(256, np.uint8)
+    ptr = seen.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    for b in bufs:
+        lib.rt_byte_presence(b, len(b), ptr)
+    return seen.astype(bool)
+
+
+def pack_block(flat: bytes, lens: np.ndarray, B: int, max_len: int,
+               lut: np.ndarray, bits: int, out_ptr: int) -> None:
+    """Write ``len(lens)`` sequences, concatenated in ``flat``, into the
+    ``B * max_len * bits / 8`` bytes at ``out_ptr``: pair ``k``'s codes
+    (``lut[byte]``; the bytes themselves at ``bits`` 8) from code ``k *
+    max_len``, ``bits`` 2 (four a byte, low bits first), 4 (low nibble
+    first) or 8, zero elsewhere (``pack.cpp``). Raises ``ValueError`` when
+    a length exceeds ``max_len`` or the block is not whole bytes a
+    pair."""
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    lut = np.ascontiguousarray(lut, dtype=np.uint8)
+    if lut.shape != (256,) or int(lens.sum()) != len(flat):
+        raise ValueError("pack_block: a 256-entry lut and the lengths of "
+                         "flat's sequences")
+    err = load().rt_pack_block(
+        flat, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(lens), B, max_len,
+        lut.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), bits, out_ptr)
+    if err:
+        raise ValueError(f"pack_block: {len(lens)} sequences do not fit "
+                         f"{B} slots of {max_len} codes at {bits} bits")
 
 
 def edit_distance(a: bytes, b: bytes) -> int:

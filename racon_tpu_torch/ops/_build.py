@@ -33,6 +33,7 @@ SOURCES = {
     "walk_vote": "walk_vote.cu",
     "chain_dp": "chain_dp.cu",
     "breaking_points": "breaking_points.cu",
+    "build_rows": "build_rows.cu",
 }
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -54,6 +55,8 @@ SIGNATURES = {
     "rt_chain_dp": ("chain_dp", [_P] * 5 + [_I] * 4 + [_P]),
     # ops, n, m, first_rel, nb, bp_first, bp_last, B, S4, w, NW, stream
     "rt_breaking_points": ("breaking_points", [_P] * 7 + [_I] * 4 + [_P]),
+    # qblk, tblk, n, m, qrp, tp, B, max_len, band, bits, stream
+    "rt_build_rows": ("build_rows", [_P] * 6 + [_I] * 4 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -56,6 +56,12 @@ KERNELS = {
     # ops/nw.py breaking_points); it replaces an XLA function
     "breaking_points": ("racon_tpu_torch/ops/kernels/breaking_points.cu",
                         "racon_tpu/ops/nw.py:430"),
+    # the aligner's rows from its packed upload blocks (wrapper ops/nw.py
+    # build_rows); it replaces three XLA functions: _build_rows (:355) for
+    # raw bytes, _build_rows_packed (:372) for nibbles and
+    # _build_rows_packed2 (:391) for 2-bit codes
+    "build_rows": ("racon_tpu_torch/ops/kernels/build_rows.cu",
+                   "racon_tpu/ops/nw.py:355"),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -228,8 +234,9 @@ def nw_fwd(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
 # forward-pass C entry -> the kernel it counts under
 FWD_KERNEL_OF = {**{e: "nw_fwd_i32" for e in FWD_I32_ENTRIES.values()},
                  **{e: "nw_fwd_i16x2" for e in FWD_I16X2_ENTRIES.values()}}
-# launches per forward body, "<C entry>" or "<C entry>:<BPT>" (plain calls do
-# not count), so a run shows which body each launch took
+# launches per forward body, "<C entry>" or "<C entry>:<BPT>", and per form of
+# build_rows, "rt_build_rows:<bits>" (plain calls do not count), so a run
+# shows which body each launch took
 BODY_LAUNCHES: Dict[str, int] = {}
 
 

@@ -6,8 +6,10 @@ Pairs are seeded a ``(bucket, band)`` geometry: the bucket by length from
 ``BUCKETS`` (max length, band), the band from ``BAND_RUNGS`` by the run's
 divergence estimate (the band ladder; the bucket's band with it off). Each
 geometry class fills chunks longest-first under a direction-matrix byte
-budget, and each chunk runs the forward kernel (the one
-``swar.use_packed16`` picks) and the walk kernel on the device. In
+budget. Each chunk goes to the device packed (:func:`pack_chunk`: 2-bit
+codes, nibbles or raw bytes, as the JAX launcher picks), the kernel
+:func:`build_rows` unpacks its banded rows there, and it runs the forward
+kernel (the one ``swar.use_packed16`` picks) and the walk kernel. In
 breaking-points mode :func:`breaking_points` then reduces the walk's op
 stream to per-window tables on the device, and only those tables and the
 gate scalars (score, fi, fj) come back; in CIGAR mode the op stream comes
@@ -39,8 +41,8 @@ import numpy as np
 import torch
 
 from . import _build, cuda_nw
-from .swar import use_packed16
-from .. import faults, flags, obs, sanitize
+from .swar import swar_choice, use_packed16
+from .. import faults, flags, native, obs, sanitize
 from ..device import resolve
 from ..obs import metrics
 from ..parallel import gather_shards, mesh_size, sharded_align, to_global
@@ -71,26 +73,75 @@ MAX_DIRS_BYTES = 16 * 1024 ** 3
 BP_BIG = 1 << 30
 
 
-def build_rows(qcat: torch.Tensor, tcat: torch.Tensor, n: torch.Tensor,
-               m: torch.Tensor, *, max_len: int, band: int):
-    """Banded NW row layout from dense byte blocks (pair k's query and
-    target at ``k * max_len``): the reversed query ending at column
-    ``band/2 + max_len``, the target from column ``band/2``, zero padding
-    (``racon_tpu.ops.nw._build_rows``)."""
+def build_rows(qblk: torch.Tensor, tblk: torch.Tensor, n: torch.Tensor,
+               m: torch.Tensor, *, max_len: int, band: int, bits: int):
+    """Banded NW row layout of a chunk from its upload blocks: ``qblk``,
+    ``tblk`` uint8 ``[B * max_len * bits / 8]`` (pair k's codes from code
+    ``k * max_len``; ``bits`` 2: four codes a byte, the first in the low
+    bits; 4: two a byte, low nibble first; 8: raw bytes), ``n``, ``m`` int32
+    ``[B]``. Returns ``(qrp, tp)`` uint8 ``[B, band/2 + max_len + band]``:
+    the reversed query ending at column ``band/2 + max_len``, the target
+    from column ``band/2``, zero elsewhere, the bytes of
+    ``racon_tpu.ops.nw._build_rows`` / ``_build_rows_packed`` /
+    ``_build_rows_packed2``. On CUDA tensors it launches the CUDA kernel
+    ``build_rows`` (``kernels/build_rows.cu``) or raises; on CPU tensors it
+    runs :func:`build_rows_plain`."""
     B = n.shape[0]
-    dev = qcat.device
+    cuda_nw._require(bits in (2, 4, 8), f"build_rows: bits {bits} is not "
+                     f"2, 4 or 8")
+    cuda_nw._require(max_len > 0 and (max_len * bits) % 8 == 0,
+                     f"build_rows: max_len {max_len} is not whole bytes a "
+                     f"pair at {bits} bits")
+    cuda_nw._require(band > 0 and band % 2 == 0,
+                     f"build_rows: band {band} must be even")
+    size = B * max_len * bits // 8
+    cuda_nw._require(all(x.dtype == torch.uint8 and x.shape == (size,)
+                         for x in (qblk, tblk)),
+                     f"build_rows: blocks must be uint8 [{size}]")
+    cuda_nw._require(all(x.dtype == torch.int32 and x.shape == (B,)
+                         for x in (n, m)),
+                     "build_rows: n, m must be int32 [B]")
+    if qblk.device.type != "cuda":
+        return build_rows_plain(qblk, tblk, n, m, max_len=max_len,
+                                band=band, bits=bits)
+    cuda_nw._check_cuda_inputs("build_rows", qblk, tblk, n, m)
+    width = band // 2 + max_len + band
+    with torch.profiler.record_function("build_rows"):
+        qrp = torch.empty((B, width), dtype=torch.uint8, device=qblk.device)
+        tp = torch.empty((B, width), dtype=torch.uint8, device=qblk.device)
+        fn = _build.function("rt_build_rows")
+        with cuda_nw.launch_device(qblk):
+            err = fn(qblk.data_ptr(), tblk.data_ptr(), n.data_ptr(),
+                     m.data_ptr(), qrp.data_ptr(), tp.data_ptr(), B,
+                     max_len, band, bits, cuda_nw._stream(qblk))
+        cuda_nw.count_launch("build_rows", f"rt_build_rows:{bits}")
+        cuda_nw._check_launch("build_rows", err)
+    return qrp, tp
+
+
+def build_rows_plain(qblk: torch.Tensor, tblk: torch.Tensor,
+                     n: torch.Tensor, m: torch.Tensor, *, max_len: int,
+                     band: int, bits: int):
+    """Plain PyTorch :func:`build_rows`, on the device the inputs lie on
+    (the CPU path and the kernel's yardstick on the card): each column's
+    code index, clipped to the pair's slot, gathers its byte, and a shift
+    and mask unpack it, as the JAX functions do."""
+    B = n.shape[0]
+    dev = qblk.device
     c = band // 2
     width = c + max_len + band
+    per = 8 // bits
     pos = torch.arange(width, device=dev)[None, :]
     row0 = (torch.arange(B, device=dev) * max_len)[:, None]
-    qoff = c + max_len - 1 - pos
-    toff = pos - c
-    qvalid = (qoff >= 0) & (qoff < n[:, None])
-    tvalid = (toff >= 0) & (toff < m[:, None])
-    qrp = torch.where(qvalid, qcat[row0 + qoff.clamp(0, max_len - 1)], 0)
-    tp = torch.where(tvalid, tcat[row0 + toff.clamp(0, max_len - 1)], 0)
-    return (qrp.to(torch.uint8).contiguous(),
-            tp.to(torch.uint8).contiguous())
+
+    def fill(blk, off, length):
+        valid = (off >= 0) & (off < length[:, None])
+        src = row0 + off.clamp(0, max_len - 1)
+        code = ((blk[src // per].to(torch.int32) >> ((src % per) * bits))
+                & ((1 << bits) - 1))
+        return torch.where(valid, code, 0).to(torch.uint8).contiguous()
+
+    return fill(qblk, c + max_len - 1 - pos, n), fill(tblk, pos - c, m)
 
 
 def align_chain(qrp: torch.Tensor, tp: torch.Tensor, n: torch.Tensor,
@@ -461,17 +512,49 @@ def _pow2_at_least(x: int) -> int:
     return p
 
 
-def _dense_block(seqs, lens: np.ndarray, B: int, max_len: int) -> np.ndarray:
-    """``B * max_len`` bytes holding ``seqs[k]`` at ``k * max_len``, zeros
-    elsewhere: one join and one scatter, no loop over pairs."""
-    out = np.zeros(B * max_len, dtype=np.uint8)
-    flat = np.frombuffer(b"".join(seqs), dtype=np.uint8)
-    if flat.size:
-        lens = lens.astype(np.int64)
-        start = (np.arange(len(seqs), dtype=np.int64) * max_len
-                 - np.cumsum(lens) + lens)
-        out[np.repeat(start, lens) + np.arange(flat.size)] = flat
-    return out
+def upload_form(seen: np.ndarray, swar: bool, bits=None):
+    """A chunk's upload form, ``(bits, lut)``, from the byte values present
+    in its sequences (``seen``, ``bool [256]``), as the JAX chunk launcher
+    picks it: the alphabet is the non-zero values present (0 is padding);
+    with ``swar`` (:func:`~.swar.swar_choice`) and at most 4 symbols, 2-bit
+    codes 0..3 in ascending byte order; else, up to 15 symbols, nibble
+    codes 1..15; else the raw bytes. ``bits`` forces a form the alphabet
+    fits (raises ``ValueError`` otherwise)."""
+    alphabet = np.flatnonzero(seen[1:]) + 1
+    if bits is None:
+        bits = (2 if swar and len(alphabet) <= 4
+                else 4 if len(alphabet) <= 15 else 8)
+    if bits == 8:
+        return 8, np.arange(256, dtype=np.uint8)
+    if len(alphabet) > (4 if bits == 2 else 15):
+        raise ValueError(f"{len(alphabet)} symbols do not fit {bits}-bit "
+                         f"codes")
+    lut = np.zeros(256, np.uint8)
+    lut[alphabet] = np.arange(len(alphabet), dtype=np.uint8) + (bits == 4)
+    return bits, lut
+
+
+def pack_chunk(qs, ts, qlens: np.ndarray, tlens: np.ndarray, B: int,
+               max_len: int, *, swar: bool, bits=None, pin: bool = False):
+    """A chunk's two upload blocks, byte for byte the arrays the JAX chunk
+    launcher uploads (``pack_bases_2bit`` of its 2-bit codes, its nibble
+    bytes or its dense byte block): the query spans ``qs`` and target spans
+    ``ts`` (bytes, lengths ``qlens``, ``tlens``) in ``B`` slots of
+    ``max_len`` codes, in the form :func:`upload_form` picks (``swar``,
+    ``bits``). One read-only scan of the spans finds the alphabet, and
+    ``native.pack_block`` writes each block, padding included, in one pass
+    over them: no ``B * max_len`` byte block is made first. Returns
+    ``(qblk, tblk, bits)``, uint8 CPU tensors of ``B * max_len * bits / 8``
+    bytes, pinned with ``pin``."""
+    qflat, tflat = b"".join(qs), b"".join(ts)
+    bits, lut = upload_form(native.byte_presence(qflat, tflat), swar, bits)
+    blocks = []
+    for flat, lens in ((qflat, qlens), (tflat, tlens)):
+        out = torch.empty(B * max_len * bits // 8, dtype=torch.uint8,
+                          pin_memory=pin)
+        native.pack_block(flat, lens, B, max_len, lut, bits, out.data_ptr())
+        blocks.append(out)
+    return blocks[0], blocks[1], bits
 
 
 class CudaAligner:
@@ -521,13 +604,19 @@ class CudaAligner:
         # anti-diagonals / B x steps of every launch; steps_wasted their
         # gap; wavefront_work lanes_total x band summed over launches;
         # chunk_shapes (max_len, band, pairs, padded batch, sweep steps)
-        # of each launch; fetched_bytes the bytes copied off the device
+        # of each launch; fetched_bytes the bytes copied off the device;
+        # swar_guard_int32 the chunks the int16 overflow guard kept from
+        # the 2-bit upload; upload_forms and upload_bytes the chunks and
+        # their two blocks' bytes by code width (2, 4, 8 bits)
         self.stats = {"device": 0, "fallback_length": 0, "fallback_band": 0,
                       "band_escalated": 0, "chunks": 0, "swar_chunks": 0,
+                      "swar_guard_int32": 0,
                       "lanes_occupied": 0, "lanes_total": 0,
                       "steps_wasted": 0, "wavefront_work": 0,
                       "ladder_narrow": 0, "fetched_bytes": 0,
-                      "chunk_shapes": []}
+                      "chunk_shapes": [],
+                      "upload_forms": {2: 0, 4: 0, 8: 0},
+                      "upload_bytes": {2: 0, 4: 0, 8: 0}}
         # the sanitizer's pick of the K4 chunks it shadows with K1
         self._shadow = sanitize.ShadowSampler()
         # device-OOM backpressure: the shard runner's ladder doubles this
@@ -872,39 +961,48 @@ class CudaAligner:
         metrics.inc("align.lanes_total", total)
         metrics.inc("align.steps_wasted", total - occ)
         metrics.inc("align.wavefront_work", total * band)
-        # on the aligner's device through pinned memory, so the copies do
-        # not wait for the chunks in flight; every process of a group
-        # packs the whole chunk alike and keeps it on the host; under a
-        # mesh each shard builds its rows from its slice of the blocks
+        # the upload blocks, packed in the chunk's form (2-bit codes,
+        # nibbles or raw bytes) straight into pinned memory where the
+        # aligner runs on a card, so the copies do not wait for the chunks
+        # in flight; every process of a group packs the whole chunk alike
+        # and keeps it on the host; under a mesh each shard uploads its
+        # slice of the blocks and builds its rows on its own device
+        qblk, tblk, bits = pack_chunk(
+            qs, ts, n[:C], m[:C], B, max_len,
+            swar=swar_choice(max_len, st), pin=self.device.type == "cuda")
+        st["upload_forms"][bits] += 1
+        st["upload_bytes"][bits] += qblk.numel() + tblk.numel()
+
         def put(a):
             return to_global(self.mesh, a, self.device)
         nd, md = put(n), put(m)
-        rows = (put(_dense_block(qs, n[:C], B, max_len)),
-                put(_dense_block(ts, m[:C], B, max_len)))
+        rows = (put(qblk), put(tblk))
+        del qblk, tblk
         if self.mesh is None:
-            rows = build_rows(*rows, nd, md, max_len=max_len, band=band)
+            rows = build_rows(*rows, nd, md, max_len=max_len, band=band,
+                              bits=bits)
         packed16 = use_packed16(max_len, band)
         st["swar_chunks"] += int(packed16)
         metrics.inc("aligner.swar_chunks", int(packed16))
         shadow = packed16 and self._shadow.should_shadow()
         parts = self._dispatch(*rows, nd, md, max_len=max_len, band=band,
-                               steps=steps, packed16=packed16)
+                               bits=bits, steps=steps, packed16=packed16)
         if shadow:
             self._shadow_chunk(*rows, nd, md, parts, max_len=max_len,
-                               band=band, steps=steps)
+                               band=band, bits=bits, steps=steps)
         del rows
         if bp_meta is not None:
             parts = self._attach_bp(parts, chunk, n, m, nd, md, max_len,
                                     bp_meta)
         return chunk, pairs, n, m, self._merged(parts), max_len
 
-    def _dispatch(self, qrp, tp, n, m, **kw) -> list:
+    def _dispatch(self, qrp, tp, n, m, *, bits: int, **kw) -> list:
         """The chunk's forward pass and walk: one ``(ops_packed, score, fi,
         fj)`` tuple from its rows, or under a mesh one a slot through
-        :func:`sharded_align` from the byte blocks (``None`` for a slot
-        another process owns)."""
+        :func:`sharded_align` from the upload blocks of ``bits`` a code
+        (``None`` for a slot another process owns)."""
         if self.mesh is not None:
-            return sharded_align(self.mesh, qrp, tp, n, m, **kw)
+            return sharded_align(self.mesh, qrp, tp, n, m, bits=bits, **kw)
         return [align_chain(qrp, tp, n, m, **kw)]
 
     def _merged(self, parts):
@@ -946,15 +1044,15 @@ class CudaAligner:
         return out
 
     def _shadow_chunk(self, qrp, tp, n, m, parts, *, max_len: int,
-                      band: int, steps: int) -> None:
+                      band: int, bits: int, steps: int) -> None:
         """The sanitizer's K1 shadow of a K4 chunk: the same rows through
         the int32 forward pass and the same walk (sharded alike under a
-        mesh); the merged ``ops_packed``, ``score``, ``fi`` and ``fj`` must
-        equal bit for bit. The K4 pass's direction rows are released
-        before this runs, so the two passes never hold two chunks' rows at
-        once."""
+        mesh, each shard building its rows again from the same blocks);
+        the merged ``ops_packed``, ``score``, ``fi`` and ``fj`` must equal
+        bit for bit. The K4 pass's direction rows are released before this
+        runs, so the two passes never hold two chunks' rows at once."""
         shadow = self._dispatch(qrp, tp, n, m, max_len=max_len, band=band,
-                                steps=steps, packed16=False)
+                                bits=bits, steps=steps, packed16=False)
         metrics.inc("align.shadow_chunks")
         sanitize.shadow_compare(
             self._merged(parts), self._merged(shadow),

@@ -1,6 +1,7 @@
 """Which forward kernel a launch takes: the int16x2 overflow guard (copy of
 ``racon_tpu.ops.swar.swar_fits``) and, per band, the faster of the two
-kernels on the card.
+kernels on the card; and the aligner's 2-bit upload: whether a chunk may
+take it (:func:`swar_choice`) and its packing (:func:`pack_bases_2bit`).
 
 The packed forward kernel (``nw_fwd_i16x2``) saturates scores at
 ``BIG16``; every real cell value of a ``max_len`` bucket is at most
@@ -12,7 +13,10 @@ between them only moves time.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import flags
+from ..obs import metrics
 
 BIG16 = 0x4800
 
@@ -76,3 +80,34 @@ def use_packed16(max_len: int, band: int) -> bool:
         return False  # the A/B switch: K1 everywhere
     return (swar_fits(max_len)
             and FORWARD_KERNEL.get(band, "nw_fwd_i16x2") == "nw_fwd_i16x2")
+
+
+def swar_choice(max_len: int, stats: dict) -> bool:
+    """Whether an aligner chunk of bucket ``max_len`` may upload 2-bit codes
+    (``racon_tpu.ops.nw.TpuAligner._swar_choice`` without its availability
+    probe, which the port does not have): the overflow guard, then
+    ``RACON_TPU_SWAR``. A chunk the guard turns away is counted in
+    ``stats["swar_guard_int32"]`` and the metric
+    ``aligner.swar_guard_int32``, whatever the flag says, as in JAX. The
+    upload form follows this choice and the chunk's alphabet; the forward
+    kernel follows :func:`use_packed16`, which also weighs the band."""
+    if not swar_fits(max_len):
+        stats["swar_guard_int32"] += 1
+        metrics.inc("aligner.swar_guard_int32")
+        return False
+    return flags.get_bool("RACON_TPU_SWAR")
+
+
+def pack_bases_2bit(codes: np.ndarray) -> np.ndarray:
+    """Four codes (each < 4) a byte, the first in the low bits; the length
+    padded with code 0 to a multiple of 4 (``racon_tpu.ops.swar.
+    pack_bases_2bit``, the same bytes). The aligner writes its blocks with
+    ``native.pack_block`` in one pass from the reads; this is its numpy
+    statement."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    pad = (-len(codes)) % 4
+    if pad:
+        codes = np.concatenate([codes, np.zeros(pad, np.uint8)])
+    c4 = codes.reshape(-1, 4)
+    return (c4[:, 0] | (c4[:, 1] << 2) | (c4[:, 2] << 4)
+            | (c4[:, 3] << 6)).astype(np.uint8)

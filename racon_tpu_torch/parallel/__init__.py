@@ -286,18 +286,21 @@ def fetch_global(tree, mesh: Optional[Mesh] = None) -> list:
     return out
 
 
-def sharded_align(mesh: Mesh, qrp, tp, n, m, *, max_len: int, band: int,
-                  steps: int = 0, packed16: bool = False) -> list:
-    """NW and its walk with the batch dimension split over ``mesh``: slice
-    ``k`` of ``(qrp, tp, n, m)`` moves to device ``k`` and runs the port's
-    :func:`~racon_tpu_torch.ops.nw.align_chain` there (K4 with
-    ``packed16``, else K1, then K2). ``qrp`` and ``tp`` are the rows, or
-    the flat byte blocks of :func:`~racon_tpu_torch.ops.nw.build_rows`
-    (pair ``k`` at ``k * max_len``): then each shard builds its rows on
-    its own device (rows are pair-local, so the shards' rows are the whole
-    batch's slices). The batch must be a multiple of the mesh
-    size (callers pad). Returns one ``(ops_packed, score, fi, fj)`` tuple
-    a slot, on the slot's device, and ``None`` for a slot another process
+def sharded_align(mesh: Mesh, qblk, tblk, n, m, *, max_len: int, band: int,
+                  bits: int, steps: int = 0, packed16: bool = False) -> list:
+    """NW and its walk with the batch dimension split over ``mesh``, from a
+    chunk's upload blocks: ``qblk``, ``tblk`` uint8 ``[B * max_len * bits
+    / 8]`` (pair ``k``'s codes from byte ``k * max_len * bits / 8``,
+    ``bits`` 2, 4 or 8; :func:`~racon_tpu_torch.ops.nw.build_rows`), ``n``,
+    ``m`` int32 ``[B]``. Slot ``k`` moves its pairs' bytes of the blocks
+    (a whole number of pairs: ``max_len`` is a multiple of 4) and of ``n``,
+    ``m`` to device ``k``, builds their rows there with ``build_rows``
+    (rows are pair-local, so the shards' rows are the whole batch's
+    slices; no slot builds another's) and runs the port's
+    :func:`~racon_tpu_torch.ops.nw.align_chain` (K4 with ``packed16``,
+    else K1, then K2). The batch must be a multiple of the mesh size
+    (callers pad). Returns one ``(ops_packed, score, fi, fj)`` tuple a
+    slot, on the slot's device, and ``None`` for a slot another process
     owns; :func:`gather_shards` merges them in slot order into what the
     single-device chain returns for the whole batch."""
     from ..ops.nw import align_chain, build_rows
@@ -306,13 +309,17 @@ def sharded_align(mesh: Mesh, qrp, tp, n, m, *, max_len: int, band: int,
     if B % nd:
         raise ValueError(f"sharded_align: batch {B} is not a multiple of "
                          f"the mesh size {nd}")
+    if any(x.dim() != 1 or 8 * x.shape[0] != B * max_len * bits
+           for x in (qblk, tblk)):
+        raise ValueError(f"sharded_align: the upload blocks must be flat, "
+                         f"{B} pairs of {max_len} codes at {bits} bits")
     parts: list = [None] * nd
     for k, dev in mesh.addressable():
         with on_device(dev):
             q, t, nk, mk = [_to(_shard(x, nd, k), dev)
-                            for x in (qrp, tp, n, m)]
-            if q.dim() == 1:   # the byte blocks
-                q, t = build_rows(q, t, nk, mk, max_len=max_len, band=band)
+                            for x in (qblk, tblk, n, m)]
+            q, t = build_rows(q, t, nk, mk, max_len=max_len, band=band,
+                              bits=bits)
             parts[k] = align_chain(q, t, nk, mk, max_len=max_len,
                                    band=band, steps=steps,
                                    packed16=packed16)

@@ -275,6 +275,99 @@ def test_walk_ops_rejects_unaligned_dirs(cuda_device):
         cuda_nw.walk_ops(dirs, n, m, band=band)
 
 
+# build_rows grids: (seed, B, lo, hi, max_len, band) of the aligner's
+# buckets and rungs (band 96: c = 48, 64: c = 32; both 16-code groups)
+ROWS_GRIDS = {"bucket_256": (31, 40, 20, 250, 256, 128),
+              "bucket_1024": (32, 24, 200, 1000, 1024, 384),
+              "bucket_4096": (33, 8, 1000, 4000, 4096, 1024),
+              "bucket_16384": (34, 4, 5000, 12000, 16384, 4096),
+              "rung_96": (35, 20, 30, 200, 256, 96),
+              "rung_64": (36, 20, 20, 150, 256, 64)}
+
+
+def _row_pairs(grid, alphabet=b"ACGT"):
+    """Pairs of a ROWS_GRIDS grid over ``alphabet``: pairs of length 1,
+    and pairs whose length difference puts their ends on the band's
+    edges."""
+    seed, B, lo, hi, max_len, band = ROWS_GRIDS[grid]
+    rng = np.random.default_rng(seed)
+    sym = np.frombuffer(alphabet, np.uint8)
+    pairs = []
+    for k in range(B):
+        t = sym[rng.integers(0, len(sym), int(rng.integers(lo, hi)))]
+        q = _mutate(rng, t, 0.1)[:max_len] if len(sym) == 4 else t.copy()
+        if k == 0:
+            q, t = q[:1], t[:1]
+        elif k in (1, 2):
+            q = t[:max(1, len(t) - band // 2 + k)]
+        pairs.append((q.tobytes(), t.tobytes()))
+    return pairs, max_len, band
+
+
+def _card_blocks(pairs, max_len, bits, dev, offset=0):
+    """The pairs' upload blocks in form ``bits`` on the card (starting
+    ``offset`` bytes into their allocation), and n, m."""
+    from racon_tpu_torch.ops import nw as tnw
+    B = len(pairs)
+    n = np.array([len(q) for q, _ in pairs], np.int32)
+    m = np.array([len(t) for _, t in pairs], np.int32)
+    q, t, _ = tnw.pack_chunk([p[0] for p in pairs], [p[1] for p in pairs],
+                             n, m, B, max_len, swar=True, bits=bits)
+
+    def up(x):
+        buf = torch.empty(x.numel() + offset, dtype=torch.uint8,
+                          device=dev)
+        buf[offset:] = x.to(dev)
+        return buf[offset:]
+    return (up(q), up(t), torch.from_numpy(n).to(dev),
+            torch.from_numpy(m).to(dev))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("grid", ROWS_GRIDS)
+def test_build_rows_matches_plain(cuda_device, grid, bits, offset):
+    """The kernel equals build_rows_plain bit for bit in each form, on
+    ACGT and all-'A' pairs, one launch a call; blocks one byte off a 16 B
+    boundary take the byte loop."""
+    from racon_tpu_torch.ops import nw as tnw
+    for alphabet in (b"ACGT", b"A"):
+        pairs, max_len, band = _row_pairs(grid, alphabet)
+        q, t, n, m = _card_blocks(pairs, max_len, bits, cuda_device, offset)
+        before = cuda_nw.LAUNCHES["build_rows"]
+        got = tnw.build_rows(q, t, n, m, max_len=max_len, band=band,
+                             bits=bits)
+        torch.cuda.synchronize()
+        assert cuda_nw.LAUNCHES["build_rows"] == before + 1
+        want = tnw.build_rows_plain(q, t, n, m, max_len=max_len, band=band,
+                                    bits=bits)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w), (grid, bits)
+
+
+@pytest.mark.parametrize("grid", ROWS_GRIDS)
+def test_forward_and_walk_same_from_each_form(cuda_device, grid):
+    """K1 and K4 (the bodies the grid's band takes) and K2 give the same
+    scores, ops and walk ends from the kernel's raw, nibble and 2-bit rows
+    of one chunk, all-'A' pairs included."""
+    from racon_tpu_torch.ops import nw as tnw
+    for alphabet in (b"ACGT", b"A"):
+        pairs, max_len, band = _row_pairs(grid, alphabet)
+        outs = {}
+        for bits in (2, 4, 8):
+            q, t, n, m = _card_blocks(pairs, max_len, bits, cuda_device)
+            qrp, tp = tnw.build_rows(q, t, n, m, max_len=max_len,
+                                     band=band, bits=bits)
+            steps = tnw.sweep_bound(int((n + m).max()), max_len)
+            outs[bits] = [x.cpu() for packed16 in (False, True)
+                          for x in tnw.align_chain(
+                              qrp, tp, n, m, max_len=max_len, band=band,
+                              steps=steps, packed16=packed16)]
+        for bits in (2, 4):
+            for got, want in zip(outs[bits], outs[8]):
+                assert torch.equal(got, want), (grid, alphabet, bits)
+
+
 def test_aligner_card_matches_cpu(cuda_device):
     """CudaAligner on the card == CudaAligner(device="cpu"): same CIGARs,
     band escalation and host fallback included."""

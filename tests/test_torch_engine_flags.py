@@ -5,8 +5,13 @@
 package reads them (the engines' constructors, the forward-kernel choice,
 ``parsers.overlaps_mode``). Each keeps JAX's default and type, and flipping
 it moves the engines' counters as it moves JAX's, while the bytes stay.
-The JAX engines run without a mesh (``mesh=None``).
+The JAX engines run without a mesh (``mesh=None``). The README's port
+flag table is the registry's generated one.
 """
+
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -126,3 +131,36 @@ def test_overlap_flag_routes_the_runner_to_the_overlapper(monkeypatch,
     runner = ShardRunner(str(tmp_path / "r.fasta"), str(tmp_path / "o.paf"),
                          str(tmp_path / "t.fasta"), work_dir=str(tmp_path))
     assert parsers.is_auto_overlaps(runner.overlaps)
+
+
+README = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "README.md")
+
+
+def test_readme_port_flag_table_is_current():
+    """The README's port table is ``flags.readme_table()`` verbatim, under
+    its own header, and the JAX package's generated block stays beside
+    it."""
+    assert flags.check_readme(README)
+    table = flags.readme_table()
+    assert table.startswith("### Environment flags (port)\n")
+    assert all(f"| `{name}` |" in table for name in flags.REGISTRY)
+    assert jax_flags.check_readme(README)
+    with open(README, encoding="utf-8") as fh:
+        assert fh.read().count("## Environment flags\n") == 1
+
+
+def test_flags_module_checks_the_readme(tmp_path):
+    """``python -m racon_tpu_torch.flags`` prints the table, and
+    ``--check-readme`` exits 0 on the README and 1 on a stale copy."""
+    run = [sys.executable, "-m", "racon_tpu_torch.flags"]
+    out = subprocess.run(run, capture_output=True, text=True, check=True)
+    assert out.stdout == flags.readme_table()
+    assert subprocess.run(run + ["--check-readme", README]).returncode == 0
+    stale = tmp_path / "README.md"
+    stale.write_text(flags.readme_table().replace("| `RACON_TPU_SWAR` |",
+                                                  "| `RACON_TPU_SWAR2` |"))
+    done = subprocess.run(run + ["--check-readme", str(stale)],
+                          capture_output=True, text=True)
+    assert done.returncode == 1 and "stale" in done.stderr
+    assert not flags.check_readme(str(tmp_path / "missing.md"))

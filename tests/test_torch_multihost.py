@@ -28,9 +28,9 @@ points) and its overlapper (``chain.find_overlaps``) in one process on
 the same inputs, and both ranks' results must equal them exactly.
 
 In one process, :func:`racon_tpu_torch.parallel.sharded_align` given the
-flat byte blocks (the form the aligner passes under a mesh, each shard
-building its rows on its own device) equals JAX's ``sharded_align`` on
-the rows built from the same blocks.
+chunk's packed upload blocks (the form the aligner passes under a mesh,
+each shard building its rows on its own device) equals JAX's
+``sharded_align`` on the rows built from the same pairs.
 """
 
 import json
@@ -356,7 +356,7 @@ def _byte_blocks(seed, B=8, max_len=256):
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_sharded_align_from_byte_blocks_equals_jax(k, swar):
     """The aligner's form under a mesh: each shard builds its rows from its
-    slice of the byte blocks on its own device."""
+    slice of the chunk's packed upload blocks on its own device."""
     import jax.numpy as jnp
     import torch
 
@@ -374,10 +374,17 @@ def test_sharded_align_from_byte_blocks_equals_jax(k, swar):
         jax_parallel.get_mesh(k), jq, jt, jnp.asarray(n), jnp.asarray(m),
         max_len=max_len, band=band, steps=steps, use_swar=swar)
     mesh = parallel.get_mesh(devices=[torch.device("cpu")] * k)
+    # packed as the aligner packs the chunk: 2-bit codes where the int16
+    # path may run, else nibbles (ACGT)
+    seqs = [[cat[j * max_len:j * max_len + ln].tobytes()
+             for j, ln in enumerate(lens)] for cat, lens in ((qcat, n),
+                                                             (tcat, m))]
+    qblk, tblk, bits = tnw.pack_chunk(*seqs, n, m, len(n), max_len,
+                                      swar=swar)
+    assert bits == (2 if swar else 4)
     parts = parallel.sharded_align(
-        mesh, torch.from_numpy(qcat), torch.from_numpy(tcat),
-        torch.from_numpy(n), torch.from_numpy(m), max_len=max_len,
-        band=band, steps=steps, packed16=swar)
+        mesh, qblk, tblk, torch.from_numpy(n), torch.from_numpy(m),
+        max_len=max_len, band=band, bits=bits, steps=steps, packed16=swar)
     assert len(parts) == k and all(p[0].shape[0] == 8 // k for p in parts)
     got = parallel.gather_shards(parts)
     for name, g, w in zip(("ops_packed", "score", "fi", "fj"), got, want):

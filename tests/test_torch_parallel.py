@@ -6,7 +6,8 @@ forces (``jax.shard_map``); the port's mesh names the CPU ``k`` times
 runs with the kernels' plain versions. Every comparison is exact:
 
 - ``partition_balanced`` bins equal JAX's on random costs, ties included;
-- ``sharded_align`` equals JAX's ``sharded_align`` element by element at
+- ``sharded_align`` from the aligner's upload blocks (2-bit, nibble and
+  raw) equals JAX's ``sharded_align`` from its rows element by element at
   mesh sizes 1, 2, 4 and 8, with the int32 and the packed forward pass;
 - ``sharded_refine_loop`` equals JAX's at mesh sizes 1, 2 and 4, every
   state array;
@@ -171,9 +172,22 @@ def _rows(seed, B=8, max_len=256, band=128):
     return qcat, tcat, n, m, steps
 
 
+def _blocks(qcat, tcat, n, m, max_len, bits):
+    """The chunk's upload blocks in form ``bits`` (the aligner's packer)."""
+    seqs = [[cat[k * max_len:k * max_len + ln].tobytes()
+             for k, ln in enumerate(lens)]
+            for cat, lens in ((qcat, n), (tcat, m))]
+    q, t, _ = tnw.pack_chunk(*seqs, n, m, len(n), max_len, swar=True,
+                             bits=bits)
+    return q, t
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("swar", [False, True])
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
-def test_sharded_align_equals_jax(k, swar):
+def test_sharded_align_equals_jax(k, swar, bits):
+    """The port from the chunk's upload blocks in each form (each shard
+    builds its rows from its slice), JAX from its rows."""
     max_len, band = 256, 128
     qcat, tcat, n, m, steps = _rows(k + 10 * swar)
     jq, jt = jax_nw._build_rows(jnp.asarray(qcat), jnp.asarray(tcat),
@@ -183,15 +197,16 @@ def test_sharded_align_equals_jax(k, swar):
         jax_parallel.get_mesh(k), jq, jt, jnp.asarray(n), jnp.asarray(m),
         max_len=max_len, band=band, steps=steps, use_swar=swar)
     nt, mt = torch.from_numpy(n), torch.from_numpy(m)
-    qrp, tp = tnw.build_rows(torch.from_numpy(qcat), torch.from_numpy(tcat),
-                             nt, mt, max_len=max_len, band=band)
-    parts = parallel.sharded_align(_mesh(k), qrp, tp, nt, mt,
-                                   max_len=max_len, band=band, steps=steps,
-                                   packed16=swar)
+    qblk, tblk = _blocks(qcat, tcat, n, m, max_len, bits)
+    parts = parallel.sharded_align(_mesh(k), qblk, tblk, nt, mt,
+                                   max_len=max_len, band=band, bits=bits,
+                                   steps=steps, packed16=swar)
     assert len(parts) == k and all(p[0].shape[0] == 8 // k for p in parts)
     got = parallel.gather_shards(parts)
     for name, g, w in zip(("ops_packed", "score", "fi", "fj"), got, want):
         assert np.array_equal(g.numpy(), np.asarray(w)), (name, k, swar)
+    qrp, tp = tnw.build_rows(qblk, tblk, nt, mt, max_len=max_len, band=band,
+                             bits=bits)
     single = tnw.align_chain(qrp, tp, nt, mt, max_len=max_len, band=band,
                              steps=steps, packed16=swar)
     assert all(torch.equal(a, b) for a, b in zip(got, single))
@@ -200,11 +215,16 @@ def test_sharded_align_equals_jax(k, swar):
 def test_sharded_align_needs_a_multiple_of_the_mesh():
     qcat, tcat, n, m, steps = _rows(3, B=6)
     nt, mt = torch.from_numpy(n), torch.from_numpy(m)
-    qrp, tp = tnw.build_rows(torch.from_numpy(qcat), torch.from_numpy(tcat),
-                             nt, mt, max_len=256, band=128)
+    qblk, tblk = _blocks(qcat, tcat, n, m, 256, 2)
     with pytest.raises(ValueError, match="multiple of the mesh size 4"):
-        parallel.sharded_align(_mesh(4), qrp, tp, nt, mt, max_len=256,
-                               band=128, steps=steps)
+        parallel.sharded_align(_mesh(4), qblk, tblk, nt, mt, max_len=256,
+                               band=128, bits=2, steps=steps)
+    # rows are not blocks: the one input form is the flat upload
+    qrp, tp = tnw.build_rows(qblk, tblk, nt, mt, max_len=256, band=128,
+                             bits=2)
+    with pytest.raises(ValueError, match="must be flat"):
+        parallel.sharded_align(_mesh(2), qrp, tp, nt, mt, max_len=256,
+                               band=128, bits=2, steps=steps)
 
 
 # ---------------------------------------------------- sharded_refine_loop

@@ -9,12 +9,15 @@ Each checkout is the root of a tree holding ``racon_tpu_torch`` (a ``git
 archive`` of a commit, or the working tree ``.``). Per run, one JSON line:
 the card (``nvidia-smi`` name and power limit), the stage seconds and wall
 of a first pass (cold, as ``chip_smoke.py``'s main phase), the aligner's
-and the consensus engine's counters (and its group shapes, where the tree
-records them), launches per kernel, the SHA-256 of the polished FASTA (it must
-be the same for every tree), then a second pass under ``torch.profiler``:
+and the consensus engine's counters (its upload forms and bytes, and the
+consensus group shapes, where the tree records them), launches per
+kernel, the SHA-256 of the polished FASTA (it must be the same for every
+tree), then a second pass under ``torch.profiler``:
 its wall, the device's busy seconds and idle share, and the device seconds
-of the forward kernels, the walks and the ``breaking_points`` range. It
-skips what the smoke's other phases do (kernel parity, edit distances).
+of the forward kernels, the walks and the ``breaking_points`` range; then
+a third pass with the span timers on (``spanned``: its stages hold
+``align_dispatch_s``, the span ``align.dispatch``). It skips what the
+smoke's other phases do (kernel parity, edit distances).
 All lines go to ``chiprun_out/ab_main_path.json`` too.
 """
 
@@ -59,7 +62,8 @@ fasta = b"".join(b">" + s.name + b"\n" + s.data + b"\n" for s in out)
 st = polisher.aligner.stats
 keys = ("device", "fallback_length", "fallback_band", "band_escalated",
         "chunks", "ladder_narrow", "lanes_occupied", "lanes_total",
-        "wavefront_work", "fetched_bytes", "chunk_shapes")
+        "wavefront_work", "fetched_bytes", "chunk_shapes", "upload_forms",
+        "upload_bytes", "swar_guard_int32")
 rec = dict(card=subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
@@ -103,6 +107,14 @@ for e in prof.key_averages():
 rec["profiled"] = dict(wall_s=wall, stages_s=polisher.timings,
                        device_busy_s=busy, idle_share=1.0 - busy / wall,
                        device_s=dict(groups, breaking_points=bp))
+
+# a third pass with the span timers on: its stages carry align_dispatch_s
+# (the span align.dispatch: host packing and the asynchronous launches)
+from racon_tpu_torch import obs
+obs.trace.activate()
+polisher, _, wall = polish()
+obs.trace.deactivate()
+rec["spanned"] = dict(wall_s=wall, stages_s=polisher.timings)
 print("AB " + json.dumps(rec), flush=True)
 """
 
