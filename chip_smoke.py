@@ -5,9 +5,12 @@ Run from the root of a checkout, with no arguments: ``python3
 chip_smoke.py``. It needs one CUDA device, ``nvcc``, ``nvidia-smi`` and a
 ``g++`` that finds zlib's header, and it exits non-zero (printing no
 result) when any of them is missing or any phase fails. (``python3
-chip_smoke.py --chain-ab SRC`` runs only :func:`chain_ab`, which times
-another ``chain_dp.cu`` against this tree's; ``--multihost-rank`` is
-the multihost phase's child.) Phases, one JSON line each:
+chip_smoke.py --ab KERNEL SRC ...`` runs only :func:`kernel_ab`, which
+times other sources of ``chain_dp``, ``breaking_points`` or
+``build_rows`` against this tree's; ``--bp-rows`` runs only
+:func:`bp_rows_only`, the main, ``bp``, ``rows`` and profile phases;
+``--multihost-rank`` is the multihost phase's child.) Phases, one JSON
+line each:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — every kernel built from ``racon_tpu_torch/ops/kernels``, one
@@ -327,16 +330,19 @@ the multihost phase's child.) Phases, one JSON line each:
              the CUDA kernel ``breaking_points`` equal bit for bit to
              ``breaking_points_plain`` on the same card tensors and to
              ``breaking_points`` on the CPU from the same op stream, one
-             launch a call; the kernel's and the plain version's time
-             (CUDA events) beside the bound. Every path's aligner chunks
-             join ``unheld`` under ``breaking_points``;
+             launch a call; a call's time, the kernel's device time
+             alone (``device_ms``: 20 calls in one CUDA graph, one replay
+             timed), the difference (``host_ms``) and the plain version's
+             time (CUDA events) beside the bound. Every path's aligner
+             chunks join ``unheld`` under ``breaking_points``;
    rows    — at the same buckets and batches, on the same pairs and on
              all-'A' pairs of their lengths: the chunk's upload blocks in
              each form (2-bit, nibble, raw; ``ops.nw.pack_chunk``) through
              the CUDA kernel ``build_rows`` and ``build_rows_plain`` on
-             the same card tensors, bit for bit, one launch a call, the
-             kernel's and the plain version's time (CUDA events) beside
-             the bound (bytes: the blocks read, both rows written); K1,
+             the same card tensors, bit for bit, one launch a call,
+             ``ms``, ``device_ms``, ``host_ms`` as in ``bp`` and the plain
+             version's time beside the bound (bytes: the blocks read,
+             both rows written); K1,
              K4 and K2 from each form's rows must agree. Every path's
              aligner chunks join ``unheld`` under ``build_rows``. (The
              kernels phase's aligner rows come through ``build_rows`` too,
@@ -346,8 +352,9 @@ the multihost phase's child.) Phases, one JSON line each:
              (``use_ragged=False``), and with the plain PyTorch kernels on
              the CPU: the three FASTA must be byte-identical;
 11. profile — the main path once more under ``torch.profiler``: device
-             time by kernel and of the ``breaking_points`` range, and the
-             device's idle share;
+             time by kernel, the device's idle share, and the launches of
+             ``breaking_points`` and ``build_rows`` (one a chunk) with
+             their summed bound and each kernel's device time over it;
 12. accuracy — the draft's and the main and main_auto polishes' edit
              distances to the truth, three native distances side by side
              on three threads started before the kernels phase, once the
@@ -541,6 +548,29 @@ def time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device ms per call of ``fn``: ``reps`` calls captured into one
+    CUDA graph after a warm-up call, one replay timed with CUDA events.
+    The calls' host side (the wrapper's checks, allocations and ctypes
+    call) runs at capture, not in the replay, so ``time_ms(fn, reps) -
+    device_ms(fn, reps)`` is what the host side adds to a call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -3563,57 +3593,290 @@ def chain_entry(launched, dev) -> dict:
     return entry
 
 
-def chain_ab(dev, src: pathlib.Path) -> int:
-    """``python3 chip_smoke.py --chain-ab SRC``: ``rt_chain_dp`` built from
-    SRC (another ``chain_dp.cu`` with this tree's C entry, such as an
-    earlier version unpacked under ``build/``) against this tree's, on the
-    arenas of ``CHAIN_ADVERSARIAL``: both held bit for bit against
-    ``chain_dp_plain``, their C entries timed with CUDA events in turns
-    (other, this, this, other). One JSON line an arena, then the
-    ``nvidia-smi`` line; non-zero when either disagrees. No other phase
-    runs."""
-    emit(dict(phase="device", nvidia_smi=gpu_line()))
-    this = _build.function("rt_chain_dp")
-    lib = ROOT / "build" / "chain_ab" / "libchain_dp_other.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC", str(src),
-                    "-o", str(lib)], check=True)
-    other = ctypes.CDLL(str(lib)).rt_chain_dp
-    other.restype = ctypes.c_int
-    other.argtypes = _build.SIGNATURES["rt_chain_dp"][1]
+# the aligner buckets of the main path, (max_len, band) -> the pairs of
+# its largest chunk: the shapes of --ab's breaking_points and build_rows
+# rows
+AB_BUCKETS = {(8192, 1536): 8, (8192, 2048): 64, (16384, 3072): 1024,
+              (16384, 4096): 2048, (16384, 8192): 512}
+
+
+def ab_chain_cases(dev):
+    """``--ab chain_dp``: the arenas of ``CHAIN_ADVERSARIAL``."""
     run_k = chain.resolve_params().k
-    ok = True
     for seed, (S, B, k) in enumerate(CHAIN_ADVERSARIAL, 707):
         k = run_k if k is None else k
         ts, qs, ns = chain_arena_tensors(dev, seed, S, B)
-        want = chain.chain_dp_plain(ts, qs, ns, k=k)
         parent = (torch.empty((S, B), dtype=torch.uint8, device=dev)
                   if S > chain.CHAIN_SMEM_SLOTS else None)
-        outs = {n: torch.empty((B, 6), dtype=torch.int32, device=dev)
-                for n in ("other", "this")}
 
-        def run(fn, out):
-            err = fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
-                     None if parent is None else parent.data_ptr(),
-                     out.data_ptr(), B, S, k, chain.CHAIN_SMEM_SLOTS,
-                     cuda_nw._stream(ts))
+        def run(fn, out, ts=ts, qs=qs, ns=ns, parent=parent, B=B, S=S, k=k):
+            return fn(ts.data_ptr(), qs.data_ptr(), ns.data_ptr(),
+                      None if parent is None else parent.data_ptr(),
+                      out.data_ptr(), B, S, k, chain.CHAIN_SMEM_SLOTS,
+                      cuda_nw._stream(ts))
+
+        yield dict(shape=dict(S=S, B=B, k=k, live_seeds=int(ns.sum())),
+                   out=lambda B=B: [torch.empty((B, 6), dtype=torch.int32,
+                                                device=dev)],
+                   run=lambda fn, out, run=run: run(fn, out[0]),
+                   want=[chain.chain_dp_plain(ts, qs, ns, k=k)],
+                   bound_ms=None)
+
+
+def ab_pairs(seed, max_len, B):
+    """``B`` ACGT pairs of ``max_len / 4`` to ``max_len / 2`` bases at 12%
+    error (the main path's reads land in its buckets so), as bytes."""
+    rng = np.random.default_rng(seed)
+    return [(q.tobytes(), t.tobytes()) for q, t in
+            mutated_pairs(rng, B, max_len // 4, max_len // 2, 0.12, BASES)]
+
+
+def ab_bp_cases(dev, w=500):
+    """``--ab breaking_points``: the walk's op stream of ``ab_pairs`` at
+    each of ``AB_BUCKETS`` (the aligner's forward pass and K2 in CIGAR
+    mode), with metas of a 1 Mbp draft."""
+    for seed, ((max_len, band), B) in enumerate(AB_BUCKETS.items(), 505):
+        pairs = ab_pairs(seed, max_len, B)
+        tb = np.random.default_rng(seed).integers(0, 500_000, B)
+        _, _, n, m, (ops, _, _, _), _ = CudaAligner(
+            device=dev)._launch_chunk(pairs, list(range(B)), max_len, band)
+        first_rel, nb = window_geometry(tb, m, w)
+        NW = max_len // w + 2
+        lanes = [torch.from_numpy(a).to(dev) for a in (n, m, first_rel, nb)]
+        B, S4 = ops.shape    # the chunk's lanes
+
+        def run(fn, out, ops=ops, lanes=lanes, NW=NW, B=B, S4=S4):
+            return fn(ops.data_ptr(), *(x.data_ptr() for x in lanes),
+                      out[0].data_ptr(), out[1].data_ptr(), B, S4, w, NW,
+                      cuda_nw._stream(ops))
+
+        yield dict(shape=dict(max_len=max_len, band=band, B=B, steps=4 * S4),
+                   out=lambda NW=NW, B=B: torch.empty(
+                       (2, B, NW), dtype=torch.int32, device=dev),
+                   run=run,
+                   want=breaking_points_plain(ops, *lanes, w=w, NW=NW),
+                   bound_ms=bp_bound(B, 4 * S4, NW)[0])
+
+
+def ab_rows_cases(dev):
+    """``--ab build_rows``: the 2-bit upload blocks of ``ab_pairs`` at each
+    of ``AB_BUCKETS`` (the main path's only form)."""
+    for seed, ((max_len, band), B) in enumerate(AB_BUCKETS.items(), 505):
+        pairs = ab_pairs(seed, max_len, B)
+        qs = [q for q, _ in pairs]
+        ts = [t for _, t in pairs]
+        n = np.array([len(q) for q in qs], np.int32)
+        m = np.array([len(t) for t in ts], np.int32)
+        qblk, tblk, bits = pack_chunk(qs, ts, n, m, B, max_len, swar=True,
+                                      bits=2, pin=True)
+        qd, td = qblk.to(dev), tblk.to(dev)
+        nd, md = (torch.from_numpy(a).to(dev) for a in (n, m))
+        width = band // 2 + max_len + band
+
+        def run(fn, out, qd=qd, td=td, nd=nd, md=md, B=B, max_len=max_len,
+                band=band, bits=bits):
+            return fn(qd.data_ptr(), td.data_ptr(), nd.data_ptr(),
+                      md.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), B,
+                      max_len, band, bits, cuda_nw._stream(qd))
+
+        yield dict(shape=dict(max_len=max_len, band=band, B=B, bits=bits),
+                   out=lambda B=B, width=width: torch.empty(
+                       (2, B, width), dtype=torch.uint8, device=dev),
+                   run=run,
+                   want=build_rows_plain(qd, td, nd, md, max_len=max_len,
+                                         band=band, bits=bits),
+                   bound_ms=rows_bound(B, max_len, band, bits)[0])
+
+
+# --ab KERNEL: its C entry, its cases, and how a launch is timed (chain_dp
+# by CUDA events around 50 calls, as its kernels row; the aligner kernels
+# by device_ms, a CUDA graph of 20)
+AB_KERNELS = {
+    "chain_dp": ("rt_chain_dp", ab_chain_cases,
+                 lambda fn: time_ms(fn, 50)),
+    "breaking_points": ("rt_breaking_points", ab_bp_cases, device_ms),
+    "build_rows": ("rt_build_rows", ab_rows_cases, device_ms),
+}
+
+
+def kernel_ab(dev, kernel: str, srcs) -> int:
+    """``python3 chip_smoke.py --ab KERNEL SRC [SRC ...]``: KERNEL's C entry
+    built from each SRC (another ``.cu`` with this tree's C entry, such as
+    an earlier version unpacked under ``build/`` or a variant under
+    ``tools/ab/``) against this tree's, on the cases of ``AB_KERNELS``:
+    every build held bit for bit against the plain version on the same
+    card tensors, then timed in turns (SRC, this, this, SRC for each SRC).
+    One JSON line a case (ms a launch by source name, the bound), then the
+    ``nvidia-smi`` line; non-zero when any build disagrees. No other phase
+    runs."""
+    emit(dict(phase="device", nvidia_smi=gpu_line()))
+    fn_name, cases, timer = AB_KERNELS[kernel]
+    fns = {"this": _build.function(fn_name)}
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, src in enumerate(srcs):
+        lib = out_dir / f"lib{fn_name}_{i}.so"
+        built = subprocess.run(
+            [_build.nvcc_path(), *_build.ARCH_FLAGS, "-Xptxas", "-v",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             str(src), "-o", str(lib)], check=True, capture_output=True,
+            text=True)
+        name = f"{i}:{src.name}"
+        emit(dict(phase="ptxas", source=name, kernels=ptxas_table(
+            {fn_name: built.stdout + built.stderr})))
+        entry = getattr(ctypes.CDLL(str(lib)), fn_name)
+        entry.restype = ctypes.c_int
+        entry.argtypes = _build.SIGNATURES[fn_name][1]
+        fns[name] = entry
+    ok = True
+    for case in cases(dev):
+        outs = {k: case["out"]() for k in fns}
+
+        def call(k):
+            err = case["run"](fns[k], outs[k])
             if err:
-                raise RuntimeError(f"rt_chain_dp: CUDA error {err}")
+                raise RuntimeError(f"{fn_name} ({k}): CUDA error {err}")
 
-        fns = {"other": other, "this": this}
-        for n, fn in fns.items():
-            run(fn, outs[n])
-        errs = {n: int((o.to(torch.int64) - want.to(torch.int64))
-                       .abs().max()) for n, o in outs.items()}
-        ms = [time_ms(lambda n=n: run(fns[n], outs[n]), 50)
-              for n in ("other", "this", "this", "other")]
+        for k in fns:
+            call(k)
+        errs = {k: max(int((o.to(torch.int64) - w.to(torch.int64))
+                           .abs().max())
+                       for o, w in zip(outs[k], case["want"]))
+                for k in fns}
+        ms = {k: [] for k in fns}
+        for k in fns:
+            if k != "this":
+                for turn in (k, "this", "this", k):
+                    ms[turn].append(timer(lambda turn=turn: call(turn)))
         ok = ok and not any(errs.values())
-        emit(dict(phase="chain_ab", S=S, B=B, k=k,
-                  live_seeds=int(ns.sum()), max_abs_err=errs,
-                  other_ms=[ms[0], ms[3]], ms=[ms[1], ms[2]]))
+        emit(dict(phase="ab", kernel=kernel, **case["shape"],
+                  max_abs_err=errs, ms=ms, bound_ms=case["bound_ms"]))
+        del outs, case
+        torch.cuda.empty_cache()
     print(gpu_line(), flush=True)
     return 0 if ok else 1
+
+
+def host_split(dev, reps=2000) -> dict:
+    """Host microseconds a call of each piece of the two aligner kernels'
+    wrappers at the smallest aligner shape's sizes (B = 8, 2048 op-stream
+    bytes a pair; (8192, 1536) rows): each wrapper whole, its output
+    allocation, a ``record_function`` range and ``obs.profile_range`` with
+    no profile recording, the current stream's handle by PyTorch's raw
+    lookup and by ``torch.cuda.current_stream``, the device context, and
+    each C entry alone on preallocated outputs. Timed on the host clock
+    over ``reps`` calls (the launches queue on the card meanwhile)."""
+    B, S4, NW, w = 8, 2048, 18, 500
+    ops = torch.full((B, S4), 0xFF, dtype=torch.uint8, device=dev)
+    lanes = [torch.ones(B, dtype=torch.int32, device=dev) for _ in range(4)]
+    max_len, band, bits = 8192, 1536, 2
+    width = band // 2 + max_len + band
+    blk = torch.zeros(B * max_len * bits // 8, dtype=torch.uint8, device=dev)
+    out_bp = torch.empty((2, B, NW), dtype=torch.int32, device=dev)
+    out_rows = torch.empty((2, B, width), dtype=torch.uint8, device=dev)
+    bp_fn = _build.function("rt_breaking_points")
+    rows_fn = _build.function("rt_build_rows")
+
+    def ranged():
+        with torch.profiler.record_function("x"):
+            pass
+
+    def device_ctx():
+        with cuda_nw.launch_device(ops):
+            pass
+
+    pieces = {
+        "breaking_points": lambda: breaking_points(ops, *lanes, w=w, NW=NW),
+        "build_rows": lambda: build_rows(blk, blk, lanes[0], lanes[1],
+                                         max_len=max_len, band=band,
+                                         bits=bits),
+        "bp_alloc": lambda: torch.empty((2, B, NW), dtype=torch.int32,
+                                        device=dev),
+        "rows_alloc": lambda: torch.empty((2, B, width), dtype=torch.uint8,
+                                          device=dev),
+        "record_function": ranged,
+        "profile_range_off": lambda: obs.profile_range("x"),
+        "stream_raw": lambda: cuda_nw._stream(ops),
+        "stream_public": lambda: torch.cuda.current_stream(
+            ops.device).cuda_stream,
+        "launch_device": device_ctx,
+        "bp_entry": lambda: bp_fn(
+            ops.data_ptr(), *(x.data_ptr() for x in lanes),
+            out_bp[0].data_ptr(), out_bp[1].data_ptr(), B, S4, w, NW,
+            cuda_nw._stream(ops)),
+        "rows_entry": lambda: rows_fn(
+            blk.data_ptr(), blk.data_ptr(), lanes[0].data_ptr(),
+            lanes[1].data_ptr(), out_rows[0].data_ptr(),
+            out_rows[1].data_ptr(), B, max_len, band, bits,
+            cuda_nw._stream(blk)),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def bp_rows_only(dev) -> int:
+    """``python3 chip_smoke.py --bp-rows``: the build, the main phase, then
+    only the ``bp`` and ``rows`` phases, on the pairs the kernels phase
+    draws at each aligner bucket the main path launched (same seeds, same
+    divergence observations, its largest chunk), and the profile phase;
+    then the device time of a one-element PyTorch kernel in a CUDA graph
+    (``launch_floor_ms``, what any launch costs) and ``host_split``. The
+    phase lines, one line of the headline figures and the ``nvidia-smi``
+    line; every record in ``chiprun_out/bp_rows.json``. Non-zero when a
+    phase fails."""
+    t_all = time.perf_counter()
+    card = gpu_line()
+    emit(dict(phase="device", nvidia_smi=card))
+    _build.build_all(force=True, verbose_ptxas=True)
+    emit(dict(phase="ptxas", kernels=ptxas_table(
+        {k: _build.build_log[k]["ptxas"]
+         for k in ("breaking_points", "build_rows")})))
+    native.build(force=True)
+    main_rec, paths, seq = phase_main(dev)
+    del seq
+    drawn = {}
+    for i, (k, (Bc, _)) in enumerate(sorted(aligner_buckets(
+            main_rec).items())):
+        inp = aligner_bucket_inputs(dev, k, Bc, 204 + i,
+                                    main_rec["aligner_div_obs"])
+        drawn[k] = inp.pop("pairs")
+        del inp
+    bp = phase_bp(dev, drawn)
+    rows = phase_rows(dev, drawn)
+    one = torch.zeros(1, device=dev)
+    launch_floor_ms = device_ms(lambda: one.add_(1))
+    split_us = host_split(dev)
+    emit(dict(phase="host_split", us_a_call=split_us))
+    profile = phase_profile(dev, paths)
+    OUT_DIR.mkdir(exist_ok=True)
+    phases = [{k: v for k, v in ph.items() if k not in ("entry", "held")}
+              for ph in (bp, rows)]
+    (OUT_DIR / "bp_rows.json").write_text(json.dumps(
+        dict(main=main_rec, bp=phases[0], rows=phases[1], profile=profile,
+             launch_floor_ms=launch_floor_ms, host_split_us=split_us,
+             card=card), indent=1, default=str))
+    keys = ("shape", "ms", "device_ms", "host_ms", "bound_ms", "plain_ms")
+    emit(dict(
+        bp=[{k: r[k] for k in keys} for r in bp["shapes"]],
+        rows=[{k: r[k] for k in keys} for r in rows["shapes"]],
+        launch_floor_ms=launch_floor_ms, host_split_us=split_us,
+        profile={k: profile[k] for k in (
+            "breaking_points_device_s", "breaking_points_bound_s",
+            "breaking_points_over_bound", "build_rows_bound_s",
+            "build_rows_over_bound", "kernel_device_s", "device_busy_s",
+            "idle_share", "wall_s", "events_complete")},
+        main_sha256=main_rec["fasta_sha256"],
+        total_s=time.perf_counter() - t_all))
+    print(card, flush=True)
+    return 0
 
 
 def zlib_check() -> dict:
@@ -3690,8 +3953,10 @@ def phase_bp(dev, drawn, w=500):
     accept set must be the CIGAR mode's, the kernel's tables must equal
     ``breaking_points_plain`` on the same card tensors bit for bit, and
     ``breaking_points`` on the CPU must give them too. One call of the
-    wrapper must count one launch. Timed with CUDA events (``ms``, the
-    plain version's ``plain_ms``) and on the CPU (``cpu_ms``). Returns the
+    wrapper must count one launch. Timed with CUDA events (``ms``, a
+    call's time; ``device_ms``, the kernel's alone from a CUDA graph of 20
+    calls; ``host_ms``, their difference; the plain version's
+    ``plain_ms``) and on the CPU (``cpu_ms``). Returns the
     phase record with the kernel's entry for the kernels line (``entry``:
     the row with the most steps, the others under ``other_shapes``) and
     the largest batch held at each bucket (``held``)."""
@@ -3745,17 +4010,17 @@ def phase_bp(dev, drawn, w=500):
         cpu_ms = (time.perf_counter() - t0) * 1e3
         same_cpu = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
         ms = time_ms(lambda: breaking_points(ops_d, *dev_in, w=w, NW=NW), 20)
+        dms = device_ms(lambda: breaking_points(ops_d, *dev_in, w=w, NW=NW))
         B, S4 = ops_d.shape
         held[shape] = max(held.get(shape, 0), B)
-        steps_all = B * S4 * 4
-        bms, by = bound(steps_all * OPS_PER_BP_STEP,
-                        B * S4 + 16 * B + 8 * B * NW)
+        bms, by = bp_bound(B, 4 * S4, NW)
         rows.append(dict(
             shape=f"aligner ({max_len}, {band}) B={B} steps={4 * S4}",
             B=B, steps=4 * S4, NW=NW, pairs=C, accepted=len(accepted),
             rows=sum(len(h) for h in host), rows_equal_host_decode=ok,
             cpu_tables_equal=same_cpu, launches_per_call=launches,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            max_abs_err=err, ms=ms, device_ms=dms, host_ms=ms - dms,
+            plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=None, cpu_ms=cpu_ms,
             host_cigar_decode_s=decode_s,
             fetched_bytes=al.stats["fetched_bytes"],
@@ -3784,16 +4049,35 @@ def phase_bp(dev, drawn, w=500):
 OPS_PER_ROW_BYTE = 2
 
 
+def bp_bound(B: int, steps: int, NW: int):
+    """``breaking_points``' least time on ``B`` op streams of ``steps``
+    steps: ``OPS_PER_BP_STEP`` a step; the stream read once, the four
+    ``[B]`` inputs and the two ``[B, NW]`` tables written once."""
+    return bound(B * steps * OPS_PER_BP_STEP,
+                 B * steps // 4 + 16 * B + 8 * B * NW)
+
+
+def rows_bound(B: int, max_len: int, band: int, bits: int):
+    """``build_rows``' least time on a chunk of ``B`` pairs: both upload
+    blocks (``bits`` a code) and ``n``, ``m`` read once, both rows of
+    ``band/2 + max_len + band`` bytes written once."""
+    width = band // 2 + max_len + band
+    return bound(OPS_PER_ROW_BYTE * 2 * B * width,
+                 2 * B * max_len * bits // 8 + 2 * B * width + 8 * B)
+
+
 def phase_rows(dev, drawn):
     """``build_rows`` at every aligner bucket any path launched, on the
     pairs of its largest kernels row (``drawn``: the largest batch any
     path launched there) and on all-'A' pairs of the same lengths: the
     chunk's upload blocks in each form (2, 4 and 8 bits; ``pack_chunk``)
     through the kernel and through ``build_rows_plain`` on the same card
-    tensors, bit for bit, one launch a call; the kernel's time (CUDA
-    events, ``ms``) beside the plain version's (``plain_ms``) and the
-    bound. From each form's rows the forward kernels (K1 and K4) and K2
-    must give the same outputs (``forms_agree``). Returns the phase record
+    tensors, bit for bit, one launch a call; a call's time (CUDA events,
+    ``ms``), the kernel's alone (``device_ms``, a CUDA graph of 20 calls)
+    and their difference (``host_ms``) beside the plain version's
+    (``plain_ms``) and the bound. From each form's rows the forward
+    kernels (K1 and K4) and K2 must give the same outputs
+    (``forms_agree``). Returns the phase record
     with the kernel's entry for the kernels line (``entry``: the 2-bit row
     of the ACGT pairs with the most row bytes, the others under
     ``other_shapes``) and the largest batch held at each bucket
@@ -3829,9 +4113,9 @@ def phase_rows(dev, drawn):
                           for a, b in zip(got, plain))
                 del plain
                 ms = time_ms(lambda: build_rows(qd, td, nd, md, **kw), 20)
+                dms = device_ms(lambda: build_rows(qd, td, nd, md, **kw))
                 upload = qd.numel() + td.numel()
-                bms, by = bound(OPS_PER_ROW_BYTE * 2 * B * width,
-                                upload + 2 * B * width + 8 * B)
+                bms, by = rows_bound(B, max_len, band, bits)
                 outs[bits] = [x.cpu() for packed16 in (False, True)
                               for x in align_chain(
                                   *got, nd, md, max_len=max_len, band=band,
@@ -3842,7 +4126,8 @@ def phase_rows(dev, drawn):
                           f"{bits}-bit {label}",
                     B=B, bits=bits, pairs=label, upload_bytes=upload,
                     row_bytes=2 * B * width, launches_per_call=launches,
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    max_abs_err=err, ms=ms, device_ms=dms,
+                    host_ms=ms - dms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=None))
             agree = all(torch.equal(a, b) for bits in (2, 4)
                         for a, b in zip(outs[bits], outs[8]))
@@ -3913,55 +4198,94 @@ def phase_agree(dev):
 def phase_profile(dev, paths):
     """The main path once more under torch.profiler: device time by
     kernel and the device's idle share of the run's wall time (one
-    stream, so busy time is the sum of device events)."""
+    stream, so busy time is the sum of device events), and the summed
+    bound of the run's ``breaking_points`` and ``build_rows`` launches
+    beside their device seconds. ``events_complete`` says whether the
+    profiler kept a device event for every launch of every kernel
+    (``kernel_events`` against ``kernel_launches``); where it is false,
+    the device seconds and the idle share undercount. In the whole smoke
+    (a process that profiled before, in the obs phase) the profiler has
+    kept no device event of a run's first six aligner chunks, so the
+    session first sees one kernel through and pauses, and a run that
+    still lost events is profiled once more (``attempts``: each one's
+    events)."""
     from torch.profiler import ProfilerActivity, profile
-    polisher = create_polisher(paths["reads"], paths["overlaps"],
-                               paths["draft"], num_threads=8,
-                               aligner="cuda", consensus="cuda",
-                               device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        polisher.run()
+
+    def mine(name, key):
+        return any(f"{name}{body}_kernel" in key
+                   for body in ("", "_warp", "_wide", "_thread"))
+
+    attempts = []
+    for _ in range(2):
+        polisher = create_polisher(paths["reads"], paths["overlaps"],
+                                   paths["draft"], num_threads=8,
+                                   aligner="cuda", consensus="cuda",
+                                   device=dev)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    rows, bp_s, bp_calls = [], 0.0, 0
-    for e in prof.key_averages():
-        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
-        if e.key == "breaking_points":
-            # the record_function range: on the host, with the device time
-            # of the kernels launched inside it; on the device, the range
-            # itself (no kernel of its own)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            time.sleep(1.0)
+            before = dict(cuda_nw.LAUNCHES)
+            t0 = time.perf_counter()
+            polisher.run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in cuda_nw.LAUNCHES.items()}
+        rows = []
+        for e in prof.key_averages():
+            on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
+            # device-side events only (kernels, copies): host ops report
+            # the device time of the kernels they launched as well
             if not on_device:
-                bp_s += (getattr(e, "device_time_total", None)
-                         or getattr(e, "cuda_time_total", 0)) / 1e6
-                bp_calls += e.count
-            continue
-        # device-side events only (kernels, copies): host ops report the
-        # device time of the kernels they launched as well
-        if not on_device:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us, e.count))
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                rows.append((e.key, us, e.count))
+        events = {name: sum(c for key, _, c in rows if mine(name, key))
+                  for name in cuda_nw.KERNELS}
+        attempts.append(events)
+        if all(events[k] == launches[k] for k in cuda_nw.KERNELS):
+            break
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(us for _, us, _ in rows) / 1e6
+    # the summed bounds of the run's breaking_points and build_rows
+    # launches, one a chunk, from the chunks the aligner launched (each
+    # chunk's rows in the run's one upload form)
+    al = polisher.aligner.stats
+    w = polisher.window_length
+    bp_bound_s = sum(bp_bound(B, steps, max_len // w + 2)[0]
+                     for max_len, _, _, B, steps in al["chunk_shapes"]) / 1e3
+    forms = [b for b, c in al["upload_forms"].items() if c]
+    rows_bound_s = (sum(rows_bound(B, max_len, band, forms[0])[0]
+                        for max_len, band, _, B, _ in al["chunk_shapes"])
+                    / 1e3 if len(forms) == 1 else None)
     # a kernel's device functions: <name>_kernel, K1's warp and wide
     # bodies <name>_warp_kernel<LPT>, <name>_wide_kernel<NW>, K2's thread
     # body walk_ops_thread_kernel
-    ours = {name: sum(us for key, us, _ in rows
-                      if any(f"{name}{body}_kernel" in key
-                             for body in ("", "_warp", "_wide", "_thread")))
-            / 1e6 for name in cuda_nw.KERNELS}
+    ours = {name: sum(us for key, us, _ in rows if mine(name, key)) / 1e6
+            for name in cuda_nw.KERNELS}
     out = dict(phase="profile", wall_s=wall_s, stages_s=polisher.timings,
                device_busy_s=busy_s,
-               breaking_points_device_s=bp_s,
-               breaking_points_calls=bp_calls,
+               breaking_points_device_s=ours["breaking_points"],
+               breaking_points_calls=launches["breaking_points"],
+               build_rows_calls=launches["build_rows"],
+               breaking_points_bound_s=bp_bound_s,
+               breaking_points_over_bound=(ours["breaking_points"]
+                                           / bp_bound_s),
+               build_rows_bound_s=rows_bound_s,
+               build_rows_upload_forms=forms,
                idle_share=(1.0 - busy_s / wall_s) if busy_s else None,
-               kernel_device_s=ours,
+               kernel_device_s=ours, kernel_events=events,
+               kernel_launches={k: launches[k] for k in cuda_nw.KERNELS},
+               events_complete=all(events[k] == launches[k]
+                                   for k in cuda_nw.KERNELS),
+               attempts=attempts,
+               build_rows_over_bound=(ours["build_rows"] / rows_bound_s
+                                      if rows_bound_s else None),
                top=[dict(name=k[:80], device_s=us / 1e6, count=c)
                     for k, us, c in rows[:12]])
     emit({k: v for k, v in out.items() if k != "top"})
@@ -3974,8 +4298,12 @@ def main() -> int:
               "script needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    if sys.argv[1:2] == ["--chain-ab"] and len(sys.argv) == 3:
-        return chain_ab(dev, pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) >= 4 and \
+            sys.argv[2] in AB_KERNELS:
+        return kernel_ab(dev, sys.argv[2],
+                         [pathlib.Path(a).resolve() for a in sys.argv[3:]])
+    if sys.argv[1:] == ["--bp-rows"]:
+        return bp_rows_only(dev)
     if sys.argv[1:2] == ["--multihost-rank"] and len(sys.argv) == 9:
         rank, world, port = (int(a) for a in sys.argv[2:5])
         return multihost_child(rank, world, port, *sys.argv[5:9])
@@ -4138,7 +4466,8 @@ def main() -> int:
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             shape=e["shape"], ok=e["ok"],
-            **{k: e[k] for k in ("variant", "bpt", "over_nw_fwd_i16x2",
+            **{k: e[k] for k in ("device_ms", "host_ms", "variant", "bpt",
+                                 "over_nw_fwd_i16x2",
                                  "over_nw_fwd_i32", "over_block",
                                  "over_thread", "over_warp")
                if k in e},

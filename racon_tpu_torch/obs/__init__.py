@@ -23,7 +23,8 @@ import time
 from contextlib import contextmanager, nullcontext
 
 from . import buildwatch, metrics, report, trace  # noqa: F401
-from .trace import span, track  # noqa: F401  (the public span surface)
+# the public span surface
+from .trace import profile_range, span, track  # noqa: F401
 
 
 def begin(trace_path=None, report_path=None) -> None:

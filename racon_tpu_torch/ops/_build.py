@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict
 
 from .._paths import build_root
 from ..obs import buildwatch
@@ -61,6 +61,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# exported C function -> its ctypes function, once looked up
+_functions: Dict[str, Callable[..., int]] = {}
 # name -> {"seconds": ..., "ptxas": ...} of builds made by this process
 build_log: Dict[str, dict] = {}
 
@@ -163,6 +165,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def function(fn: str):
-    """The ctypes function ``fn`` of its kernel library."""
-    owner: Optional[str] = SIGNATURES[fn][0]
-    return getattr(load(owner), fn)
+    """The ctypes function ``fn`` of its kernel library, looked up once."""
+    f = _functions.get(fn)
+    if f is None:
+        f = _functions[fn] = getattr(load(SIGNATURES[fn][0]), fn)
+    return f

@@ -27,6 +27,7 @@ threads launch concurrently.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -89,16 +90,30 @@ def _check_launch(fn: str, err: int) -> None:
                            f"{err}")
 
 
+# PyTorch's raw lookup of a card's current stream handle, which its
+# generated launchers use; ``torch.cuda.current_stream`` wraps the same
+# handle in a Stream object first. A private name: where a build lacks it
+# (every CPU-only build, or a later PyTorch), ``_stream`` takes the public
+# call.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of ``t``'s card's current stream (the capture stream
+    while a CUDA graph captures)."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(t.device).cuda_stream
+    return _RAW_STREAM(t.device.index)
 
 
 def launch_device(t: torch.Tensor):
     """The context of every kernel launch: ``t``'s card as the calling
     thread's current device. The C entries launch, and set their kernels'
     shared-memory attribute, on the current device, so a launch on
-    ``cuda:1`` from a thread whose current device is 0 must enter 1
-    first."""
+    ``cuda:1`` from a thread whose current device is 0 must enter 1 first
+    (a mesh's shards); a launch on the current card enters nothing."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
     return torch.cuda.device(t.device)
 
 

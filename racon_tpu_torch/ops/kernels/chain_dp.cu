@@ -47,7 +47,7 @@
 // and its offset; one body of 32-bit scores that found the nearest tie by
 // a __ballot_sync after the REDUX ran 1.26x slower at (S, B) = (256, 4096)
 // and 1.17x at (4096, 512) on an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py --chain-ab, PERF.md), hence the second, 64-bit body for
+// (chip_smoke.py --ab chain_dp, PERF.md), hence the second, 64-bit body for
 // the scores past 2^26. The slot loop is not unrolled: unrolled it ran
 // slower. Both groups of a warp
 // run to the larger of their two counts, so every shuffle has the whole

@@ -84,31 +84,35 @@ def build_rows(qblk: torch.Tensor, tblk: torch.Tensor, n: torch.Tensor,
     from column ``band/2``, zero elsewhere, the bytes of
     ``racon_tpu.ops.nw._build_rows`` / ``_build_rows_packed`` /
     ``_build_rows_packed2``. On CUDA tensors it launches the CUDA kernel
-    ``build_rows`` (``kernels/build_rows.cu``) or raises; on CPU tensors it
-    runs :func:`build_rows_plain`."""
+    ``build_rows`` (``kernels/build_rows.cu``) or raises, and the rows are
+    two views of one ``[2, B, width]`` tensor; on CPU tensors it runs
+    :func:`build_rows_plain`."""
     B = n.shape[0]
-    cuda_nw._require(bits in (2, 4, 8), f"build_rows: bits {bits} is not "
-                     f"2, 4 or 8")
-    cuda_nw._require(max_len > 0 and (max_len * bits) % 8 == 0,
-                     f"build_rows: max_len {max_len} is not whole bytes a "
-                     f"pair at {bits} bits")
-    cuda_nw._require(band > 0 and band % 2 == 0,
-                     f"build_rows: band {band} must be even")
+    # each message is formatted only when its check fails
+    if bits not in (2, 4, 8):
+        raise ValueError(f"build_rows: bits {bits} is not 2, 4 or 8")
+    if max_len <= 0 or (max_len * bits) % 8:
+        raise ValueError(f"build_rows: max_len {max_len} is not whole "
+                         f"bytes a pair at {bits} bits")
+    if band <= 0 or band % 2:
+        raise ValueError(f"build_rows: band {band} must be even")
     size = B * max_len * bits // 8
-    cuda_nw._require(all(x.dtype == torch.uint8 and x.shape == (size,)
-                         for x in (qblk, tblk)),
-                     f"build_rows: blocks must be uint8 [{size}]")
-    cuda_nw._require(all(x.dtype == torch.int32 and x.shape == (B,)
-                         for x in (n, m)),
+    if not (qblk.dtype == tblk.dtype == torch.uint8
+            and qblk.shape == tblk.shape == (size,)):
+        raise ValueError(f"build_rows: blocks must be uint8 [{size}]")
+    cuda_nw._require(n.dtype == m.dtype == torch.int32
+                     and n.shape == m.shape == (B,),
                      "build_rows: n, m must be int32 [B]")
     if qblk.device.type != "cuda":
         return build_rows_plain(qblk, tblk, n, m, max_len=max_len,
                                 band=band, bits=bits)
     cuda_nw._check_cuda_inputs("build_rows", qblk, tblk, n, m)
     width = band // 2 + max_len + band
-    with torch.profiler.record_function("build_rows"):
-        qrp = torch.empty((B, width), dtype=torch.uint8, device=qblk.device)
-        tp = torch.empty((B, width), dtype=torch.uint8, device=qblk.device)
+    with obs.profile_range("build_rows"):
+        # both rows in one allocation
+        rows = torch.empty((2, B, width), dtype=torch.uint8,
+                           device=qblk.device)
+        qrp, tp = rows[0], rows[1]
         fn = _build.function("rt_build_rows")
         with cuda_nw.launch_device(qblk):
             err = fn(qblk.data_ptr(), tblk.data_ptr(), n.data_ptr(),
@@ -173,18 +177,21 @@ def breaking_points(ops_packed: torch.Tensor, n: torch.Tensor,
     stream (``racon_tpu.ops.nw._breaking_points_kernel``): ``ops_packed``
     uint8 ``[B, S/4]``, ``n``, ``m``, ``first_rel``, ``nb`` int32 ``[B]``.
     Returns ``(bp_first, bp_last)`` int32 ``[B, NW]`` (the tables of
-    :func:`breaking_points_plain`). On CUDA tensors it launches the CUDA
-    kernel ``breaking_points`` (``kernels/breaking_points.cu``: one warp a
-    pair, one pass over the op stream, no ``[B, S]`` temporaries) or
-    raises; on CPU tensors it runs :func:`breaking_points_plain`."""
+    :func:`breaking_points_plain`; on the card two views of one ``[2, B,
+    NW]`` tensor). On CUDA tensors it launches the CUDA kernel
+    ``breaking_points`` (``kernels/breaking_points.cu``: a block of 256
+    threads a pair, one pass over the op stream, no ``[B, S]``
+    temporaries) or raises; on CPU tensors it runs
+    :func:`breaking_points_plain`."""
     B, S4 = ops_packed.shape
-    cuda_nw._require(all(x.shape == (B,) for x in (n, m, first_rel, nb)),
+    cuda_nw._require(n.shape == m.shape == first_rel.shape == nb.shape
+                     == (B,),
                      "breaking_points: ops_packed [B, S/4], n, m, "
                      "first_rel, nb [B]")
     cuda_nw._require(ops_packed.dtype == torch.uint8,
                      "breaking_points: ops_packed must be uint8")
-    cuda_nw._require(all(x.dtype == torch.int32
-                         for x in (n, m, first_rel, nb)),
+    cuda_nw._require(n.dtype == m.dtype == first_rel.dtype == nb.dtype
+                     == torch.int32,
                      "breaking_points: n, m, first_rel, nb must be int32")
     cuda_nw._require(w >= 1 and NW >= 1, "breaking_points: w, NW >= 1")
     if ops_packed.device.type != "cuda":
@@ -192,10 +199,11 @@ def breaking_points(ops_packed: torch.Tensor, n: torch.Tensor,
                                      NW=NW)
     cuda_nw._check_cuda_inputs("breaking_points", ops_packed, n, m,
                                first_rel, nb)
-    dev = ops_packed.device
-    with torch.profiler.record_function("breaking_points"):
-        bp_first = torch.empty((B, NW), dtype=torch.int32, device=dev)
-        bp_last = torch.empty((B, NW), dtype=torch.int32, device=dev)
+    with obs.profile_range("breaking_points"):
+        # both tables in one allocation
+        tables = torch.empty((2, B, NW), dtype=torch.int32,
+                             device=ops_packed.device)
+        bp_first, bp_last = tables[0], tables[1]
         fn = _build.function("rt_breaking_points")
         with cuda_nw.launch_device(ops_packed):
             err = fn(ops_packed.data_ptr(), n.data_ptr(), m.data_ptr(),

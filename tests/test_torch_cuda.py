@@ -387,6 +387,26 @@ def test_aligner_card_matches_cpu(cuda_device):
     assert card.stats["device"] > 30
 
 
+def test_raw_stream_lookup_is_the_current_stream(cuda_device):
+    """This PyTorch build has the raw stream lookup ``cuda_nw._stream``
+    prefers, and it gives ``torch.cuda.current_stream``'s handle: on the
+    default stream, on a side stream, and on the capture stream of a CUDA
+    graph."""
+    assert cuda_nw._RAW_STREAM is not None
+    t = torch.zeros(1, device=cuda_device)
+    assert cuda_nw._stream(t) == \
+        torch.cuda.current_stream(cuda_device).cuda_stream
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        assert cuda_nw._stream(t) == side.cuda_stream
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        seen = (cuda_nw._stream(t),
+                torch.cuda.current_stream(cuda_device).cuda_stream)
+        t.add_(1)
+    assert seen[0] == seen[1]
+
+
 def test_breaking_points_card_matches_cpu(cuda_device):
     """breaking_points on the card == on the CPU from one chunk's op stream
     (the aligner grid's forward pass and walk on the card), at window
@@ -428,16 +448,82 @@ def _bp_streams(rng, B, S, max_len, w):
     return [packed] + [torch.from_numpy(a) for a in (n, m, first_rel, nb)]
 
 
+def _pass_start_streams(w, copies=1):
+    """Op streams of 16384 steps (four passes of the kernel's 4096) whose
+    chosen interval boundary falls within a thread's 16 steps of a pass's
+    start, so an interval that began in the previous pass ends inside the
+    first thread of the pass with a match: at steps 4096 + 1, + 5 and + 15
+    (thread 0 of pass 1), after 16 insertions at 4096 + 23 (thread 1),
+    at 8192 + 3 after 4096 steps of insertions and deletions (thread 0 of
+    pass 2), and at 4093 (the last thread of pass 0); matches elsewhere.
+    The rows repeat ``copies`` times. Returns the packed ops and (n, m,
+    first_rel, nb) as tensors, and each row's boundary step."""
+    from racon_tpu_torch.ops.nw import window_geometry
+    S = 16384
+    rows = [([0] * 8192, 4096 + 1), ([0] * 8192, 4096 + 5),
+            ([0] * 8192, 4096 + 15),
+            ([0] * 4096 + [1] * 16 + [0] * 4080, 4096 + 16 + 7),
+            ([1, 2] * 2048 + [0] * 6144, 8192 + 3),
+            ([0] * 8192, 4093)]
+    codes = np.full((len(rows), S), 3, np.uint8)
+    tb = np.zeros(len(rows), np.int64)
+    for i, (path, at) in enumerate(rows):
+        codes[i, :len(path)] = path
+        md = (codes[i] == 0) | (codes[i] == 2)
+        tpos = int(md.sum()) - 1 - int(md[:at].sum())
+        assert codes[i, at] == 0 and codes[i, at - 1] == 0
+        # the match at step ``at`` is the first below a multiple of w
+        tb[i] = (tpos // w + 2) * w - 1 - tpos
+    codes = np.tile(codes, (copies, 1))
+    tb = np.tile(tb, copies)
+    n = (codes <= 1).sum(1).astype(np.int32)
+    m = ((codes == 0) | (codes == 2)).sum(1).astype(np.int32)
+    first_rel, nb = window_geometry(tb, m, w)
+    packed = cuda_nw.pack_ops(torch.from_numpy(codes))
+    return ([packed] + [torch.from_numpy(a) for a in (n, m, first_rel, nb)],
+            [at for _, at in rows] * copies)
+
+
+@pytest.mark.parametrize("w", [12, 500, 1000])
+def test_breaking_points_kernel_pass_start_boundaries(cuda_device, w):
+    """Intervals that begin in one pass and end within 16 steps of the
+    next pass's start (``_pass_start_streams``), 2046 pairs, 40 launches:
+    every launch == breaking_points_plain bit for bit. The first run's
+    bp_first store of such a thread and the previous pass's last store
+    to the same entry are ordered by the pass's barrier; a kernel that
+    stored it before the barrier could lose it to a warp scheduled
+    late."""
+    from racon_tpu_torch.ops.nw import breaking_points, breaking_points_plain
+    NW = 8192 // w + 2
+    host, _ = _pass_start_streams(w, copies=341)
+    dev = [x.to(cuda_device) for x in host]
+    want = breaking_points_plain(*dev, w=w, NW=NW)
+    before = cuda_nw.LAUNCHES["breaking_points"]
+    bad = 0
+    for _ in range(40):
+        got = breaking_points(*dev, w=w, NW=NW)
+        bad += sum(int((a != b).any(1).sum()) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    assert cuda_nw.LAUNCHES["breaking_points"] == before + 40
+    assert bad == 0
+    assert (want[0] < 1 << 30).all(1).any()
+
+
 @pytest.mark.parametrize("B,S,w,trim", [(37, 4096, 100, 0),
                                         (64, 8192, 100, 0),
                                         (9, 2048, 200, 3),
-                                        (130, 1024, 60, 0)])
+                                        (130, 1024, 60, 0),
+                                        (5, 16384, 500, 0),
+                                        (11, 6000, 300, 2),
+                                        (3, 8196, 100, 0),
+                                        (7, 4100, 1000, 1)])
 def test_breaking_points_kernel_matches_plain(cuda_device, B, S, w, trim):
     """The CUDA kernel == breaking_points_plain on the same card tensors:
-    one and several 2048-step tiles, B not a multiple of the 4 pairs a
-    block takes, rows that end inside a lane's 16 bytes and are not 16 B
-    aligned (``trim``), NW over one 32-entry chunk (w 100 at 8192 steps:
-    NW 42)."""
+    one pass of 4096 steps, two, four (the aligner's 16384) and a part of
+    one, rows that end inside a pass (S/4 = 1498, 2049: one byte into a
+    third pass; 1024 after a trim) and inside a thread's 4 bytes and are
+    not 4 B aligned (``trim``, odd S/4), intervals across passes (w 500 and
+    1000), NW over one 32-entry chunk (w 100 at 8192 steps: NW 42)."""
     from racon_tpu_torch.ops.nw import breaking_points, breaking_points_plain
     max_len = S // 2
     NW = max_len // w + 2

@@ -227,6 +227,24 @@ def test_spans_are_record_function_ranges_under_profile(tmp_path):
     assert "align.dispatch" in files[0].read_text()
 
 
+def test_kernel_ranges_only_while_a_profile_records(tmp_path):
+    """``obs.profile_range`` (the kernel wrappers' range) is one shared
+    no-op without a profile, and a ``record_function`` range in the trace
+    while ``obs.profile`` records."""
+    assert obs.profile_range("breaking_points") is obs.profile_range("x")
+    with obs.profile_range("breaking_points"):
+        pass
+    with obs.profile(str(tmp_path / "p")):
+        rng = obs.profile_range("breaking_points")
+        assert isinstance(rng, torch.profiler.record_function)
+        with rng:
+            torch.ones(4).sum()
+    assert not isinstance(obs.profile_range("breaking_points"),
+                          torch.profiler.record_function)
+    files = list((tmp_path / "p").glob("torch_trace.*.json"))
+    assert len(files) == 1 and "breaking_points" in files[0].read_text()
+
+
 # -------------------------------------------------------------- reports
 
 def test_report_round_trip(tmp_path):

@@ -356,12 +356,16 @@ class _FakeCuda:
     def data_ptr(self):
         return 4096
 
+    def __getitem__(self, i):
+        return _FakeCuda(self.shape[1:], self.dtype, self.device.index)
+
 
 @contextmanager
 def _fake_card(monkeypatch):
     """Launches without a card: ``torch.cuda.device`` records the device
-    it enters, allocations make fakes on the requested device, and every
-    C entry records the current device when it is called."""
+    it enters, ``torch.cuda.current_device`` reports it (0 outside any),
+    allocations make fakes on the requested device, and every C entry
+    records the current device when it is called."""
     current, calls = [None], []
 
     class FakeDevice:
@@ -386,6 +390,8 @@ def _fake_card(monkeypatch):
         return fn
 
     monkeypatch.setattr(torch.cuda, "device", FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: 0 if current[0] is None else current[0].index)
     monkeypatch.setattr(torch, "empty", empty)
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(cuda_nw, "_stream", lambda t: 0)
@@ -417,6 +423,59 @@ def test_every_wrapper_launches_on_its_tensors_device(monkeypatch):
             "rt_chain_dp"} <= launched and len(calls) == 6
     # every C entry ran with the tensors' card (cuda:1) current
     assert {dev for _, dev in calls} == {torch.device("cuda", 1)}
+
+
+def test_launches_on_the_current_card_enter_no_device(monkeypatch):
+    """Tensors on the current card (cuda:0 here) launch with no device
+    switch: no ``torch.cuda.device`` is entered, and every C entry still
+    runs with that card current."""
+    B, L, band = 4, 256, 128
+    width = band // 2 + L + band
+    u8, i32 = torch.uint8, torch.int32
+    entered = []
+    with _fake_card(monkeypatch) as calls:
+        fake_device = torch.cuda.device
+
+        def device(dev):
+            entered.append(dev)
+            return fake_device(dev)
+        monkeypatch.setattr(torch.cuda, "device", device)
+        row = _FakeCuda((B, width), u8, index=0)
+        lens = _FakeCuda((B,), i32, index=0)
+        cuda_nw.nw_fwd(row, row, lens, lens, max_len=L, band=band,
+                       steps=512, packed16=True)
+        tnw.breaking_points(_FakeCuda((B, 128), u8, index=0), lens, lens,
+                            lens, lens, w=100, NW=4)
+        tnw.build_rows(_FakeCuda((B * L // 4,), u8, index=0),
+                       _FakeCuda((B * L // 4,), u8, index=0), lens, lens,
+                       max_len=L, band=band, bits=2)
+    assert entered == []
+    assert [entry for entry, _ in calls] == [
+        cuda_nw.FWD_I16X2_ENTRIES[cuda_nw.fwd_i16x2_body(band, B)[0]],
+        "rt_breaking_points", "rt_build_rows"]
+    assert {dev for _, dev in calls} == {None}
+
+
+def test_stream_handle_by_raw_lookup_or_public_call(monkeypatch):
+    """``cuda_nw._stream`` resolves PyTorch's raw stream lookup once, as
+    ``torch._C`` has it (absent from a CPU-only build), and asks it for the
+    tensor's card; without it, ``torch.cuda.current_stream`` of the
+    tensor's device gives the handle."""
+    assert cuda_nw._RAW_STREAM is getattr(
+        torch._C, "_cuda_getCurrentRawStream", None)
+    t = _FakeCuda((4,), torch.uint8, index=1)
+    asked = []
+    monkeypatch.setattr(cuda_nw, "_RAW_STREAM",
+                        lambda index: asked.append(index) or 7000 + index)
+    assert cuda_nw._stream(t) == 7001 and asked == [1]
+
+    class Stream:
+        cuda_stream = 9001
+    monkeypatch.setattr(cuda_nw, "_RAW_STREAM", None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: asked.append(device) or Stream)
+    assert cuda_nw._stream(t) == 9001
+    assert asked == [1, torch.device("cuda", 1)]
 
 
 def test_inputs_on_two_devices_raise(monkeypatch):

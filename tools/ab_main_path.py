@@ -14,7 +14,7 @@ consensus group shapes, where the tree records them), launches per
 kernel, the SHA-256 of the polished FASTA (it must be the same for every
 tree), then a second pass under ``torch.profiler``:
 its wall, the device's busy seconds and idle share, and the device seconds
-of the forward kernels, the walks and the ``breaking_points`` range; then
+of the forward kernels, the walks and the ``breaking_points`` kernel; then
 a third pass with the span timers on (``spanned``: its stages hold
 ``align_dispatch_s``, the span ``align.dispatch``). It skips what the
 smoke's other phases do (kernel parity, edit distances).
@@ -85,20 +85,15 @@ busy, groups = 0.0, {"forward": 0.0, "walk_ops": 0.0, "walk_vote": 0.0}
 bp = 0.0
 for e in prof.key_averages():
     on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
-    if e.key == "breaking_points":
-        # the host range carries its kernels' device time; the device
-        # range is no kernel of its own
-        if not on_device:
-            bp += (getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0)) / 1e6
-        continue
     if not on_device:
         continue
     us = getattr(e, "self_device_time_total", None)
     if us is None:
         us = getattr(e, "self_cuda_time_total", 0)
     busy += us / 1e6
-    if "nw_fwd_" in e.key:
+    if "breaking_points_kernel" in e.key:
+        bp += us / 1e6
+    elif "nw_fwd_" in e.key:
         groups["forward"] += us / 1e6
     elif "walk_ops" in e.key:
         groups["walk_ops"] += us / 1e6
